@@ -9,11 +9,17 @@ the reference's module names so each counterpart is easy to find:
                                 numpy SceneBuilder;
   * ``models.library``        — the canonical scenes ported so far;
   * ``ops.rng``               — bit-exact threefry2x32 on int64 tensors;
+  * ``ops.vec3`` / ``vecmath`` — column-SoA vectors and samplers;
   * ``ops.camera``            — thin-lens camera and primary rays;
-  * ``ops.kernels.mega_kernel`` — the forward megakernel (CUDA) and its plain
-                                PyTorch version;
+  * ``ops.intersect`` / ``shade`` / ``integrator`` — the lockstep
+                                differentiable path (autograd);
+  * ``ops.kernels.mega_kernel`` — the megakernel (CUDA): forward (K1) and
+                                record (K2) instances, and its plain version;
+  * ``ops.kernels.mega_diff`` — the fused differentiable path: K2 + the
+                                replay kernel (CUDA) and its plain version;
   * ``ops.render``            — single-mode render driver;
-  * ``cli``                   — the command-line renderer.
+  * ``grad.diff``             — render_loss, gradients, the adam train step;
+  * ``cli``, ``bench``        — the command-line renderer and the bench.
 
 Every function that builds tensors takes an explicit ``device``; there is no
 global device state.

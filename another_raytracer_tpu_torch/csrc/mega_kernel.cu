@@ -2,8 +2,10 @@
 // path-trace loop of a sweep-only scene, one thread per ray lane.
 //
 // Replaces: another_raytracer_tpu/ops/pallas/mega_kernel.py::_kernel in sweep
-// mode (record_iters == 0, no sphere BVH), reached through
-// trace_regenerative_mega.  Same inputs and outputs, same per-lane algorithm:
+// mode (no sphere BVH), reached through trace_regenerative_mega: the forward
+// instance (record_iters == 0, K1) and the record instance (record_iters > 0,
+// K2, the primal of the fused differentiable path, ops/pallas/mega_diff.py).
+// Same inputs and outputs, same per-lane algorithm:
 // camera ray (lens and shutter draws gated), threefry-2x32 draws keyed on
 // (seed, bounce<<8|dim) x (pixel, sample), closest-hit sweep over world-baked
 // sphere rows then rect rows with the strict `t < best_t` tie rule (the
@@ -29,15 +31,39 @@
 // function of its key and counter.  Tuning (block size, occupancy, draw
 // batching) is later work.
 //
+// Record mode (K2) is the same kernel compiled with the compile-time constant
+// RECORD set, so the forward instance keeps its registers and its time and
+// only the record instance pays for the residual writes.  The file is built
+// twice (ops/kernels/_build.py): as is, for the forward instance
+// (art_mega_forward, art_threefry_words), and with -DART_RECORD -fmad=false
+// for the record instance (art_mega_record).  The record build contracts no a*b+c into an
+// FMA and takes sin and cos in double (correctly rounded float results) and
+// rsqrt as 1/sqrt: those are the plain version's ops, so its recorded paths
+// are the plain version's bit for bit, where FMA contraction alone flipped
+// the path of ~5% of the lanes at the bench size (measured on the H100,
+// against ~17% more K2 time).  Per lane and loop iteration it writes one
+// int32 code tid*16 + checker_odd*8 + chain_end*4 + event (event 0 idle or
+// metal absorption, 1 scatter, 2 light hit, 3 miss; tid the winner's texture
+// id, n_textures for a dielectric scatter) and the three channels of the
+// iteration-entry throughput.  Row i is the lane's own i-th loop iteration,
+// which is the TPU kernel's block-level iteration i (a lane steps once per
+// block iteration from iteration 0 until it is dead).  Layout [iters, B]
+// row-major, so a warp's writes for one iteration are contiguous; rows past
+// the lane's end are written as zeros.  At the bench size (97,200 lanes x 128
+// iterations x 16 B) that is 199 MB of device memory, written once: the
+// TPU's 4 MB VMEM block cap does not apply here.
+//
 // Numerics: IEEE division and sqrt and full-range sinf/cosf (no fast math).
-// nvcc contracts a*b+c into FMA, so results agree with the plain PyTorch
-// version (trace_regenerative_mega_reference) to a tolerance, not bit for
-// bit; the threefry words agree bit for bit (art_threefry_words).
+// In the forward build nvcc contracts a*b+c into FMA, so results agree with
+// the plain PyTorch version (trace_regenerative_mega_reference) to a
+// tolerance, not bit for bit; the threefry words agree bit for bit
+// (art_threefry_words).  The record build: see above.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC  (another_raytracer_tpu_torch/ops/kernels/_build.py)
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -52,6 +78,7 @@ constexpr int ROUNDS = 13;
 // Row columns shared by both primitive kinds (mega_kernel.py:75-77).
 constexpr int C_MKIND = 16, C_FUZZ = 17, C_IR = 18, C_TKIND = 19;
 constexpr int C_CA = 20, C_CB = 23;
+constexpr int C_TID = 26;  // texture id (exact in f32)
 
 constexpr float MAT_METAL = 1.0f, MAT_DIELECTRIC = 2.0f, MAT_DIFFUSE_LIGHT = 3.0f;
 constexpr float TEX_CHECKER = 1.0f;
@@ -59,6 +86,12 @@ constexpr float TEX_CHECKER = 1.0f;
 constexpr uint32_t CAMERA_BOUNCE = 0xFF00u;
 constexpr uint32_t DIM_PIXEL_JITTER = 0, DIM_LENS = 2, DIM_TIME = 4;
 constexpr uint32_t DIM_SCATTER_A = 0, DIM_SCATTER_B = 2;
+
+#ifdef ART_RECORD
+constexpr bool RECORD = true;
+#else
+constexpr bool RECORD = false;
+#endif
 
 enum Flags : int {
   HAS_LENS = 1, HAS_TIME = 2, HAS_METAL = 4, HAS_DIEL = 8, HAS_LIGHT = 16,
@@ -79,6 +112,14 @@ struct Params {
   float inv_w1, inv_h1, h1, t_min;
   uint32_t seed, limit, stride;
   int width, n, n_spheres, n_rects, max_depth, flags;
+};
+
+// Residual outputs of the record instance: codes [iters][n] int32 and
+// tprev [3][iters][n] f32, both device memory.
+struct Record {
+  int* codes;
+  float* tprev;
+  int iters, n_textures;
 };
 
 __host__ __device__ constexpr int rot_of(int r) {
@@ -110,6 +151,20 @@ __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
   }
 }
 
+// The transcendentals of each build (see the header).
+__device__ __forceinline__ float sin_(float x) {
+  if constexpr (RECORD) return (float)sin((double)x);
+  else return sinf(x);
+}
+__device__ __forceinline__ float cos_(float x) {
+  if constexpr (RECORD) return (float)cos((double)x);
+  else return cosf(x);
+}
+__device__ __forceinline__ float rsqrt_(float x) {
+  if constexpr (RECORD) return 1.0f / sqrtf(x);
+  else return rsqrtf(x);
+}
+
 // Top 24 bits x 2^-24: exact, in [0, 1).
 __device__ __forceinline__ float uniform_from_bits(uint32_t b) {
   return (float)(b >> 8) * 5.9604644775390625e-8f;
@@ -138,8 +193,8 @@ __device__ __forceinline__ void cam_rays(const Params& p, uint32_t pix,
     uniform2(p.seed, pix, sample, CAMERA_BOUNCE, DIM_LENS, lu, lv);
     const float rr = sqrtf(lu);
     const float phi = TWO_PI * lv;
-    const float rdx = c.lens_radius * (rr * cosf(phi));
-    const float rdy = c.lens_radius * (rr * sinf(phi));
+    const float rdx = c.lens_radius * (rr * cos_(phi));
+    const float rdy = c.lens_radius * (rr * sin_(phi));
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
       const float offs = c.u[k] * rdx + c.w[k] * rdy;
@@ -173,7 +228,8 @@ __global__ void mega_forward_kernel(const float* __restrict__ rows_g,
                                     float* __restrict__ out_x,
                                     float* __restrict__ out_y,
                                     float* __restrict__ out_z,
-                                    int* __restrict__ out_seg) {
+                                    int* __restrict__ out_seg,
+                                    const Record rec) {
   __shared__ float rows[MAX_ROWS * ROW_W];
   const int n_rows = p.n_spheres + p.n_rects;
   for (int k = threadIdx.x; k < n_rows * ROW_W; k += blockDim.x) rows[k] = rows_g[k];
@@ -201,9 +257,19 @@ __global__ void mega_forward_kernel(const float* __restrict__ rows_g,
   float acc[3] = {0.0f, 0.0f, 0.0f};
   uint32_t bounce = 0;
   int seg = alive ? 1 : 0;
+  int it = 0;  // this lane's loop iteration (record row)
 
   while (alive) {
     const float a_len = dot3(d, d);
+    // Record instance only: entry throughput and the row's code parts.
+    float tp_entry[3];
+    int ev = 0, tid = 0;
+    bool odd = false;
+    if constexpr (RECORD) {
+      tp_entry[0] = tp[0];
+      tp_entry[1] = tp[1];
+      tp_entry[2] = tp[2];
+    }
 
     // ---- closest-hit sweep: spheres, then rects (intersect.closest_hit
     // fold order); strict improvement keeps the earlier row on ties.
@@ -264,6 +330,7 @@ __global__ void mega_forward_kernel(const float* __restrict__ rows_g,
       // Miss: the background, weighted by the throughput.
 #pragma unroll
       for (int k = 0; k < 3; ++k) path[k] = path[k] + tp[k] * p.cam.bg[k];
+      if constexpr (RECORD) ev = 3;
     } else {
       // ---- shade + scatter (shade.emit_and_scatter) ----------------------
       const float* r = rows + best * ROW_W;
@@ -276,13 +343,15 @@ __global__ void mega_forward_kernel(const float* __restrict__ rows_g,
       }
       const float mk = r[C_MKIND];
       float alb[3] = {r[C_CA], r[C_CA + 1], r[C_CA + 2]};
+      if constexpr (RECORD) tid = (int)r[C_TID];
       if (has_checker && r[C_TKIND] == TEX_CHECKER) {
-        const float sines = sinf(10.0f * hp[0]) * sinf(10.0f * hp[1]) *
-                            sinf(10.0f * hp[2]);
+        const float sines = sin_(10.0f * hp[0]) * sin_(10.0f * hp[1]) *
+                            sin_(10.0f * hp[2]);
         if (sines < 0.0f) {
           alb[0] = r[C_CB];
           alb[1] = r[C_CB + 1];
           alb[2] = r[C_CB + 2];
+          if constexpr (RECORD) odd = true;
         }
       }
 
@@ -290,6 +359,7 @@ __global__ void mega_forward_kernel(const float* __restrict__ rows_g,
         // Emits and absorbs: the path ends here.
 #pragma unroll
         for (int k = 0; k < 3; ++k) path[k] = path[k] + tp[k] * alb[k];
+        if constexpr (RECORD) ev = 2;
       } else {
         float u1, u2, u3 = 0.0f, u4 = 0.0f;
         uniform2(p.seed, pix, sample, bounce, DIM_SCATTER_A, u1, u2);
@@ -297,14 +367,14 @@ __global__ void mega_forward_kernel(const float* __restrict__ rows_g,
         const float zz = 1.0f - 2.0f * u1;
         const float rr = sqrtf(fmaxf(0.0f, 1.0f - zz * zz));
         const float phi = TWO_PI * u2;
-        const float ru[3] = {rr * cosf(phi), rr * sinf(phi), zz};
+        const float ru[3] = {rr * cos_(phi), rr * sin_(phi), zz};
 
         float new_d[3];
         float att[3] = {alb[0], alb[1], alb[2]};
         bool ok = true;
         if (has_metal && mk == MAT_METAL) {
           // material.h:49-56 with a fuzzed mirror direction.
-          const float inv_len = rsqrtf(a_len > 0.0f ? a_len : 1.0f);
+          const float inv_len = rsqrt_(a_len > 0.0f ? a_len : 1.0f);
           const float ud[3] = {d[0] * inv_len, d[1] * inv_len, d[2] * inv_len};
           const float cr = u3 > 0.0f
               ? expf(logf(fmaxf(u3, 1e-38f)) * (1.0f / 3.0f)) : 0.0f;
@@ -317,7 +387,7 @@ __global__ void mega_forward_kernel(const float* __restrict__ rows_g,
         } else if (has_diel && mk == MAT_DIELECTRIC) {
           // material.h:66-90: refract or reflect (Schlick), vec3.refract
           // with the 1e-12 floors.
-          const float inv_len = rsqrtf(a_len > 0.0f ? a_len : 1.0f);
+          const float inv_len = rsqrt_(a_len > 0.0f ? a_len : 1.0f);
           const float ud[3] = {d[0] * inv_len, d[1] * inv_len, d[2] * inv_len};
           const float ir = r[C_IR];
           const float ratio = front ? 1.0f / ir : ir;
@@ -342,6 +412,8 @@ __global__ void mega_forward_kernel(const float* __restrict__ rows_g,
             for (int k = 0; k < 3; ++k) new_d[k] = perp[k] + n[k] * par;
           }
           att[0] = att[1] = att[2] = 1.0f;
+          // Attenuation 1: the sentinel id routes no albedo gradient.
+          if constexpr (RECORD) tid = rec.n_textures;
         } else {
           // lambertian (material.h:29-36)
           const float lam[3] = {n[0] + ru[0], n[1] + ru[1], n[2] + ru[2]};
@@ -353,6 +425,7 @@ __global__ void mega_forward_kernel(const float* __restrict__ rows_g,
         }
         if (ok) {
           scattered = true;
+          if constexpr (RECORD) ev = 1;
 #pragma unroll
           for (int k = 0; k < 3; ++k) {
             tp[k] = tp[k] * att[k];
@@ -366,7 +439,20 @@ __global__ void mega_forward_kernel(const float* __restrict__ rows_g,
     // ---- carry update + regeneration (integrator._advance + regen body)
     bounce += 1u;
     seg += scattered ? 1 : 0;
-    if (!(scattered && bounce < (uint32_t)p.max_depth)) {
+    const bool ended = !(scattered && bounce < (uint32_t)p.max_depth);
+    if constexpr (RECORD) {
+      if (it < rec.iters) {
+        const size_t row = (size_t)it * p.n + lane;
+        rec.codes[row] = (ev > 0 ? tid * 16 : 0) + (odd ? 8 : 0) +
+                         (ended ? 4 : 0) + ev;
+        const size_t plane = (size_t)rec.iters * p.n;
+        rec.tprev[row] = tp_entry[0];
+        rec.tprev[plane + row] = tp_entry[1];
+        rec.tprev[2 * plane + row] = tp_entry[2];
+      }
+      ++it;
+    }
+    if (ended) {
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
         acc[k] = acc[k] + path[k];
@@ -387,6 +473,17 @@ __global__ void mega_forward_kernel(const float* __restrict__ rows_g,
   out_y[lane] = acc[1];
   out_z[lane] = acc[2];
   out_seg[lane] = seg;
+  if constexpr (RECORD) {
+    // Rows past this lane's end are zero (idle rows: the replay skips them).
+    const size_t plane = (size_t)rec.iters * p.n;
+    for (; it < rec.iters; ++it) {
+      const size_t row = (size_t)it * p.n + lane;
+      rec.codes[row] = 0;
+      rec.tprev[row] = 0.0f;
+      rec.tprev[plane + row] = 0.0f;
+      rec.tprev[2 * plane + row] = 0.0f;
+    }
+  }
 }
 
 __global__ void threefry_words_kernel(uint32_t seed, uint32_t key1,
@@ -406,26 +503,17 @@ __global__ void threefry_words_kernel(uint32_t seed, uint32_t key1,
   u1[i] = uniform_from_bits(x1);
 }
 
-}  // namespace
-
-// Launches the forward megakernel on `stream`.  `camc` is a HOST array of 24
-// floats (copied into the kernel's arguments); every other pointer is device
-// memory.  Returns cudaGetLastError() (0 on success).
-extern "C" int art_mega_forward(const float* rows, int n_spheres, int n_rects,
-                                const float* camc, const uint32_t* pixel_ids,
-                                const uint32_t* sample_ids0, int n,
-                                uint32_t seed, uint32_t limit, uint32_t stride,
-                                int width, int height, int max_depth,
-                                float t_min, int flags, int block,
-                                float* out_x, float* out_y, float* out_z,
-                                int* out_seg, void* stream) {
+// Checks the launch arguments and fills the kernel's Params; returns
+// cudaSuccess or cudaErrorInvalidValue.
+cudaError_t make_params(int n_spheres, int n_rects, const float* camc, int n,
+                        uint32_t seed, uint32_t limit, uint32_t stride,
+                        int width, int height, int max_depth, float t_min,
+                        int flags, int block, Params& p) {
   if (n_spheres < 0 || n_rects < 0 || n_spheres + n_rects > MAX_ROWS ||
       n_spheres + n_rects == 0 || n < 0 || width < 2 || height < 2 ||
       stride == 0 || block <= 0) {
-    return (int)cudaErrorInvalidValue;
+    return cudaErrorInvalidValue;
   }
-  if (n == 0) return (int)cudaSuccess;
-  Params p;
   float* cam = reinterpret_cast<float*>(&p.cam);
   for (int k = 0; k < 24; ++k) cam[k] = camc[k];
   p.inv_w1 = (float)(1.0 / (width - 1));
@@ -441,9 +529,32 @@ extern "C" int art_mega_forward(const float* rows, int n_spheres, int n_rects,
   p.n_rects = n_rects;
   p.max_depth = max_depth;
   p.flags = flags;
+  return cudaSuccess;
+}
+
+}  // namespace
+
+#ifndef ART_RECORD
+// Launches the forward instance (K1) on `stream`.  `camc` is a HOST array of
+// 24 floats (copied into the kernel's arguments); every other pointer is
+// device memory.  Returns cudaGetLastError() (0 on success).
+extern "C" int art_mega_forward(const float* rows, int n_spheres, int n_rects,
+                                const float* camc, const uint32_t* pixel_ids,
+                                const uint32_t* sample_ids0, int n,
+                                uint32_t seed, uint32_t limit, uint32_t stride,
+                                int width, int height, int max_depth,
+                                float t_min, int flags, int block,
+                                float* out_x, float* out_y, float* out_z,
+                                int* out_seg, void* stream) {
+  Params p;
+  const cudaError_t bad = make_params(n_spheres, n_rects, camc, n, seed, limit,
+                                      stride, width, height, max_depth, t_min,
+                                      flags, block, p);
+  if (bad != cudaSuccess) return (int)bad;
+  if (n == 0) return (int)cudaSuccess;
   const int grid = (n + block - 1) / block;
   mega_forward_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      rows, pixel_ids, sample_ids0, p, out_x, out_y, out_z, out_seg);
+      rows, pixel_ids, sample_ids0, p, out_x, out_y, out_z, out_seg, Record{});
   return (int)cudaGetLastError();
 }
 
@@ -462,3 +573,34 @@ extern "C" int art_threefry_words(uint32_t seed, uint32_t key1,
       seed, key1, pixel, sample, n, w0, w1, u0, u1);
   return (int)cudaGetLastError();
 }
+#else
+// Launches the record instance (K2) on `stream`: art_mega_forward's
+// arguments plus the residual outputs codes [record_iters][n] int32 and
+// tprev [3][record_iters][n] f32 (device memory, every element written) and
+// the texture count (the dielectric sentinel id).  Returns
+// cudaGetLastError() (0 on success).
+extern "C" int art_mega_record(const float* rows, int n_spheres, int n_rects,
+                               const float* camc, const uint32_t* pixel_ids,
+                               const uint32_t* sample_ids0, int n,
+                               uint32_t seed, uint32_t limit, uint32_t stride,
+                               int width, int height, int max_depth,
+                               float t_min, int flags, int block,
+                               float* out_x, float* out_y, float* out_z,
+                               int* out_seg, int record_iters, int n_textures,
+                               int* codes, float* tprev, void* stream) {
+  Params p;
+  const cudaError_t bad = make_params(n_spheres, n_rects, camc, n, seed, limit,
+                                      stride, width, height, max_depth, t_min,
+                                      flags, block, p);
+  if (bad != cudaSuccess) return (int)bad;
+  if (record_iters < 1 || codes == nullptr || tprev == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n == 0) return (int)cudaSuccess;
+  const int grid = (n + block - 1) / block;
+  mega_forward_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      rows, pixel_ids, sample_ids0, p, out_x, out_y, out_z, out_seg,
+      Record{codes, tprev, record_iters, n_textures});
+  return (int)cudaGetLastError();
+}
+#endif

@@ -185,6 +185,11 @@ class SceneData:
         return dataclasses.replace(
             self, **{k: v.to(device) for k, v in self.tensors().items()})
 
+    def replace(self, **fields) -> "SceneData":
+        """A copy with ``fields`` swapped in (the JAX SceneData.replace that
+        grad/diff.merge_params uses); tensors keep their autograd history."""
+        return dataclasses.replace(self, **fields)
+
 
 def scene_from_reference(obj, device="cpu") -> SceneData:
     """Carry a JAX-package SceneData across: ``np.asarray`` on every leaf the

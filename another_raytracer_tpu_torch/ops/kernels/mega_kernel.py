@@ -17,6 +17,17 @@ regeneration until the lane's samples are spent.
   same rows, keys and fold order.  It runs on any device; the CPU tests hold
   it against the JAX kernel in interpret mode, and ``chip_smoke.py`` holds
   the CUDA kernel against it on the card.
+* ``record_iters > 0`` selects record mode (K2, the primal of the fused
+  differentiable path, ``mega_diff.py``): per lane and loop iteration one
+  int32 code ``tid*16 + checker_odd*8 + chain_end*4 + event`` (event 0 idle
+  or metal absorption, 1 scatter, 2 light hit, 3 miss; ``tid`` the winner's
+  texture id, ``n_textures`` for a dielectric scatter) and the throughput at
+  the iteration's entry.  Row ``i`` of a lane is that lane's own ``i``-th
+  loop iteration, which is the JAX kernel's block-level iteration ``i``: a
+  lane steps once per block iteration from iteration 0 until it is dead.
+  Rows past a lane's end are zero.  The JAX kernel writes the entry
+  throughput on idle rows too, and may set the odd bit there; the replay
+  ignores idle rows, and so do the comparisons.
 
 Geometry is pre-baked into world space per primitive row (``pack_rows``):
 spheres as (c0, c1-c0, t0, 1/dt, r), rects as world parallelograms
@@ -201,20 +212,20 @@ def trace_regenerative_mega(scene, cam, pixel_ids, sample_ids0, seed, *,
     lanes whose first sample is >= min(sample_end, spp_cap) (for example
     0xFFFFFFFF) are born dead.  ``block`` is the CUDA block size (threads).
     Returns (radiance V3 of [B] per-lane sums, segments as an int64 scalar
-    tensor).  CUDA tensors launch ``csrc/mega_kernel.cu``; CPU tensors run
-    the plain version; any other device raises.
+    tensor); with ``record_iters`` > 0 also (codes int32 [record_iters, B],
+    tprev V3 of [record_iters, B]) — see the module docstring.
+    ``record_iters`` must bound every lane's loop iterations
+    (``_check_record_iters``).  CUDA tensors launch
+    ``csrc/mega_kernel.cu``; CPU tensors run the plain version; any other
+    device raises.
     """
-    if record_iters:
-        raise NotImplementedError(
-            "record mode (the fused differentiable primal, kernel K2) is not "
-            "ported yet (ROADMAP M12)")
     if not supports(scene, cam):
         raise ValueError("trace_regenerative_mega: scene not supported "
                          "(see supports())")
     _check_lanes(pixel_ids, sample_ids0, scene)
     kw = dict(width=width, height=height, sample_stride=sample_stride,
               sample_end=sample_end, spp_cap=spp_cap, max_depth=max_depth,
-              t_min=t_min)
+              t_min=t_min, record_iters=record_iters)
     if pixel_ids.device.type == "cpu":
         return trace_regenerative_mega_reference(
             scene, cam, pixel_ids, sample_ids0, seed, **kw)
@@ -223,8 +234,25 @@ def trace_regenerative_mega(scene, cam, pixel_ids, sample_ids0, seed, *,
     return _launch(scene, cam, pixel_ids, sample_ids0, seed, block=block, **kw)
 
 
-# Launches of the CUDA kernel (incremented once per launch, nowhere else).
+# Launches of the CUDA kernel, incremented once per launch and nowhere else:
+# ``launches`` counts the forward instance (K1), ``record_launches`` the
+# record instance (K2).
 trace_regenerative_mega.launches = 0
+trace_regenerative_mega.record_launches = 0
+
+
+def _check_record_iters(record_iters, *, sample_end, spp_cap, sample_stride,
+                        max_depth):
+    """Raise unless ``record_iters`` is 0 or bounds every lane's loop
+    iterations: at most ceil(min(sample_end, spp_cap) / sample_stride)
+    samples per lane, each at most max(max_depth, 1) iterations."""
+    if record_iters < 0:
+        raise ValueError("record_iters must be >= 0")
+    limit = min(int(sample_end), int(spp_cap), rng.MASK32)
+    need = -(-limit // max(int(sample_stride), 1)) * max(int(max_depth), 1)
+    if 0 < record_iters < need:
+        raise ValueError(f"record_iters={record_iters} is below the {need} "
+                         "loop iterations a lane may take")
 
 
 def _u32_bits(x):
@@ -233,47 +261,93 @@ def _u32_bits(x):
     return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32).contiguous()
 
 
-def _lib():
+def _lib(record=False):
+    """The forward build (K1, threefry check) or the record build (K2)."""
     from another_raytracer_tpu_torch.ops.kernels import _build
 
-    lib = _build.load("mega_kernel")
     P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-    lib.art_mega_forward.argtypes = [
-        P, I, I, P, P, P, I, U, U, U, I, I, I, F, I, I, P, P, P, P, P]
+    args = [P, I, I, P, P, P, I, U, U, U, I, I, I, F, I, I, P, P, P, P]
+    if record:
+        lib = _build.load("mega_kernel_record")
+        lib.art_mega_record.argtypes = args + [I, I, P, P, P]
+        lib.art_mega_record.restype = I
+        return lib
+    lib = _build.load("mega_kernel")
+    lib.art_mega_forward.argtypes = args + [P]
     lib.art_mega_forward.restype = I
     lib.art_threefry_words.argtypes = [U, U, P, P, I, P, P, P, P, P]
     lib.art_threefry_words.restype = I
     return lib
 
 
-def _launch(scene, cam, pixel_ids, sample_ids0, seed, *, width, height,
-            sample_stride, sample_end, spp_cap, max_depth, t_min, block):
+def prepare_launch(scene, cam, pixel_ids, sample_ids0, seed, *, width,
+                   height, sample_stride, sample_end, spp_cap, max_depth,
+                   t_min, block=DEFAULT_BLOCK, record_iters=0):
+    """Everything one CUDA launch needs, built on the lanes' device: returns
+    (run, output tensors).  ``run()`` is the bare launch (it returns the
+    CUDA error code); the wrapper adds the checks, the launch count and the
+    segment sum."""
     dev = pixel_ids.device
     if sample_stride < 1:
         raise ValueError("sample_stride must be >= 1")
-    lib = _lib()
+    _check_record_iters(record_iters, sample_end=sample_end, spp_cap=spp_cap,
+                        sample_stride=sample_stride, max_depth=max_depth)
+    lib = _lib(record=bool(record_iters))
     rows = pack_rows(scene)
     camc = pack_camera(scene, cam)
     limit = min(int(sample_end), int(spp_cap), rng.MASK32)
     pix = _u32_bits(pixel_ids)
     samp = _u32_bits(sample_ids0)
     B = pixel_ids.shape[0]
+    if record_iters * B >= 2**31:
+        raise ValueError("record_iters * lanes must stay below 2**31")
     out = [torch.empty(B, dtype=torch.float32, device=dev) for _ in range(3)]
     seg = torch.empty(B, dtype=torch.int32, device=dev)
+    args = (rows, scene.n_spheres, scene.n_rects, camc, pix, samp, B,
+            int(seed) & rng.MASK32, limit, int(sample_stride), int(width),
+            int(height), int(max_depth), float(t_min), _flags(scene, cam),
+            int(block), *out, seg)
+    if record_iters:
+        # The kernel writes every residual element (rows past a lane's end
+        # as zeros), so the buffers need no clearing.
+        codes = torch.empty((record_iters, B), dtype=torch.int32, device=dev)
+        tprev = torch.empty((3, record_iters, B), dtype=torch.float32,
+                            device=dev)
+        entry = lib.art_mega_record
+        args += (int(record_iters), scene.tex_kind.shape[0], codes, tprev)
+        outputs = (out, seg, codes, tprev)
+    else:
+        entry = lib.art_mega_forward
+        outputs = (out, seg)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.art_mega_forward(
-            rows.data_ptr(), scene.n_spheres, scene.n_rects, camc.data_ptr(),
-            pix.data_ptr(), samp.data_ptr(), B, int(seed) & rng.MASK32, limit,
-            int(sample_stride), int(width), int(height), int(max_depth),
-            float(t_min), _flags(scene, cam), int(block),
-            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            seg.data_ptr(), stream)
+    ptrs = tuple(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                 for a in args) + (stream,)
+
+    def run(_inputs=args):  # the default keeps the tensors behind ptrs alive
+        return entry(*ptrs)
+
+    return run, outputs
+
+
+def _launch(scene, cam, pixel_ids, sample_ids0, seed, *, block, record_iters,
+            **kw):
+    run, outputs = prepare_launch(
+        scene, cam, pixel_ids, sample_ids0, seed, block=block,
+        record_iters=record_iters, **kw)
+    with torch.cuda.device(pixel_ids.device):
+        err = run()
     if err != 0:
         raise RuntimeError(f"mega_kernel launch failed: CUDA error {err}")
-    if B:
+    out, seg = outputs[:2]
+    total, segments = V3(*out), seg.sum(dtype=torch.int64)
+    if record_iters:
+        if pixel_ids.shape[0]:
+            trace_regenerative_mega.record_launches += 1
+        return total, segments, outputs[2], V3(*outputs[3].unbind(0))
+    if pixel_ids.shape[0]:
         trace_regenerative_mega.launches += 1
-    return V3(*out), seg.sum(dtype=torch.int64)
+    return total, segments
 
 
 def threefry_words_cuda(seed: int, key1: int, pixel, sample):
@@ -308,12 +382,17 @@ def threefry_words_cuda(seed: int, key1: int, pixel, sample):
 def trace_regenerative_mega_reference(scene, cam, pixel_ids, sample_ids0, seed,
                                       *, width: int, height: int,
                                       sample_stride: int, sample_end, spp_cap,
-                                      max_depth: int, t_min: float):
+                                      max_depth: int, t_min: float,
+                                      record_iters: int = 0):
     """The kernel's per-lane algorithm as tensor ops on [B] lanes (any
     device).  Every lane steps once per loop iteration while any lane is
     alive; a dead lane changes nothing, so each lane's result equals the
-    kernel's own per-lane loop.  Same return contract as the wrapper."""
+    kernel's own per-lane loop, and loop iteration ``it`` is every alive
+    lane's own ``it``-th iteration (the record row).  Same return contract
+    as the wrapper."""
     _check_lanes(pixel_ids, sample_ids0, scene)
+    _check_record_iters(record_iters, sample_end=sample_end, spp_cap=spp_cap,
+                        sample_stride=sample_stride, max_depth=max_depth)
     f32 = np.float32
     rows = pack_rows(scene).reshape(-1, ROW_W)
     ns = scene.n_spheres
@@ -374,12 +453,19 @@ def trace_regenerative_mega_reference(scene, cam, pixel_ids, sample_ids0, seed,
     tp, path, acc = ones3, zeros3, zeros3
     bounce = torch.zeros_like(sample)
     seg = alive.to(torch.int64)
+    B = fi.shape[0]
+    codes = torch.zeros((record_iters, B), dtype=torch.int32, device=fi.device)
+    tprev = torch.zeros((3, record_iters, B), dtype=torch.float32,
+                        device=fi.device)
+    n_textures = scene.tex_kind.shape[0]
+    it = 0
 
     while bool(alive.any()):
         a_len = vec3.dot(d, d)
         best_t, r, b_n = _sweep(rows, ns, o, d, tm, a_len, t_min)
         hit = alive & (best_t < BIG)
         miss_now = alive & ~hit
+        tp_entry = tp
 
         # ---- shade + scatter (shade.emit_and_scatter) ---------------------
         front = vec3.dot(b_n, d) < 0.0
@@ -388,9 +474,10 @@ def trace_regenerative_mega_reference(scene, cam, pixel_ids, sample_ids0, seed,
         mk = r[:, _C_MKIND]
         alb = V3.from_array(r[:, _C_CA:_C_CA + 3])
         if has_checker:
-            sines = (torch.sin(10.0 * p.x) * torch.sin(10.0 * p.y)
-                     * torch.sin(10.0 * p.z))
-            is_check = (r[:, _C_TKIND] == scene_lib.TEX_CHECKER) & (sines < 0.0)
+            sines = (vec3.sin(10.0 * p.x) * vec3.sin(10.0 * p.y)
+                     * vec3.sin(10.0 * p.z))
+            is_check = (hit & (r[:, _C_TKIND] == scene_lib.TEX_CHECKER)
+                        & (sines < 0.0))
             alb = vec3.where(is_check, V3.from_array(r[:, _C_CB:_C_CB + 3]), alb)
 
         u1, u2 = rng.uniform2(seed, pix, sample, bounce, rng.DIM_SCATTER_A)
@@ -398,7 +485,7 @@ def trace_regenerative_mega_reference(scene, cam, pixel_ids, sample_ids0, seed,
         if has_metal or has_diel:
             u3, u4 = rng.uniform2(seed, pix, sample, bounce, rng.DIM_SCATTER_B)
         if need_unit_d:
-            inv_len = torch.rsqrt(torch.where(a_len > 0.0, a_len,
+            inv_len = 1.0 / vec3.sqrt(torch.where(a_len > 0.0, a_len,
                                               torch.ones_like(a_len)))
             unit_d = d * inv_len
 
@@ -425,7 +512,7 @@ def trace_regenerative_mega_reference(scene, cam, pixel_ids, sample_ids0, seed,
             ratio = torch.where(front, 1.0 / ir, ir)
             uddn = vec3.dot(unit_d, n)
             cos_t = torch.clamp_max(-uddn, 1.0)
-            sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 1e-12))
+            sin_t = vec3.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 1e-12))
             cannot = ratio * sin_t > 1.0
             r0 = (1.0 - ratio) / (1.0 + ratio)
             r0 = r0 * r0
@@ -433,7 +520,7 @@ def trace_regenerative_mega_reference(scene, cam, pixel_ids, sample_ids0, seed,
             refl = r0 + (1.0 - r0) * (x * ((x * x) * (x * x)))
             rfl = unit_d - n * (2.0 * uddn)
             perp = (unit_d + n * cos_t) * ratio
-            par = -torch.sqrt(torch.clamp_min((1.0 - vec3.dot(perp, perp)).abs(),
+            par = -vec3.sqrt(torch.clamp_min((1.0 - vec3.dot(perp, perp)).abs(),
                                               1e-12))
             rfr = perp + n * par
             die = vec3.where(cannot | (refl > u4), rfl, rfr)
@@ -459,6 +546,23 @@ def trace_regenerative_mega_reference(scene, cam, pixel_ids, sample_ids0, seed,
         seg = seg + scattered.to(torch.int64)
 
         ended = alive & ~alive_next
+        if record_iters:
+            # Residual row (mega_kernel.py:691-723 there): the event, the
+            # winner's texture id (the sentinel n_textures for a dielectric,
+            # whose attenuation is 1), the checker cell and the chain end.
+            ev = scattered.to(torch.int32) + 3 * miss_now.to(torch.int32)
+            tid = torch.where(hit, r[:, _C_TID].to(torch.int32), 0)
+            if has_light:
+                ev = ev + 2 * (hit & is_light).to(torch.int32)
+            if has_diel:
+                tid = torch.where(hit & is_die, n_textures, tid)
+            code = torch.where(ev > 0, tid * 16, 0) + 4 * ended.to(torch.int32) + ev
+            if has_checker:
+                code = code + 8 * is_check.to(torch.int32)
+            codes[it] = torch.where(alive, code, 0)
+            for c in range(3):
+                tprev[c, it] = torch.where(alive, tp_entry[c], 0.0)
+        it += 1
         acc = vec3.where(ended, acc + path, acc)
         path = vec3.where(ended, zeros3, path)
         sample = torch.where(ended, (sample + stride) & rng.MASK32, sample)
@@ -472,6 +576,8 @@ def trace_regenerative_mega_reference(scene, cam, pixel_ids, sample_ids0, seed,
             bounce = torch.where(regen, 0, bounce)
         alive = alive_next | regen
         seg = seg + regen.to(torch.int64)
+    if record_iters:
+        return acc, seg.sum(), codes, V3(*tprev.unbind(0))
     return acc, seg.sum()
 
 
@@ -496,7 +602,7 @@ def _sweep(rows, ns, o: V3, d: V3, tm, a_len, t_min):
         c = ocx * ocx + ocy * ocy + ocz * ocz - s[:, 9] * s[:, 9]
         disc = half_b * half_b - a_len[:, None] * c
         ok = disc > 0.0
-        sq = torch.sqrt(torch.where(ok, disc, torch.zeros_like(disc)))
+        sq = vec3.sqrt(torch.where(ok, disc, torch.zeros_like(disc)))
         root1 = (-half_b - sq) * inv_a
         t = torch.where(root1 > t_min, root1, (-half_b + sq) * inv_a)
         valid = ok & (t > t_min) & (t < BIG)

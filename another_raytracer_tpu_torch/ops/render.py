@@ -1,13 +1,18 @@
 """Top-level render driver: pixels x samples -> radiance sums -> pixels (port
-of ``another_raytracer_tpu.ops.render``, single mode, forward only).
+of ``another_raytracer_tpu.ops.render``, single mode).
 
 Every forward render of a scene that the megakernel supports goes through
 ``mega_kernel.trace_regenerative_mega``: the hand-written CUDA kernel for
 CUDA tensors, its plain PyTorch version for CPU tensors.  (The JAX package
 sends spp == samples_per_pass renders through its lockstep scan instead;
 the two agree bit for bit at samples_per_pass 1, render.py:69-74 there.)
-Anything else raises NotImplementedError naming its ROADMAP item — no slower
-fallback path.
+
+Differentiable renders take the fused path (``mega_diff.radiance_fused``:
+the record-mode kernel K2 and the replay backward) when
+``mega_diff.enabled`` accepts the scene and the declared trainable set, and
+otherwise the lockstep autograd path (``integrator.trace``), as in the JAX
+package.  Anything not ported raises NotImplementedError naming its ROADMAP
+item — no slower fallback path.
 """
 
 from __future__ import annotations
@@ -15,14 +20,17 @@ from __future__ import annotations
 import torch
 
 from another_raytracer_tpu_torch.config import RenderConfig, RenderMode
+from another_raytracer_tpu_torch.ops import camera as camera_lib
 from another_raytracer_tpu_torch.ops import color as color_lib
-from another_raytracer_tpu_torch.ops import rng
-from another_raytracer_tpu_torch.ops.kernels import mega_kernel
+from another_raytracer_tpu_torch.ops import integrator, rng, vec3
+from another_raytracer_tpu_torch.ops.kernels import mega_diff, mega_kernel
+from another_raytracer_tpu_torch.ops.vec3 import V3
 
 
 def radiance_batch(scene, cam, pixel_ids, seed, *, width, height,
                    sample_start, n_samples, spp_cap, samples_per_pass,
-                   max_depth, t_min, differentiable=False, lane_mask=None):
+                   max_depth, t_min, differentiable=False, trainable=None,
+                   lane_mask=None):
     """Radiance sums for an arbitrary pixel batch over samples
     [sample_start, sample_start + n_samples) ∩ [0, spp_cap).
 
@@ -33,12 +41,19 @@ def radiance_batch(scene, cam, pixel_ids, seed, *, width, height,
     False are pad lanes — born dead, contributing zero radiance and zero
     segments.
 
+    ``differentiable``: gradients flow to the scene's tensors that require
+    them.  ``trainable`` (differentiable renders only) names the caller's
+    trainable scene leaves; the fused path engages only for a declared set
+    free of geometry leaves (``mega_diff.enabled``).
+
     Returns (radiance_sum V3 of [Np], segments int64 scalar tensor).
     """
     if differentiable:
-        raise NotImplementedError(
-            "differentiable renders (lockstep integrator, render_loss, the "
-            "fused record-mode path) are not ported yet (ROADMAP M8, M10, M12)")
+        return _radiance_batch_diff(
+            scene, cam, pixel_ids, seed, width=width, height=height,
+            sample_start=sample_start, n_samples=n_samples, spp_cap=spp_cap,
+            samples_per_pass=samples_per_pass, max_depth=max_depth,
+            t_min=t_min, trainable=trainable, lane_mask=lane_mask)
     if not mega_kernel.supports(scene, cam):
         raise NotImplementedError(
             "only sweep-only scenes the forward megakernel supports are "
@@ -67,8 +82,63 @@ def radiance_batch(scene, cam, pixel_ids, seed, *, width, height,
     return acc, segments
 
 
+def _radiance_batch_diff(scene, cam, pixel_ids, seed, *, width, height,
+                         sample_start, n_samples, spp_cap, samples_per_pass,
+                         max_depth, t_min, trainable, lane_mask):
+    """The differentiable branch of ``radiance_batch`` (render.py:102-179
+    there): the fused path, else the lockstep autograd path."""
+    n_pixels = pixel_ids.shape[0]
+    spass = min(samples_per_pass, n_samples)
+    n_chunks = -(-n_samples // spass)
+    dev = pixel_ids.device
+    pix = pixel_ids.repeat(spass)
+    samp_offsets = torch.arange(spass, dtype=torch.int64,
+                                device=dev).repeat_interleave(n_pixels)
+
+    def per_pixel(c):
+        return c.reshape(spass, n_pixels).sum(dim=0)
+
+    if (int(sample_start) == 0 and n_samples == spp_cap
+            and mega_diff.enabled(scene, cam, spp_cap, spass, max_depth,
+                                  trainable=trainable)):
+        if lane_mask is not None:
+            # ROADMAP F2: the JAX fused branch drops lane_mask silently, so
+            # pad lanes would add radiance and gradients.
+            raise ValueError(
+                "lane_mask is not supported on the fused differentiable path "
+                "(ROADMAP F2); pass the real pixels only, or set "
+                "mega_diff.FUSED_DIFF = False")
+        acc, segments = mega_diff.radiance_fused(
+            scene, cam, pix, samp_offsets, seed, width=width, height=height,
+            sample_stride=spass, spp_cap=spp_cap, max_depth=max_depth,
+            t_min=t_min)
+        return acc.map(per_pixel), segments
+
+    # Lockstep autograd path: one pass per chunk of samples_per_pass samples.
+    lanes_ok = None if lane_mask is None else lane_mask.repeat(spass)
+    zero = torch.zeros(n_pixels, dtype=torch.float32, device=dev)
+    acc = V3(zero, zero, zero)
+    segments = torch.zeros((), dtype=torch.int64, device=dev)
+    for chunk in range(n_chunks):
+        sample_ids = (samp_offsets + int(sample_start) + chunk * spass) & rng.MASK32
+        o, d, time = camera_lib.generate_rays(
+            cam, pix, sample_ids, width, height, seed,
+            needs_time=scene.has_motion)
+        radiance, segs = integrator.trace(
+            scene, o, d, time, pix, sample_ids, seed, max_depth, t_min)
+        # Mask samples beyond the range (ragged last chunk / spp cap).
+        valid = ((sample_ids < int(sample_start) + n_samples)
+                 & (sample_ids < spp_cap))
+        if lanes_ok is not None:
+            valid = valid & lanes_ok
+        radiance = vec3.where(valid, radiance, V3.zeros_like(radiance.x))
+        acc = acc + radiance.map(per_pixel)
+        segments = segments + segs
+    return acc, segments
+
+
 def render_radiance(scene, cam, seed, *, width, height, spp, samples_per_pass,
-                    max_depth, t_min):
+                    max_depth, t_min, differentiable=False, trainable=None):
     """Per-pixel radiance sums over ``spp`` samples, un-averaged (averaging
     is deferred to write_color, engine.h:58-68).
 
@@ -82,6 +152,7 @@ def render_radiance(scene, cam, seed, *, width, height, spp, samples_per_pass,
         scene, cam, pixel_ids, seed, width=width, height=height,
         sample_start=0, n_samples=spp, spp_cap=spp,
         samples_per_pass=samples_per_pass, max_depth=max_depth, t_min=t_min,
+        differentiable=differentiable, trainable=trainable,
     )
 
 

@@ -12,10 +12,11 @@ import pytest
 import torch
 
 from another_raytracer_tpu_torch import cli
+from another_raytracer_tpu_torch.grad import diff
 from another_raytracer_tpu_torch.models import library
 from another_raytracer_tpu_torch.models.scene import SceneBuilder
 from another_raytracer_tpu_torch.ops import camera, rng, vec3
-from another_raytracer_tpu_torch.ops.kernels import mega_kernel
+from another_raytracer_tpu_torch.ops.kernels import mega_diff, mega_kernel
 from another_raytracer_tpu_torch.utils import imageio
 
 torch.set_num_threads(1)
@@ -100,3 +101,77 @@ def test_cli_renders_through_the_kernel(dev, tmp_path):
     assert mega_kernel.trace_regenerative_mega.launches == before + 1
     img = imageio.load_png(out)
     assert img.shape == (H, W, 3) and img.mean() > 5.0
+
+
+def _record(name, dev, spp=4, depth=8, seed=3):
+    scene, params = SCENES[name](device=dev)
+    cam = camera.make_camera(aspect_ratio=W / H, device=dev, **params)
+    pix = torch.arange(W * H, device=dev)
+    samp = torch.zeros(W * H, dtype=torch.int64, device=dev)
+    kw = dict(width=W, height=H, sample_stride=1, sample_end=spp, spp_cap=spp,
+              max_depth=depth, t_min=1e-3, record_iters=spp * depth)
+    before = mega_kernel.trace_regenerative_mega.record_launches
+    got = mega_kernel.trace_regenerative_mega(scene, cam, pix, samp, seed, **kw)
+    assert mega_kernel.trace_regenerative_mega.record_launches == before + 1
+    want = mega_kernel.trace_regenerative_mega_reference(scene, cam, pix, samp,
+                                                         seed, **kw)
+    return scene, got, want
+
+
+@pytest.mark.parametrize("name", list(SCENES))
+def test_record_kernel_matches_plain(name, dev):
+    # The record build contracts no FMA and rounds sin/cos correctly, as the
+    # plain version does: the residual rows agree bit for bit.
+    _, got, want = _record(name, dev)
+    assert int(got[1]) == int(want[1])
+    assert torch.equal(got[2], want[2])
+    for a, b in zip(got[3], want[3]):
+        assert torch.equal(a, b)
+    for a, b in zip(got[0], want[0]):
+        assert torch.equal(a, b)
+    assert bool(((got[2] & 3) == 1).any())
+
+
+@pytest.mark.parametrize("name", list(SCENES))
+def test_replay_kernel_matches_plain(name, dev):
+    scene, got, _ = _record(name, dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ghat = vec3.V3(*(torch.rand(W * H, generator=gen, device=dev) + 0.2
+                     for _ in range(3)))
+    args = (got[2], got[3], ghat, scene.tex_ca, scene.tex_cb,
+            scene.background, mega_diff._flags(scene))
+    before = mega_diff.replay_backward.launches
+    kern = mega_diff.replay_backward(*args)
+    assert mega_diff.replay_backward.launches == before + 1
+    plain = mega_diff.replay_backward_reference(*args)
+    for a, b in zip(kern, plain):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * float(b.abs().max()))
+    assert float(kern[0].abs().max()) > 0
+
+
+def test_fused_grads_match_lockstep_on_card(dev):
+    scene, params = library.cornell_box(device=dev)
+    cam = camera.make_camera(aspect_ratio=W / H, device=dev, **params)
+    kw = dict(width=W, height=H, spp=4, samples_per_pass=1, max_depth=6,
+              t_min=1e-3)
+    leaves, _ = diff.split_params(scene)
+    target = torch.zeros((W * H, 3), device=dev)
+    k2 = mega_kernel.trace_regenerative_mega.record_launches
+    rp = mega_diff.replay_backward.launches
+    loss_f, g_f = diff.render_value_and_grad(leaves, scene, cam, target, 4, **kw)
+    assert mega_kernel.trace_regenerative_mega.record_launches == k2 + 1
+    assert mega_diff.replay_backward.launches == rp + 1
+    saved = mega_diff.FUSED_DIFF
+    mega_diff.FUSED_DIFF = False
+    try:
+        loss_l, g_l = diff.render_value_and_grad(leaves, scene, cam, target, 4,
+                                                 **kw)
+    finally:
+        mega_diff.FUSED_DIFF = saved
+    assert mega_kernel.trace_regenerative_mega.record_launches == k2 + 1
+    # Ulp-level differences between the two routes flip a few paths.
+    assert abs(float(loss_f) - float(loss_l)) <= 1e-3 * float(loss_l)
+    for k in g_l:
+        assert torch.isfinite(g_f[k]).all()
+        num = float((g_f[k] - g_l[k]).norm())
+        assert num <= 1e-2 * max(float(g_l[k].norm()), 1e-30), k

@@ -14,17 +14,23 @@ sys.modules["flax"] = None
 import torch
 torch.set_num_threads(1)
 import chip_smoke
-from another_raytracer_tpu_torch import cli
+from another_raytracer_tpu_torch import bench, cli
 from another_raytracer_tpu_torch.config import RenderConfig
+from another_raytracer_tpu_torch.grad import diff
 from another_raytracer_tpu_torch.models import library
-from another_raytracer_tpu_torch.ops import camera, render
-from another_raytracer_tpu_torch.ops.kernels import _build, mega_kernel
+from another_raytracer_tpu_torch.ops import camera, integrator, render
+from another_raytracer_tpu_torch.ops.kernels import _build, mega_diff, mega_kernel
 
 scene, params = library.cornell_box()
 cam = camera.make_camera(aspect_ratio=1.0, **params)
 img, stats = render.render(
     scene, cam, RenderConfig(width=12, height=12, samples_per_pixel=1))
 assert img.shape == (12, 12, 3) and stats["segments"] > 0, stats
+leaves, _ = diff.split_params(scene)
+loss, grads = diff.render_value_and_grad(
+    leaves, scene, cam, torch.zeros(144, 3), 0, width=12, height=12, spp=2,
+    samples_per_pass=1, max_depth=3, t_min=1e-3)
+assert float(grads["tex_ca"].abs().max()) > 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "flax", "jaxlib",
                                     "another_raytracer_tpu")
