@@ -75,8 +75,11 @@ def render_value_and_grad(params, scene, cam, target, seed, *, width, height,
                            height=height, spp=spp,
                            samples_per_pass=samples_per_pass,
                            max_depth=max_depth, t_min=t_min)
-        grads = torch.autograd.grad(loss, list(leaves.values()),
-                                    allow_unused=True)
+        # A loss that no leaf reaches (say mat_fuzz on a scene without metal)
+        # has no graph at all: every gradient is zero.
+        grads = (torch.autograd.grad(loss, list(leaves.values()),
+                                     allow_unused=True)
+                 if loss.requires_grad else [None] * len(leaves))
     return loss.detach(), {
         k: torch.zeros_like(v) if g is None else g
         for (k, v), g in zip(leaves.items(), grads)}

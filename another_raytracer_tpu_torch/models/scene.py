@@ -9,9 +9,9 @@ names, kind constants and static fields are the JAX package's, so
 
 Left out on purpose (TPU-only, ROADMAP M21): ``atlas_packed`` /
 ``atlas_exact_u8`` (8:8:8 packed texels for the TPU's slow gathers),
-``use_pallas_bvh`` and ``bvh_block`` (Mosaic block sizes).  The BVH host
-build is not ported yet: a build that needs one raises NotImplementedError
-(ROADMAP M16).
+``use_pallas_bvh`` and ``bvh_block`` (Mosaic block sizes): every BVH here is
+traversed by the BVH kernel K5 (``ops/kernels/bvh_kernel.py``) or, on the
+CPU, its plain version.
 """
 
 from __future__ import annotations
@@ -22,6 +22,9 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+from another_raytracer_tpu_torch.models import bvh as bvh_lib
+from another_raytracer_tpu_torch.ops.kernels import bvh_kernel
 
 # --- kind constants --------------------------------------------------------
 
@@ -129,15 +132,17 @@ class SceneData:
 
     background: torch.Tensor  # [3]
 
-    # BVH arrays (empty until the host BVH build is ported, ROADMAP M16).
+    # BVH arrays (models/bvh.py, packed by ops/kernels/bvh_kernel.py); empty
+    # when the scene has no BVH.  The planar tree holds triangles and the
+    # quad-split transformed rects; identity rects and spheres have their own.
     bvh_node_min: torch.Tensor  # [M,3]
     bvh_node_max: torch.Tensor  # [M,3]
     bvh_escape: torch.Tensor  # [M] int32
     bvh_leaf_first: torch.Tensor  # [M] int32
     bvh_leaf_count: torch.Tensor  # [M] int32
-    bvh_prim_order: torch.Tensor  # [Nt] int32
+    bvh_prim_order: torch.Tensor  # [N] int32
     bvh_packed_nodes: torch.Tensor  # [M,8]
-    bvh_packed_tris: torch.Tensor  # [N+pad,35]
+    bvh_packed_tris: torch.Tensor  # [N+pad,35] ([0,24] when empty)
     rect_bvh_nodes: torch.Tensor  # [Mr,8]
     rect_bvh_rows: torch.Tensor  # [Nr+pad,16]
     sph_bvh_nodes: torch.Tensor  # [Ms,8]
@@ -215,6 +220,45 @@ def rotation_y(degrees: float) -> np.ndarray:
     t = math.radians(degrees)
     c, s = math.cos(t), math.sin(t)
     return np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]], dtype=np.float64)
+
+
+def _rect_quads(rects, ids, rots, trans):
+    """Axis-rects (the given original indices) -> two WORLD-space triangles
+    each, for the planar BVH's winner search.  Used only for rects with
+    NON-identity transforms (identity ones get native axis-rect rows in
+    their own tree).  Corners are computed in object space with the free-axis
+    order of ops/intersect._rect_t (axis 0 -> (1,2), 1 -> (0,2), 2 -> (0,1))
+    and baked through the rect's world-from-object transform.  Returns
+    (v0, v1, v2 [2N,3], codes [2N]); both triangles of rect i carry code
+    i*4 + PRIM_RECT, so the winner decodes to the rect id and the hit record
+    is recomputed from the original rect.  Known edge (as in the JAX
+    package): a degenerate rect is hittable by the sweep but not by its
+    zero-normal triangles, and rays crossing the shared diagonal can miss
+    both triangles at f32-ulp level."""
+    n = len(ids)
+    v0 = np.zeros((2 * n, 3))
+    v1 = np.zeros((2 * n, 3))
+    v2 = np.zeros((2 * n, 3))
+    codes = np.zeros((2 * n,), np.int64)
+    for j, i in enumerate(ids):
+        axis, k, lo, hi, _mat, xf = rects[i]
+        au = 1 if axis == 0 else 0
+        av = 1 if axis == 2 else 2
+        rot, tr = rots[xf], trans[xf]
+
+        def pt(u, v):
+            p = np.zeros(3)
+            p[axis] = k
+            p[au] = u
+            p[av] = v
+            return rot @ p + tr
+
+        p00, p10 = pt(lo[0], lo[1]), pt(hi[0], lo[1])
+        p11, p01 = pt(hi[0], hi[1]), pt(lo[0], hi[1])
+        v0[2 * j], v1[2 * j], v2[2 * j] = p00, p10, p11
+        v0[2 * j + 1], v1[2 * j + 1], v2[2 * j + 1] = p00, p11, p01
+        codes[2 * j] = codes[2 * j + 1] = i * 4 + PRIM_RECT
+    return v0, v1, v2, codes
 
 
 class SceneBuilder:
@@ -392,14 +436,19 @@ class SceneBuilder:
 
     # --- assembly ---------------------------------------------------------
 
-    # Thresholds of the JAX builder's 'auto' BVH choice (kept so a scene that
-    # would get a BVH there is refused here rather than built differently).
+    # Thresholds of the 'auto' BVH choice (the JAX builder's): a kind with at
+    # least this many primitives is traversed through a BVH, fewer through
+    # the [B, N] sweep.
     BVH_AUTO_THRESHOLD = 64
     RECT_BVH_THRESHOLD = 64
     SPHERE_BVH_THRESHOLD = 64
 
-    def build(self, device="cpu", bvh="auto", bvh_leaf_size: int = 16,
+    def build(self, device="cuda", bvh="auto", bvh_leaf_size: int = 16,
               rect_bvh="auto", sphere_bvh="auto") -> SceneData:
+        """Cast to float32 / int32 tensors on ``device`` (default the card;
+        ``"cpu"`` for the plain versions).  ``bvh`` / ``rect_bvh`` /
+        ``sphere_bvh``: True, False or 'auto' (above the thresholds), as in
+        the JAX builder; ``bvh_leaf_size`` is the leaf size of every tree."""
         def f(x, shape):
             a = np.asarray(x, np.float64).reshape(shape).astype(np.float32)
             return torch.from_numpy(a).to(device)
@@ -407,6 +456,9 @@ class SceneBuilder:
         def i32(x, shape):
             a = np.asarray(x, np.int64).reshape(shape).astype(np.int32)
             return torch.from_numpy(a).to(device)
+
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
         ns, nr, nt, nm = map(len, (self._spheres, self._rects, self._tris, self._media))
 
@@ -421,11 +473,6 @@ class SceneBuilder:
             sphere_bvh is True
             or (sphere_bvh == "auto" and bvh is not False
                 and ns >= self.SPHERE_BVH_THRESHOLD))
-        if tri_in_bvh or rect_in_bvh or sph_in_bvh:
-            raise NotImplementedError(
-                "this scene needs a BVH (triangles/rects/spheres above the "
-                "sweep thresholds), and the BVH host build is not ported yet "
-                "(ROADMAP M16)")
 
         sph = list(zip(*self._spheres)) if ns else [[]] * 8
         rect = list(zip(*self._rects)) if nr else [[]] * 6
@@ -465,6 +512,99 @@ class SceneBuilder:
 
         empty_f = lambda *shape: f(np.zeros(shape), shape)  # noqa: E731
         empty_i = i32(np.zeros((0,)), (0,))
+        bvh_arrays = dict(
+            bvh_node_min=empty_f(0, 3), bvh_node_max=empty_f(0, 3),
+            bvh_escape=empty_i, bvh_leaf_first=empty_i,
+            bvh_leaf_count=empty_i, bvh_prim_order=empty_i,
+            bvh_packed_nodes=empty_f(0, 8), bvh_packed_tris=empty_f(0, 24),
+            rect_bvh_nodes=empty_f(0, 8), rect_bvh_rows=empty_f(0, 16),
+            sph_bvh_nodes=empty_f(0, 8), sph_bvh_rows=empty_f(0, 16))
+        n_bvh = n_rect_bvh = n_sph_bvh = 0
+
+        # --- BVH acceleration (host build, models/bvh.py) -----------------
+        # Planar tree: triangles (identity transforms only) plus accelerated
+        # rects with transforms, each baked to two world-space triangles for
+        # the winner search.  Identity rects: a tree of native axis-rect
+        # rows.  Sphere tree: world-baked centers (a rigid transform maps a
+        # sphere to a sphere and commutes with the center lerp).
+        rect_native_ids = [i for i, rc in enumerate(self._rects) if rc[5] == 0]
+        rect_quad_ids = [i for i, rc in enumerate(self._rects) if rc[5] != 0]
+        if tri_in_bvh or (rect_in_bvh and rect_quad_ids):
+            pv0, pv1, pv2, pcodes = [], [], [], []
+            puv0, puv1, puv2, pmats = [], [], [], []
+            if tri_in_bvh:
+                pv0.append(np.stack(tri[0]).reshape(nt, 3))
+                pv1.append(np.stack(tri[1]).reshape(nt, 3))
+                pv2.append(np.stack(tri[2]).reshape(nt, 3))
+                pcodes.append(np.arange(nt, dtype=np.int64) * 4 + PRIM_TRIANGLE)
+                puv0.append(np.stack(tri[3]).reshape(nt, 2))
+                puv1.append(np.stack(tri[4]).reshape(nt, 2))
+                puv2.append(np.stack(tri[5]).reshape(nt, 2))
+                pmats.append(np.asarray(tri[6], np.int64))
+            if rect_in_bvh and rect_quad_ids:
+                qv0, qv1, qv2, qcodes = _rect_quads(
+                    self._rects, rect_quad_ids, rots, trans)
+                pv0.append(qv0)
+                pv1.append(qv1)
+                pv2.append(qv2)
+                pcodes.append(qcodes)
+                # Quad rows carry zero uv / mat: their record is recomputed
+                # from the rect, and the full fold masks on winner kind.
+                nq = qcodes.shape[0]
+                for lst in (puv0, puv1, puv2):
+                    lst.append(np.zeros((nq, 2)))
+                pmats.append(np.zeros((nq,), np.int64))
+            v0, v1, v2 = (np.concatenate(x) for x in (pv0, pv1, pv2))
+            tree = bvh_lib.build(*bvh_lib.triangle_bounds(v0, v1, v2),
+                                 leaf_size=bvh_leaf_size)
+            packed_nodes, packed_rows = bvh_kernel.pack_planar(
+                tree, v0, v1, v2, np.concatenate(pcodes),
+                uv0=np.concatenate(puv0), uv1=np.concatenate(puv1),
+                uv2=np.concatenate(puv2), mats=np.concatenate(pmats))
+            bvh_arrays.update(
+                bvh_node_min=f(tree.node_min, tree.node_min.shape),
+                bvh_node_max=f(tree.node_max, tree.node_max.shape),
+                bvh_escape=dev(tree.escape),
+                bvh_leaf_first=dev(tree.leaf_first),
+                bvh_leaf_count=dev(tree.leaf_count),
+                bvh_prim_order=dev(tree.prim_order),
+                bvh_packed_nodes=dev(packed_nodes),
+                bvh_packed_tris=dev(packed_rows))
+            n_bvh = tree.num_nodes
+        if rect_in_bvh and rect_native_ids:
+            ids = np.asarray(rect_native_ids, np.int64)
+            r_axis = np.asarray([self._rects[i][0] for i in ids], np.int64)
+            r_k = np.asarray([self._rects[i][1] for i in ids], np.float64)
+            r_lo = np.stack([self._rects[i][2] for i in ids])
+            r_hi = np.stack([self._rects[i][3] for i in ids])
+            tree_r = bvh_lib.build(
+                *bvh_lib.rect_bounds(r_axis, r_k, r_lo, r_hi),
+                leaf_size=bvh_leaf_size)
+            rect_nodes, rect_rows = bvh_kernel.pack_rects(
+                tree_r, r_axis, r_k, r_lo, r_hi, ids * 4 + PRIM_RECT)
+            bvh_arrays.update(rect_bvh_nodes=dev(rect_nodes),
+                              rect_bvh_rows=dev(rect_rows))
+            n_rect_bvh = tree_r.num_nodes
+        if sph_in_bvh:
+            c0 = np.stack(sph[0]).reshape(ns, 3)
+            c1 = np.stack(sph[1]).reshape(ns, 3)
+            t0s = np.asarray(sph[2], np.float64)
+            t1s = np.asarray(sph[3], np.float64)
+            rr = np.asarray(sph[4], np.float64)
+            xfi = np.asarray(sph[6], np.int64)
+            c0w = np.einsum("nij,nj->ni", rots[xfi], c0) + trans[xfi]
+            c1w = np.einsum("nij,nj->ni", rots[xfi], c1) + trans[xfi]
+            tree_s = bvh_lib.build(
+                *bvh_lib.sphere_bounds(c0w, c1w, rr, t0s, t1s),
+                leaf_size=bvh_leaf_size)
+            sph_nodes, sph_rows = bvh_kernel.pack_spheres(
+                tree_s, c0w, c1w, t0s, t1s, rr,
+                mats=np.asarray(sph[5], np.int64),
+                has_uv=np.asarray(sph[7], np.float64))
+            bvh_arrays.update(sph_bvh_nodes=dev(sph_nodes),
+                              sph_bvh_rows=dev(sph_rows))
+            n_sph_bvh = tree_s.num_nodes
+
         return SceneData(
             sph_c0=f(sph[0], (ns, 3)), sph_c1=f(sph[1], (ns, 3)),
             sph_t0=f(sph[2], (ns,)), sph_t1=f(sph[3], (ns,)),
@@ -495,13 +635,12 @@ class SceneBuilder:
             per_ranvec=f(ranvec, ranvec.shape),
             per_perm=i32(perm, perm.shape),
             background=f(self.background, (3,)),
-            bvh_node_min=empty_f(0, 3), bvh_node_max=empty_f(0, 3),
-            bvh_escape=empty_i, bvh_leaf_first=empty_i,
-            bvh_leaf_count=empty_i, bvh_prim_order=empty_i,
-            bvh_packed_nodes=empty_f(0, 8), bvh_packed_tris=empty_f(0, 24),
-            rect_bvh_nodes=empty_f(0, 8), rect_bvh_rows=empty_f(0, 16),
-            sph_bvh_nodes=empty_f(0, 8), sph_bvh_rows=empty_f(0, 16),
+            **bvh_arrays,
             n_spheres=ns, n_rects=nr, n_triangles=nt, n_media=nm,
+            n_bvh_nodes=n_bvh, n_rect_bvh_nodes=n_rect_bvh,
+            n_sph_bvh_nodes=n_sph_bvh,
+            tri_in_bvh=tri_in_bvh, rect_in_bvh=rect_in_bvh,
+            sph_in_bvh=sph_in_bvh,
             sph_fold_safe=ns == 0 or all(
                 int(xf) == 0
                 or self._textures[self._materials[int(m)][1]][0]

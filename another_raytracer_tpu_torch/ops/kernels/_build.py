@@ -26,11 +26,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # target -> (source in csrc/, extra nvcc flags).  The megakernel source is
 # built twice: its forward instance (K1) as is, and its record instance (K2)
-# without FMA contraction (csrc/mega_kernel.cu says why).
+# without FMA contraction (csrc/mega_kernel.cu says why).  The BVH (K5) and
+# Perlin (K4) kernels contract no FMA either, so they equal their plain
+# versions bit for bit.
 TARGETS = {
     "mega_kernel": ("mega_kernel.cu", ()),
     "mega_kernel_record": ("mega_kernel.cu", ("-DART_RECORD", "-fmad=false")),
     "mega_replay": ("mega_replay.cu", ()),
+    "bvh_kernel": ("bvh_kernel.cu", ("-fmad=false",)),
+    "perlin_kernel": ("perlin_kernel.cu", ("-fmad=false",)),
+    # Measurement only: K5 with FMA contraction, for chip_smoke.py's cost of
+    # -fmad=false.  The port never loads it.
+    "bvh_kernel_fma": ("bvh_kernel.cu", ()),
 }
 
 _LOADED: dict = {}

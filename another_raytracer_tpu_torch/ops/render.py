@@ -2,27 +2,37 @@
 of ``another_raytracer_tpu.ops.render``, single mode).
 
 Every forward render of a scene that the megakernel supports goes through
-``mega_kernel.trace_regenerative_mega``: the hand-written CUDA kernel for
-CUDA tensors, its plain PyTorch version for CPU tensors.  (The JAX package
-sends spp == samples_per_pass renders through its lockstep scan instead;
-the two agree bit for bit at samples_per_pass 1, render.py:69-74 there.)
+``mega_kernel.trace_regenerative_mega`` (K1: the hand-written CUDA kernel
+for CUDA tensors, its plain PyTorch version for CPU tensors); every other
+forward render through the regenerating wavefront
+``integrator.trace_regenerative``, whose bounces run the BVH kernel K5 and
+the Perlin kernel K4.  (The JAX package sends spp == samples_per_pass
+renders through its lockstep scan instead; the paths agree bit for bit at
+samples_per_pass 1, render.py:69-74 there.)  Scenes with a BVH are traced
+in Morton pixel order.
 
 Differentiable renders take the fused path (``mega_diff.radiance_fused``:
 the record-mode kernel K2 and the replay backward) when
 ``mega_diff.enabled`` accepts the scene and the declared trainable set, and
 otherwise the lockstep autograd path (``integrator.trace``), as in the JAX
-package.  Anything not ported raises NotImplementedError naming its ROADMAP
-item — no slower fallback path.
+package; there Perlin noise runs through K4 with a zero gradient when the
+declared trainable set cannot reach the noise argument.  Anything not
+ported raises NotImplementedError naming its ROADMAP item — no slower
+fallback path.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from another_raytracer_tpu_torch.config import RenderConfig, RenderMode
+from another_raytracer_tpu_torch.models import scene as scene_lib
 from another_raytracer_tpu_torch.ops import camera as camera_lib
 from another_raytracer_tpu_torch.ops import color as color_lib
-from another_raytracer_tpu_torch.ops import integrator, rng, vec3
+from another_raytracer_tpu_torch.ops import integrator, rng, shade, vec3
 from another_raytracer_tpu_torch.ops.kernels import mega_diff, mega_kernel
 from another_raytracer_tpu_torch.ops.vec3 import V3
 
@@ -54,13 +64,6 @@ def radiance_batch(scene, cam, pixel_ids, seed, *, width, height,
             sample_start=sample_start, n_samples=n_samples, spp_cap=spp_cap,
             samples_per_pass=samples_per_pass, max_depth=max_depth,
             t_min=t_min, trainable=trainable, lane_mask=lane_mask)
-    if not mega_kernel.supports(scene, cam):
-        raise NotImplementedError(
-            "only sweep-only scenes the forward megakernel supports are "
-            "ported (<= 64 spheres and rects; lambertian, metal, dielectric, "
-            "diffuse light; solid and checker textures); textures, media, "
-            "triangles and BVHs come later (ROADMAP M14-M17)")
-
     n_pixels = pixel_ids.shape[0]
     spass = min(samples_per_pass, n_samples)
     dev = pixel_ids.device
@@ -72,7 +75,10 @@ def radiance_batch(scene, cam, pixel_ids, seed, *, width, height,
         # Pad lanes start past every sample limit -> born dead.
         samp0 = torch.where(lane_mask.repeat(spass), samp0,
                             torch.full_like(samp0, rng.MASK32))
-    acc, segments = mega_kernel.trace_regenerative_mega(
+    trace_fn = (mega_kernel.trace_regenerative_mega
+                if mega_kernel.supports(scene, cam)
+                else integrator.trace_regenerative)
+    acc, segments = trace_fn(
         scene, cam, pix, samp0, seed,
         width=width, height=height, sample_stride=spass,
         sample_end=int(sample_start) + n_samples, spp_cap=spp_cap,
@@ -119,22 +125,75 @@ def _radiance_batch_diff(scene, cam, pixel_ids, seed, *, width, height,
     zero = torch.zeros(n_pixels, dtype=torch.float32, device=dev)
     acc = V3(zero, zero, zero)
     segments = torch.zeros((), dtype=torch.int64, device=dev)
-    for chunk in range(n_chunks):
-        sample_ids = (samp_offsets + int(sample_start) + chunk * spass) & rng.MASK32
-        o, d, time = camera_lib.generate_rays(
-            cam, pix, sample_ids, width, height, seed,
-            needs_time=scene.has_motion)
-        radiance, segs = integrator.trace(
-            scene, o, d, time, pix, sample_ids, seed, max_depth, t_min)
-        # Mask samples beyond the range (ragged last chunk / spp cap).
-        valid = ((sample_ids < int(sample_start) + n_samples)
-                 & (sample_ids < spp_cap))
-        if lanes_ok is not None:
-            valid = valid & lanes_ok
-        radiance = vec3.where(valid, radiance, V3.zeros_like(radiance.x))
-        acc = acc + radiance.map(per_pixel)
-        segments = segments + segs
+    with shade.noise_value_only(noise_value_only(scene, trainable)):
+        for chunk in range(n_chunks):
+            sample_ids = ((samp_offsets + int(sample_start) + chunk * spass)
+                          & rng.MASK32)
+            o, d, time = camera_lib.generate_rays(
+                cam, pix, sample_ids, width, height, seed,
+                needs_time=scene.has_motion)
+            radiance, segs = integrator.trace(
+                scene, o, d, time, pix, sample_ids, seed, max_depth, t_min)
+            # Mask samples beyond the range (ragged last chunk / spp cap).
+            valid = ((sample_ids < int(sample_start) + n_samples)
+                     & (sample_ids < spp_cap))
+            if lanes_ok is not None:
+                valid = valid & lanes_ok
+            radiance = vec3.where(valid, radiance, V3.zeros_like(radiance.x))
+            acc = acc + radiance.map(per_pixel)
+            segments = segments + segs
     return acc, segments
+
+
+# Leaf-name prefixes that reach the noise argument (the hit point) or the
+# Perlin tables (render.py:153 there).
+_ARG_LEAVES = ("sph_", "rect_", "tri_", "med_", "per_", "xf_")
+
+
+def noise_value_only(scene, trainable) -> bool:
+    """The JAX package's value-only noise rule (render.py:139-178 there): a
+    differentiable render may evaluate Perlin noise without a gradient in
+    the point when the declared trainable set cannot reach it — no geometry,
+    transform, Perlin-table or ``tex_scale`` leaf, and no ``mat_fuzz`` /
+    ``mat_ir`` on a scene with metal / dielectric (they steer directions,
+    hence later hit points, and noise is continuous in the point).  An
+    undeclared set (None) never qualifies."""
+    if trainable is None:
+        return False
+    geom_reach = any(k.startswith(_ARG_LEAVES) or k == "tex_scale"
+                     for k in trainable)
+    dir_reach = (
+        ("mat_fuzz" in trainable and scene_lib.MAT_METAL in scene.mat_kinds)
+        or ("mat_ir" in trainable
+            and scene_lib.MAT_DIELECTRIC in scene.mat_kinds))
+    return not geom_reach and not dir_reach
+
+
+@functools.lru_cache(maxsize=32)
+def morton_order(width: int, height: int):
+    """Z-order (Morton) pixel traversal for a WxH image.
+
+    Returns (order, inverse) uint32 numpy arrays: ``order[k]`` is the flat
+    pixel id of the k-th ray.  Neighbouring lanes then cover a compact
+    square tile instead of a scanline strip, so a warp's BVH walks mostly
+    coincide.  Radiance is unaffected: the RNG keys on absolute pixel ids.
+    """
+    def part1by1(v):
+        v = (v | (v << 8)) & 0x00FF00FF
+        v = (v | (v << 4)) & 0x0F0F0F0F
+        v = (v | (v << 2)) & 0x33333333
+        v = (v | (v << 1)) & 0x55555555
+        return v
+
+    gx, gy = np.meshgrid(np.arange(width, dtype=np.uint32),
+                         np.arange(height, dtype=np.uint32))
+    code = part1by1(gx) | (part1by1(gy) << np.uint32(1))
+    order = np.argsort(code.ravel(), kind="stable").astype(np.uint32)
+    inv = np.empty_like(order)
+    inv[order] = np.arange(order.shape[0], dtype=np.uint32)
+    order.flags.writeable = False
+    inv.flags.writeable = False
+    return order, inv
 
 
 def render_radiance(scene, cam, seed, *, width, height, spp, samples_per_pass,
@@ -143,17 +202,25 @@ def render_radiance(scene, cam, seed, *, width, height, spp, samples_per_pass,
     is deferred to write_color, engine.h:58-68).
 
     Returns (radiance_sum V3 of [H*W] in flat scanline order, segments).
-    Sweep-only scenes are traced in scanline order (the JAX package uses
-    Morton order only for BVH scenes, which the port does not render yet).
+    Scenes with a BVH are traced in Morton order (``morton_order``), the
+    others in scanline order, as in the JAX package.
     """
-    pixel_ids = torch.arange(width * height, dtype=torch.int64,
-                             device=scene.device)
-    return radiance_batch(
+    dev = scene.device
+    if scene.has_accel:
+        order, inv = morton_order(width, height)
+        pixel_ids = torch.from_numpy(order.astype(np.int64)).to(dev)
+    else:
+        pixel_ids = torch.arange(width * height, dtype=torch.int64, device=dev)
+    acc, segments = radiance_batch(
         scene, cam, pixel_ids, seed, width=width, height=height,
         sample_start=0, n_samples=spp, spp_cap=spp,
         samples_per_pass=samples_per_pass, max_depth=max_depth, t_min=t_min,
         differentiable=differentiable, trainable=trainable,
     )
+    if scene.has_accel:
+        inv_t = torch.from_numpy(inv.astype(np.int64)).to(dev)
+        acc = acc.map(lambda c: c.index_select(0, inv_t))
+    return acc, segments
 
 
 def render(scene, cam, config: RenderConfig, progress=None):

@@ -13,10 +13,13 @@ import torch
 
 from another_raytracer_tpu_torch import cli
 from another_raytracer_tpu_torch.grad import diff
+from another_raytracer_tpu_torch.models import bvh as bvh_lib
 from another_raytracer_tpu_torch.models import library
 from another_raytracer_tpu_torch.models.scene import SceneBuilder
-from another_raytracer_tpu_torch.ops import camera, rng, vec3
-from another_raytracer_tpu_torch.ops.kernels import mega_diff, mega_kernel
+from another_raytracer_tpu_torch.ops import bvh as bvh_ops
+from another_raytracer_tpu_torch.ops import camera, rng, shade, vec3
+from another_raytracer_tpu_torch.ops.kernels import (bvh_kernel, mega_diff,
+                                                     mega_kernel, perlin_kernel)
 from another_raytracer_tpu_torch.utils import imageio
 
 torch.set_num_threads(1)
@@ -175,3 +178,101 @@ def test_fused_grads_match_lockstep_on_card(dev):
         assert torch.isfinite(g_f[k]).all()
         num = float((g_f[k] - g_l[k]).norm())
         assert num <= 1e-2 * max(float(g_l[k].norm()), 1e-30), k
+
+
+# --------------------------------------------------------------------------
+# K5 (BVH closest hit) and K4 (Perlin noise)
+# --------------------------------------------------------------------------
+
+# (prim, fold_record, fold_full, precomp): every variant the kernel takes.
+BVH_VARIANTS = [("planar", False, False, False), ("planar", False, False, True),
+                ("planar", True, False, False), ("planar", True, False, True),
+                ("planar", True, True, False), ("planar", True, True, True),
+                ("sphere", False, False, False), ("sphere", True, False, False),
+                ("rect", False, False, False)]
+
+
+def _bvh_inputs(prim, n_rays=4096, seed=0):
+    g = np.random.default_rng(seed)
+    if prim == "planar":
+        base = g.uniform(-5, 5, (300, 3))
+        v = [base] + [base + g.uniform(-0.6, 0.6, (300, 3)) for _ in range(2)]
+        uvs = [g.uniform(0, 1, (300, 2)) for _ in range(3)]
+        tree = bvh_lib.build(*bvh_lib.triangle_bounds(*v), leaf_size=16)
+        nodes, rows = bvh_kernel.pack_planar(
+            tree, *v, np.arange(300) * 4 + 2, uv0=uvs[0], uv1=uvs[1],
+            uv2=uvs[2], mats=g.integers(0, 5, 300))
+    elif prim == "sphere":
+        c0 = g.uniform(-5, 5, (300, 3))
+        c1 = c0 + g.uniform(-0.3, 0.3, (300, 3))
+        r, t0, t1 = g.uniform(0.2, 0.8, 300), np.zeros(300), np.ones(300)
+        tree = bvh_lib.build(*bvh_lib.sphere_bounds(c0, c1, r, t0, t1),
+                             leaf_size=16)
+        nodes, rows = bvh_kernel.pack_spheres(tree, c0, c1, t0, t1, r,
+                                              mats=g.integers(0, 5, 300),
+                                              has_uv=np.ones(300))
+    else:
+        axis = g.integers(0, 3, 300)
+        lo = g.uniform(-5, 4, (300, 2))
+        k = g.uniform(-5, 5, 300)
+        tree = bvh_lib.build(*bvh_lib.rect_bounds(axis, k, lo, lo + 0.8),
+                             leaf_size=16)
+        nodes, rows = bvh_kernel.pack_rects(tree, axis, k, lo, lo + 0.8,
+                                            np.arange(300) * 4 + 1)
+    o = g.uniform(-8, 8, (3, n_rays))
+    d = g.normal(size=(3, n_rays))
+    return (nodes, rows, o.astype(np.float32), d.astype(np.float32),
+            g.uniform(0, 1, n_rays).astype(np.float32))
+
+
+@pytest.mark.parametrize("prim,fold,full,pre", BVH_VARIANTS)
+def test_bvh_kernel_matches_plain(prim, fold, full, pre, dev):
+    """Built without FMA contraction, K5 equals its plain version bit for
+    bit: hit mask, code, t and every fold output."""
+    nodes, rows, o, d, time = _bvh_inputs(prim)
+    n = o.shape[1]
+    args = (torch.from_numpy(nodes).to(dev), torch.from_numpy(rows).to(dev),
+            vec3.V3(*(torch.from_numpy(c).to(dev) for c in o)),
+            vec3.V3(*(torch.from_numpy(c).to(dev) for c in d)),
+            torch.full((n,), 3e37, device=dev),
+            torch.zeros(n, dtype=torch.int32, device=dev))
+    kw = dict(leaf_size=16, prim=prim, time=torch.from_numpy(time).to(dev),
+              fold_record=fold, fold_full=full, precomp=pre)
+    before = bvh_kernel.bvh_closest_hit.launches
+    got = bvh_kernel.bvh_closest_hit(*args, **kw)
+    assert bvh_kernel.bvh_closest_hit.launches == before + 1
+    want = bvh_ops.traverse_packed(*args[:4], kw.pop("time"), 1e-3, *args[4:],
+                                   **kw)
+    flat = lambda out: [x for v in out for x in (v if isinstance(v, vec3.V3) else (v,))]  # noqa: E731
+    for a, b in zip(flat(got), flat(want)):
+        assert torch.equal(a, b)
+    assert 0 < int(got[2].sum()) < n
+
+
+def test_perlin_kernel_matches_plain(dev):
+    b = SceneBuilder(seed=3)
+    for scale in (4.0, 0.1):
+        b.sphere((0, 0, 0), 1.0, b.lambertian(texture=b.noise_texture(scale)))
+    scene = b.build(device=dev)
+    g = np.random.default_rng(1)
+    p = g.uniform(-60, 60, (3, 1 << 16)).astype(np.float32)
+    pv = vec3.V3(*(torch.from_numpy(c).to(dev) for c in p))
+    ids = torch.from_numpy(g.integers(0, 2, 1 << 16)).to(dev)
+    before = perlin_kernel.perlin_noise.launches
+    got = perlin_kernel.perlin_noise(scene, ids, pv)
+    assert perlin_kernel.perlin_noise.launches == before + 1
+    assert torch.equal(got, shade.perlin_noise(scene, ids, pv))
+
+
+def test_cli_renders_bvh_and_noise_scenes_through_the_kernels(dev, tmp_path):
+    for scene_id, counter in (("1", bvh_kernel.bvh_closest_hit),
+                              ("3", perlin_kernel.perlin_noise),
+                              ("5", perlin_kernel.perlin_noise)):
+        out = tmp_path / f"scene{scene_id}.png"
+        before = counter.launches
+        assert cli.main(["--scene", scene_id, "--width", str(W), "--height",
+                         str(H), "--spp", "4", "--max-depth", "20", "--mode",
+                         "single", "--device", "cuda", "--out", str(out)]) == 0
+        assert counter.launches > before
+        img = imageio.load_png(out)
+        assert img.shape == (H, W, 3) and img.mean() > 5.0

@@ -433,8 +433,8 @@ def test_train_state_from_reference_matches_optax():
 
 
 def test_make_train_step_lowers_loss():
-    port, params = tlib.cornell_box()
-    cam = tcam.make_camera(aspect_ratio=W / H, **params)
+    port, params = tlib.cornell_box(device="cpu")
+    cam = tcam.make_camera(aspect_ratio=W / H, device="cpu", **params)
     kw = dict(width=W, height=H, spp=SPP, samples_per_pass=1, max_depth=DEPTH)
     with torch.no_grad():
         acc, _ = trender.render_radiance(port, cam, 9, differentiable=True,

@@ -18,11 +18,15 @@ from another_raytracer_tpu_torch import bench, cli
 from another_raytracer_tpu_torch.config import RenderConfig
 from another_raytracer_tpu_torch.grad import diff
 from another_raytracer_tpu_torch.models import library
-from another_raytracer_tpu_torch.ops import camera, integrator, render
-from another_raytracer_tpu_torch.ops.kernels import _build, mega_diff, mega_kernel
+from another_raytracer_tpu_torch.models import bvh as bvh_lib
+from another_raytracer_tpu_torch.ops import bvh, camera, integrator, render, shade
+from another_raytracer_tpu_torch.ops.kernels import (_build, bvh_kernel,
+                                                     mega_diff, mega_kernel,
+                                                     perlin_kernel)
+from another_raytracer_tpu_torch.utils import assets
 
-scene, params = library.cornell_box()
-cam = camera.make_camera(aspect_ratio=1.0, **params)
+scene, params = library.cornell_box(device="cpu")
+cam = camera.make_camera(aspect_ratio=1.0, device="cpu", **params)
 img, stats = render.render(
     scene, cam, RenderConfig(width=12, height=12, samples_per_pixel=1))
 assert img.shape == (12, 12, 3) and stats["segments"] > 0, stats
@@ -31,6 +35,15 @@ loss, grads = diff.render_value_and_grad(
     leaves, scene, cam, torch.zeros(144, 3), 0, width=12, height=12, spp=2,
     samples_per_pass=1, max_depth=3, t_min=1e-3)
 assert float(grads["tex_ca"].abs().max()) > 0
+# The wavefront of the BVH and noise scenes: scene 1's sphere tree and
+# scene 3's Perlin noise, through the plain versions of K5 and K4.
+for alias in (1, 3):
+    scene, params = library.build(alias, device="cpu")
+    cam = camera.make_camera(aspect_ratio=1.0, device="cpu", **params)
+    img, st = render.render(
+        scene, cam, RenderConfig(width=8, height=8, samples_per_pixel=1,
+                                 max_depth=4))
+    assert img.shape == (8, 8, 3) and st["segments"] > 0, st
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "flax", "jaxlib",
                                     "another_raytracer_tpu")

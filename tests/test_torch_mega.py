@@ -91,8 +91,8 @@ def test_plain_kernel_matches_reference(name):
 
 
 def test_pad_and_masked_lanes_contribute_nothing():
-    port, params = tlib.cornell_box()
-    cam = tcam.make_camera(aspect_ratio=W / H, **params)
+    port, params = tlib.cornell_box(device="cpu")
+    cam = tcam.make_camera(aspect_ratio=W / H, device="cpu", **params)
     pix, samp = _lanes()
     base, base_segs = tmk.trace_regenerative_mega(port, cam, pix, samp, 3, **KW)
     # Born-dead pad lanes (sample 0xFFFFFFFF) appended to the batch.

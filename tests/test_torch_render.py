@@ -36,8 +36,8 @@ def test_render_matches_reference(spp):
     cfg = dict(width=W, height=H, samples_per_pixel=spp, max_depth=DEPTH, seed=2)
     ref_scene, params = jlib.cornell_box()
     ref_cam = jcam.make_camera(aspect_ratio=W / H, **params)
-    port_scene, _ = tlib.cornell_box()
-    port_cam = tcam.make_camera(aspect_ratio=W / H, **params)
+    port_scene, _ = tlib.cornell_box(device="cpu")
+    port_cam = tcam.make_camera(aspect_ratio=W / H, device="cpu", **params)
     kw = dict(width=W, height=H, spp=spp, samples_per_pass=1,
               max_depth=DEPTH, t_min=1e-3)
 
@@ -69,26 +69,29 @@ def test_cli_writes_png(tmp_path, capsys):
 
 
 def test_unported_paths_raise(tmp_path):
-    scene, params = tlib.cornell_box()
-    cam = tcam.make_camera(aspect_ratio=W / H, **params)
+    scene, params = tlib.cornell_box(device="cpu")
+    cam = tcam.make_camera(aspect_ratio=W / H, device="cpu", **params)
     for mode, item in [(RenderMode.ADAPTIVE, "M19"),
                        (RenderMode.PARALLEL_STRIPES, "M18"),
                        (RenderMode.PARALLEL_IMAGES, "M18")]:
         with pytest.raises(NotImplementedError, match=item):
             trender.render(scene, cam, RenderConfig(width=W, height=H,
                                                     mode=mode))
-    # A differentiable render of a noise-texture scene: neither the fused
-    # path nor the lockstep integrator shades Perlin noise yet.
+    # Forward and differentiable renders of a scene with a medium: no
+    # integrator traces media yet.
     b = SceneBuilder(background=(0.5, 0.6, 0.8), seed=3)
     b.sphere((0, 0, -2), 1.0, b.lambertian(texture=b.noise_texture(2.0)))
-    with pytest.raises(NotImplementedError, match="M14"):
-        trender.radiance_batch(b.build(), cam, torch.arange(W * H), 0, width=W,
-                               height=H, sample_start=0, n_samples=1,
-                               spp_cap=1, samples_per_pass=1, max_depth=2,
-                               t_min=1e-3, differentiable=True)
-    for alias in (1, 3, 4, 5, 7, 8, 9):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tlib.build(alias)
+    b.constant_medium_sphere((0, 0, -2), 2.0, 0.5, color=(1, 1, 1))
+    for differentiable in (False, True):
+        with pytest.raises(NotImplementedError, match="M15"):
+            trender.radiance_batch(b.build(device="cpu"), cam,
+                                   torch.arange(W * H), 0, width=W, height=H,
+                                   sample_start=0, n_samples=1, spp_cap=1,
+                                   samples_per_pass=1, max_depth=2, t_min=1e-3,
+                                   differentiable=differentiable)
+    for alias, item in ((7, "M15"), (8, "M15"), (9, "M17")):
+        with pytest.raises(NotImplementedError, match=item):
+            tlib.build(alias, device="cpu")
     out = str(tmp_path / "x.png")
     # The JAX CLI's defaults (--scene 9 --mode adaptive) are not ported yet.
     for argv in ([], ["--mode", "single", "--scene", "9"],
@@ -106,6 +109,11 @@ def test_cuda_device_without_card_raises(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--scene", "6", "--mode", "single", "--device", "cuda",
                   "--out", str(tmp_path / "x.png")])
-    scene, params = tlib.cornell_box()
+    scene, params = tlib.cornell_box(device="cpu")
     with pytest.raises((RuntimeError, AssertionError)):
         scene.to("cuda")
+    # The builders and the camera default to the card.
+    for build in (lambda: tlib.build(1), lambda: tlib.cornell_box(),
+                  lambda: tcam.make_camera(**params)):
+        with pytest.raises((RuntimeError, AssertionError)):
+            build()

@@ -48,9 +48,11 @@ def _metal_builder(builder_cls):
     return b
 
 
-@pytest.mark.parametrize("name", ["cornell_box", "two_spheres"])
+@pytest.mark.parametrize("name", ["cornell_box", "two_spheres", "random_scene",
+                                  "two_perlin_spheres", "earth",
+                                  "simple_light"])
 def test_library_scene_equals_reference(name):
-    port, port_cam = getattr(tlib, name)()
+    port, port_cam = getattr(tlib, name)(device="cpu")
     ref, ref_cam = getattr(jlib, name)()
     _assert_scene_equal(port, ref)
     assert port_cam == ref_cam
@@ -58,7 +60,7 @@ def test_library_scene_equals_reference(name):
 
 def test_builder_and_scene_from_reference_round_trip():
     ref = _metal_builder(JBuilder).build()
-    port = _metal_builder(tscene.SceneBuilder).build()
+    port = _metal_builder(tscene.SceneBuilder).build(device="cpu")
     _assert_scene_equal(port, ref)
     carried = tscene.scene_from_reference(ref)
     _assert_scene_equal(carried, ref)
@@ -67,21 +69,23 @@ def test_builder_and_scene_from_reference_round_trip():
 
 
 def test_builder_refuses_unported():
+    # 64 spheres reach the sphere-BVH threshold: the builder packs a tree.
     b = tscene.SceneBuilder()
     m = b.lambertian(color=(0.5, 0.5, 0.5))
     for i in range(64):
         b.sphere((i, 0, 0), 0.4, m)
-    with pytest.raises(NotImplementedError, match="M16"):
-        b.build()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tlib.build(9)
+    scene = b.build(device="cpu")
+    assert scene.sph_in_bvh and scene.n_sph_bvh_nodes > 0 and scene.has_accel
+    for alias, item in ((7, "M15"), (8, "M15"), (9, "M17")):
+        with pytest.raises(NotImplementedError, match=item):
+            tlib.build(alias, device="cpu")
     with pytest.raises(ValueError, match="unknown scene"):
         tlib.build(12)
 
 
 def _cameras(params):
     ref = jcam.make_camera(aspect_ratio=W / H, **params)
-    return tcam.make_camera(aspect_ratio=W / H, **params), ref
+    return tcam.make_camera(aspect_ratio=W / H, device="cpu", **params), ref
 
 
 @pytest.mark.parametrize("params", [LENS_SHUTTER, jlib.cornell_box()[1]],
