@@ -5,10 +5,11 @@
         --out output.png
 
 The flags are the JAX CLI's plus ``--device``.  Ported so far: scenes 1-6
-in mode ``single`` (1 through the BVH kernel, 3 and 5 through the Perlin
-kernel, 2 and 6 through the megakernel).  The JAX CLI's defaults
-(``--scene 9 --mode adaptive``) therefore fail here until those are ported,
-and so do the flags named in ``_UNPORTED_FLAGS``.
+in modes ``single`` and ``adaptive`` (2 and 6 through the megakernel's sweep
+mode, 1 through its accel mode, 3, 4 and 5 through the wavefront with the
+BVH and Perlin kernels).  The default mode is ``single``: the JAX CLI's
+defaults (``--scene 9 --mode adaptive``) need scene 9 (ROADMAP M17).  The
+flags named in ``_UNPORTED_FLAGS`` and the parallel modes (M18) fail.
 """
 
 from __future__ import annotations
@@ -39,10 +40,10 @@ _UNPORTED_FLAGS = {
 def main(argv=None):
     p = argparse.ArgumentParser(
         description="PyTorch/CUDA port of the path tracer.  Ported so far: "
-                    "scenes 1-6, --mode single; the JAX CLI's defaults "
-                    "(--scene 9, --mode adaptive) and --obj, --preview, "
-                    "--checkpoint, --profile-dir, --live, --view fail until "
-                    "ported (ROADMAP.md).")
+                    "scenes 1-6, --mode single and adaptive; scene 9 (the "
+                    "JAX CLI's default), the parallel modes and --obj, "
+                    "--preview, --checkpoint, --profile-dir, --live, --view "
+                    "fail until ported (ROADMAP.md).")
     p.add_argument("--scene", type=int, default=9,
                    help="scene alias 1..9 (default 9 = mesh, matching "
                         "main.cpp:20; not ported yet — ported: 1-6)")
@@ -52,9 +53,11 @@ def main(argv=None):
     p.add_argument("--max-depth", type=int, default=50)
     p.add_argument("--samples-per-pass", type=int, default=1)
     p.add_argument("--mode", choices=[m.value for m in RenderMode],
-                   default=RenderMode.ADAPTIVE.value,
-                   help="render mode (default adaptive, matching main.cpp:44; "
-                        "only 'single' is ported)")
+                   default=RenderMode.SINGLE.value,
+                   help="render mode (default single; the JAX CLI's default "
+                        "is adaptive, main.cpp:44, with scene 9; "
+                        "'parallel_stripes' and 'parallel_images' are not "
+                        "ported yet; adaptive needs 12 | width and height)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default="output.png")
     p.add_argument("--scene-seed", type=int, default=1234)
@@ -80,10 +83,12 @@ def main(argv=None):
         if value is not None and value is not False:  # --live gives 0
             p.error(f"--{flag.replace('_', '-')} is not ported yet ({item})")
     mode = RenderMode(args.mode)
-    if mode != RenderMode.SINGLE:
-        p.error(f"--mode {mode.value} is not ported yet "
-                f"(ROADMAP {'M19' if mode == RenderMode.ADAPTIVE else 'M18'}); "
-                "use --mode single")
+    if mode in (RenderMode.PARALLEL_STRIPES, RenderMode.PARALLEL_IMAGES):
+        p.error(f"--mode {mode.value} is not ported yet (ROADMAP M18); use "
+                "--mode single or adaptive")
+    if mode == RenderMode.ADAPTIVE and (args.width % 12 or args.height % 12):
+        p.error("--mode adaptive needs a width and a height divisible by 12 "
+                "(the adaptive mode's 12x12 squares)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -1,17 +1,40 @@
 // Forward megakernel for NVIDIA Hopper (sm_90a): the whole regenerating
-// path-trace loop of a sweep-only scene, one thread per ray lane.
+// path-trace loop of a scene, one thread per ray lane.
 //
-// Replaces: another_raytracer_tpu/ops/pallas/mega_kernel.py::_kernel in sweep
-// mode (no sphere BVH), reached through trace_regenerative_mega: the forward
-// instance (record_iters == 0, K1) and the record instance (record_iters > 0,
-// K2, the primal of the fused differentiable path, ops/pallas/mega_diff.py).
-// Same inputs and outputs, same per-lane algorithm:
-// camera ray (lens and shutter draws gated), threefry-2x32 draws keyed on
-// (seed, bounce<<8|dim) x (pixel, sample), closest-hit sweep over world-baked
-// sphere rows then rect rows with the strict `t < best_t` tie rule (the
-// earlier row keeps a tie), branchless-equivalent lambertian / metal /
-// dielectric / diffuse-light shading with solid / checker textures, and
-// per-lane regeneration until the lane's sample budget is spent.
+// Replaces: another_raytracer_tpu/ops/pallas/mega_kernel.py::_kernel,
+// reached through trace_regenerative_mega, in both its modes and both its
+// instances: sweep mode (K1 forward, K2 record: record_iters > 0, the primal
+// of the fused differentiable path, ops/pallas/mega_diff.py) and accel mode
+// (K3, forward and record: the scene's spheres in one BVH, walked in-kernel,
+// mega_kernel.py:377-511 there).  Same inputs and outputs, same per-lane
+// algorithm: camera ray (lens and shutter draws gated), threefry-2x32 draws
+// keyed on (seed, bounce<<8|dim) x (pixel, sample), the closest hit with the
+// strict `t < best_t` tie rule (the earlier row keeps a tie),
+// branchless-equivalent lambertian / metal / dielectric / diffuse-light
+// shading with solid / checker textures, and per-lane regeneration until the
+// lane's sample budget is spent.  The closest hit is, per mode:
+//   sweep: every world-baked row, sphere rows then rect rows;
+//   accel: a stackless walk of the sphere tree over its escape indices.
+//
+// Accel mode (template argument ACCEL; everything else is the same code).
+// The TPU kernel walks a block of lanes with ONE cursor (packet DFS): at node
+// j every lane runs the slab test, the block enters the subtree if any lane
+// hit the box, and a lane's leaf tests are masked by its own box test.
+// Child boxes nest inside their parents and a lane's best t only shrinks, so
+// a lane that missed a box misses every box below it: the leaves a lane
+// tests, and their order, are those of its own walk.  Here each thread walks
+// on its own (the BVH kernel's design, csrc/bvh_kernel.cu): on a box hit it
+// goes to j + 1 and tests a leaf's rows in leaf order, on a miss it jumps to
+// the escape index.  The TPU kernel folds the winner's material columns at
+// every improvement (it has no gathers); here the walk keeps the winner's row
+// index and the shading reads its columns once, which is the same result.
+// The sphere test, the slab test from [t_min, best_t] and the hit normal
+// (o + t d - c) / r with 1/r = 1/(r != 0 ? r : 1) are K3's arithmetic.
+// The widened rows ([N+pad][32]: the tree's 16 columns, then the material
+// columns) and the nodes ([M][8]) stay in device memory, read through the
+// read-only cache: the random scene's rows are 903 x 128 B = 116 KB, more
+// than the sweep's shared-memory table is sized for, and up to 1 MB
+// (ACCEL_MAX_ROWS).
 //
 // What bounds it on this card: instruction issue, not memory.  A lane reads
 // 8 bytes and writes 16; everything else (ray state, the 13-round threefry,
@@ -22,24 +45,32 @@
 // material branches), and registers per thread, which set how many warps an
 // SM keeps in flight to hide latency.
 //
+// In accel mode add the walk's latency: each node visit is a dependent
+// chain (load the node, test the box, pick the next node) and the lanes of a
+// warp diverge to other nodes.
+//
 // What the design does about it: state never leaves registers; every thread
 // of a warp reads the same row in the same sweep step, so shared-memory reads
-// are broadcasts; a lane whose path ends re-arms with its next sample at once
+// are broadcasts (in accel mode the renders trace in Morton order, so a
+// warp's lanes are neighbouring pixels whose walks mostly coincide); a lane
+// whose path ends re-arms with its next sample at once
 // (the TPU kernel's per-lane regeneration), so divergence is confined to the
 // tail of each lane's budget; random draws and shading branches that a lane
 // does not need are skipped, which is exact because each draw is a pure
 // function of its key and counter.  Tuning (block size, occupancy, draw
 // batching) is later work.
 //
-// Record mode (K2) is the same kernel compiled with the compile-time constant
-// RECORD set, so the forward instance keeps its registers and its time and
-// only the record instance pays for the residual writes.  The file is built
-// twice (ops/kernels/_build.py): as is, for the forward instance
-// (art_mega_forward, art_threefry_words), and with -DART_RECORD -fmad=false
-// for the record instance (art_mega_record).  The record build contracts no a*b+c into an
-// FMA and takes sin and cos in double (correctly rounded float results) and
-// rsqrt as 1/sqrt: those are the plain version's ops, so its recorded paths
-// are the plain version's bit for bit, where FMA contraction alone flipped
+// Record mode (K2, and K3's record instance) is the same kernel compiled with
+// the compile-time constant RECORD set, so the forward instances keep their
+// registers and their time and only the record instances pay for the
+// residual writes.  The file is built twice (ops/kernels/_build.py): as is,
+// for the forward instances (art_mega_forward, art_threefry_words), and with
+// -DART_RECORD -fmad=false for the record instances (art_mega_record).  The
+// record build contracts no a*b+c into an FMA and takes sin and cos in double
+// (correctly rounded float results) and rsqrt as 1/sqrt: those are the plain
+// version's ops, so its recorded paths are the plain version's bit for bit
+// (the accel walk's tests are the plain walk's, ops/bvh.py, operation for
+// operation), where FMA contraction alone flipped
 // the path of ~5% of the lanes at the bench size (measured on the H100,
 // against ~17% more K2 time).  Per lane and loop iteration it writes one
 // int32 code tid*16 + checker_odd*8 + chain_end*4 + event (event 0 idle or
@@ -70,6 +101,7 @@ namespace {
 
 constexpr int ROW_W = 32;
 constexpr int MAX_ROWS = 64;
+constexpr int META_SCALE = 64;  // node meta = first * 64 + count
 constexpr float BIG = 3e37f;
 constexpr float NEAR_ZERO_EPS = 1e-8f;
 constexpr float TWO_PI = 6.2831853071795864769f;
@@ -112,6 +144,9 @@ struct Params {
   float inv_w1, inv_h1, h1, t_min;
   uint32_t seed, limit, stride;
   int width, n, n_spheres, n_rects, max_depth, flags;
+  // Accel mode: nodes [n_nodes][8] (device memory), leaf rows n_spheres.
+  const float* nodes;
+  int n_nodes, leaf_size;
 };
 
 // Residual outputs of the record instance: codes [iters][n] int32 and
@@ -221,6 +256,148 @@ __device__ __forceinline__ float dot3(const float a[3], const float b[3]) {
   return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
 }
 
+__device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
+
+__device__ __forceinline__ float safe_inv(float c) {
+  const float tiny = c < 0.0f ? -1e-20f : 1e-20f;
+  return 1.0f / (fabsf(c) < 1e-20f ? tiny : c);
+}
+
+// Sweep mode: every row of the shared-memory table, spheres then rects.
+// Returns the winner's row (-1 on a miss), its t in best_t and its normal.
+__device__ __forceinline__ int sweep_hit(const Params& p,
+                                         const float* __restrict__ rows,
+                                         const float o[3], const float d[3],
+                                         float tm, float a_len, float& best_t,
+                                         float bn[3]) {
+  const int n_rows = p.n_spheres + p.n_rects;
+  int best = -1;
+  if (p.n_spheres) {
+    const float inv_a = 1.0f / (a_len > 0.0f ? a_len : 1.0f);
+    for (int j = 0; j < p.n_spheres; ++j) {
+      const float* r = rows + j * ROW_W;
+      const float frac = (tm - r[7]) * r[8];
+      const float cx = r[1] + frac * r[4];
+      const float cy = r[2] + frac * r[5];
+      const float cz = r[3] + frac * r[6];
+      const float ocx = o[0] - cx, ocy = o[1] - cy, ocz = o[2] - cz;
+      const float half_b = ocx * d[0] + ocy * d[1] + ocz * d[2];
+      const float c = ocx * ocx + ocy * ocy + ocz * ocz - r[9] * r[9];
+      const float disc = half_b * half_b - a_len * c;
+      if (!(disc > 0.0f)) continue;
+      const float sq = sqrtf(disc);
+      const float root1 = (-half_b - sq) * inv_a;
+      const float t = (root1 > p.t_min && root1 < best_t)
+                          ? root1 : (-half_b + sq) * inv_a;
+      if (t > p.t_min && t < best_t) {
+        best_t = t;
+        best = j;
+        const float inv_r = 1.0f / r[9];
+        bn[0] = (o[0] + t * d[0] - cx) * inv_r;
+        bn[1] = (o[1] + t * d[1] - cy) * inv_r;
+        bn[2] = (o[2] + t * d[2] - cz) * inv_r;
+      }
+    }
+  }
+  for (int j = p.n_spheres; j < n_rows; ++j) {
+    // World parallelogram == aarect.cpp plane + inclusive bounds.
+    const float* r = rows + j * ROW_W;
+    const float ndotd = r[10] * d[0] + r[11] * d[1] + r[12] * d[2];
+    if (ndotd == 0.0f) continue;
+    const float ndoto = r[10] * o[0] + r[11] * o[1] + r[12] * o[2];
+    const float t = (r[13] - ndoto) / ndotd;
+    const float rx = o[0] + t * d[0] - r[1];
+    const float ry = o[1] + t * d[1] - r[2];
+    const float rz = o[2] + t * d[2] - r[3];
+    const float a = rx * r[4] + ry * r[5] + rz * r[6];
+    const float b = rx * r[7] + ry * r[8] + rz * r[9];
+    if (a >= 0.0f && a <= r[14] && b >= 0.0f && b <= r[15] &&
+        t > p.t_min && t < best_t) {
+      best_t = t;
+      best = j;
+      bn[0] = r[10];
+      bn[1] = r[11];
+      bn[2] = r[12];
+    }
+  }
+  return best;
+}
+
+// Accel mode: the stackless walk of the sphere tree over the widened leaf
+// rows in device memory (mega_kernel.py:384-500).  Same returns.
+__device__ __forceinline__ int accel_hit(const Params& p,
+                                         const float* __restrict__ rows,
+                                         const float o[3], const float d[3],
+                                         float tm, float a_len, float& best_t,
+                                         float bn[3]) {
+  const float ix = safe_inv(d[0]), iy = safe_inv(d[1]), iz = safe_inv(d[2]);
+  const float inv_a = 1.0f / (a_len > 0.0f ? a_len : 1.0f);
+  int best = -1;
+  int j = 0;
+  while (j < p.n_nodes) {
+    const float* nd = p.nodes + 8 * (size_t)j;
+    float tn = p.t_min, tf = best_t;
+    {
+      const float a = (ldg(nd + 0) - o[0]) * ix, b = (ldg(nd + 3) - o[0]) * ix;
+      tn = fmaxf(tn, fminf(a, b));
+      tf = fminf(tf, fmaxf(a, b));
+    }
+    {
+      const float a = (ldg(nd + 1) - o[1]) * iy, b = (ldg(nd + 4) - o[1]) * iy;
+      tn = fmaxf(tn, fminf(a, b));
+      tf = fminf(tf, fmaxf(a, b));
+    }
+    {
+      const float a = (ldg(nd + 2) - o[2]) * iz, b = (ldg(nd + 5) - o[2]) * iz;
+      tn = fmaxf(tn, fminf(a, b));
+      tf = fminf(tf, fmaxf(a, b));
+    }
+    if (!(tn < tf)) {
+      j = (int)ldg(nd + 6);
+      continue;
+    }
+    const int meta = (int)ldg(nd + 7);
+    const int count = min(meta % META_SCALE, p.leaf_size);
+    const int first = meta / META_SCALE;
+    for (int k = 0; k < count; ++k) {
+      const int row = min(first + k, p.n_spheres - 1);
+      const float* r = rows + (size_t)row * ROW_W;
+      const float frac = (tm - ldg(r + 6)) * ldg(r + 7);
+      const float ocx = o[0] - (ldg(r + 0) + frac * ldg(r + 3));
+      const float ocy = o[1] - (ldg(r + 1) + frac * ldg(r + 4));
+      const float ocz = o[2] - (ldg(r + 2) + frac * ldg(r + 5));
+      const float rad = ldg(r + 8);
+      const float half_b = ocx * d[0] + ocy * d[1] + ocz * d[2];
+      const float c = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
+      const float disc = half_b * half_b - a_len * c;
+      if (!(disc > 0.0f)) continue;
+      const float sq = sqrtf(disc);
+      const float root1 = (-half_b - sq) * inv_a;
+      const float t = (root1 > p.t_min && root1 < best_t)
+                          ? root1 : (-half_b + sq) * inv_a;
+      if (t > p.t_min && t < best_t) {
+        best_t = t;
+        best = row;
+      }
+    }
+    ++j;
+  }
+  if (best >= 0) {
+    // The winner's outward normal, K3's formula (mega_kernel.py:462-465).
+    const float* r = rows + (size_t)best * ROW_W;
+    const float frac = (tm - ldg(r + 6)) * ldg(r + 7);
+    const float rad = ldg(r + 8);
+    const float inv_r = 1.0f / (rad != 0.0f ? rad : 1.0f);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float ck = ldg(r + k) + frac * ldg(r + 3 + k);
+      bn[k] = (o[k] + best_t * d[k] - ck) * inv_r;
+    }
+  }
+  return best;
+}
+
+template <bool ACCEL>
 __global__ void mega_forward_kernel(const float* __restrict__ rows_g,
                                     const uint32_t* __restrict__ pixel_ids,
                                     const uint32_t* __restrict__ sample_ids0,
@@ -230,10 +407,18 @@ __global__ void mega_forward_kernel(const float* __restrict__ rows_g,
                                     float* __restrict__ out_z,
                                     int* __restrict__ out_seg,
                                     const Record rec) {
-  __shared__ float rows[MAX_ROWS * ROW_W];
-  const int n_rows = p.n_spheres + p.n_rects;
-  for (int k = threadIdx.x; k < n_rows * ROW_W; k += blockDim.x) rows[k] = rows_g[k];
-  __syncthreads();
+  const float* rows;  // sweep: the shared-memory table; accel: rows_g
+  if constexpr (ACCEL) {
+    rows = rows_g;
+  } else {
+    __shared__ float rows_s[MAX_ROWS * ROW_W];
+    const int n_rows = p.n_spheres + p.n_rects;
+    for (int k = threadIdx.x; k < n_rows * ROW_W; k += blockDim.x) {
+      rows_s[k] = rows_g[k];
+    }
+    __syncthreads();
+    rows = rows_s;
+  }
 
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= p.n) return;
@@ -271,58 +456,14 @@ __global__ void mega_forward_kernel(const float* __restrict__ rows_g,
       tp_entry[2] = tp[2];
     }
 
-    // ---- closest-hit sweep: spheres, then rects (intersect.closest_hit
-    // fold order); strict improvement keeps the earlier row on ties.
+    // ---- closest hit (strict improvement keeps the earlier row on ties)
     float best_t = BIG;
     float bn[3] = {0.0f, 0.0f, 0.0f};
-    int best = -1;
-    if (p.n_spheres) {
-      const float inv_a = 1.0f / (a_len > 0.0f ? a_len : 1.0f);
-      for (int j = 0; j < p.n_spheres; ++j) {
-        const float* r = rows + j * ROW_W;
-        const float frac = (tm - r[7]) * r[8];
-        const float cx = r[1] + frac * r[4];
-        const float cy = r[2] + frac * r[5];
-        const float cz = r[3] + frac * r[6];
-        const float ocx = o[0] - cx, ocy = o[1] - cy, ocz = o[2] - cz;
-        const float half_b = ocx * d[0] + ocy * d[1] + ocz * d[2];
-        const float c = ocx * ocx + ocy * ocy + ocz * ocz - r[9] * r[9];
-        const float disc = half_b * half_b - a_len * c;
-        if (!(disc > 0.0f)) continue;
-        const float sq = sqrtf(disc);
-        const float root1 = (-half_b - sq) * inv_a;
-        const float t = (root1 > p.t_min && root1 < best_t)
-                            ? root1 : (-half_b + sq) * inv_a;
-        if (t > p.t_min && t < best_t) {
-          best_t = t;
-          best = j;
-          const float inv_r = 1.0f / r[9];
-          bn[0] = (o[0] + t * d[0] - cx) * inv_r;
-          bn[1] = (o[1] + t * d[1] - cy) * inv_r;
-          bn[2] = (o[2] + t * d[2] - cz) * inv_r;
-        }
-      }
-    }
-    for (int j = p.n_spheres; j < n_rows; ++j) {
-      // World parallelogram == aarect.cpp plane + inclusive bounds.
-      const float* r = rows + j * ROW_W;
-      const float ndotd = r[10] * d[0] + r[11] * d[1] + r[12] * d[2];
-      if (ndotd == 0.0f) continue;
-      const float ndoto = r[10] * o[0] + r[11] * o[1] + r[12] * o[2];
-      const float t = (r[13] - ndoto) / ndotd;
-      const float rx = o[0] + t * d[0] - r[1];
-      const float ry = o[1] + t * d[1] - r[2];
-      const float rz = o[2] + t * d[2] - r[3];
-      const float a = rx * r[4] + ry * r[5] + rz * r[6];
-      const float b = rx * r[7] + ry * r[8] + rz * r[9];
-      if (a >= 0.0f && a <= r[14] && b >= 0.0f && b <= r[15] &&
-          t > p.t_min && t < best_t) {
-        best_t = t;
-        best = j;
-        bn[0] = r[10];
-        bn[1] = r[11];
-        bn[2] = r[12];
-      }
+    int best;
+    if constexpr (ACCEL) {
+      best = accel_hit(p, rows, o, d, tm, a_len, best_t, bn);
+    } else {
+      best = sweep_hit(p, rows, o, d, tm, a_len, best_t, bn);
     }
 
     bool scattered = false;
@@ -333,7 +474,7 @@ __global__ void mega_forward_kernel(const float* __restrict__ rows_g,
       if constexpr (RECORD) ev = 3;
     } else {
       // ---- shade + scatter (shade.emit_and_scatter) ----------------------
-      const float* r = rows + best * ROW_W;
+      const float* r = rows + (size_t)best * ROW_W;
       const bool front = dot3(bn, d) < 0.0f;
       float n[3], hp[3];
 #pragma unroll
@@ -504,14 +645,21 @@ __global__ void threefry_words_kernel(uint32_t seed, uint32_t key1,
 }
 
 // Checks the launch arguments and fills the kernel's Params; returns
-// cudaSuccess or cudaErrorInvalidValue.
-cudaError_t make_params(int n_spheres, int n_rects, const float* camc, int n,
+// cudaSuccess or cudaErrorInvalidValue.  n_nodes > 0 selects accel mode:
+// `nodes` [n_nodes][8] and n_spheres widened leaf rows, no rect rows.
+cudaError_t make_params(int n_spheres, int n_rects, const float* nodes,
+                        int n_nodes, int leaf_size, const float* camc, int n,
                         uint32_t seed, uint32_t limit, uint32_t stride,
                         int width, int height, int max_depth, float t_min,
                         int flags, int block, Params& p) {
-  if (n_spheres < 0 || n_rects < 0 || n_spheres + n_rects > MAX_ROWS ||
-      n_spheres + n_rects == 0 || n < 0 || width < 2 || height < 2 ||
-      stride == 0 || block <= 0) {
+  if (n_spheres < 0 || n_rects < 0 || n_nodes < 0 || n < 0 || width < 2 ||
+      height < 2 || stride == 0 || block <= 0) {
+    return cudaErrorInvalidValue;
+  }
+  if (n_nodes > 0 ? (nodes == nullptr || n_rects != 0 || n_spheres < 1 ||
+                     leaf_size < 1 || leaf_size >= META_SCALE)
+                  : (n_spheres + n_rects > MAX_ROWS ||
+                     n_spheres + n_rects == 0)) {
     return cudaErrorInvalidValue;
   }
   float* cam = reinterpret_cast<float*>(&p.cam);
@@ -529,17 +677,47 @@ cudaError_t make_params(int n_spheres, int n_rects, const float* camc, int n,
   p.n_rects = n_rects;
   p.max_depth = max_depth;
   p.flags = flags;
+  p.nodes = nodes;
+  p.n_nodes = n_nodes;
+  p.leaf_size = leaf_size;
   return cudaSuccess;
+}
+
+// Launches the sweep or the accel instance of this build.
+cudaError_t launch(const float* rows, const uint32_t* pixel_ids,
+                   const uint32_t* sample_ids0, const Params& p, int block,
+                   float* out_x, float* out_y, float* out_z, int* out_seg,
+                   const Record& rec, void* stream) {
+  if (p.n == 0) return cudaSuccess;
+  const int grid = (p.n + block - 1) / block;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p.n_nodes > 0) {
+    mega_forward_kernel<true><<<grid, block, 0, s>>>(
+        rows, pixel_ids, sample_ids0, p, out_x, out_y, out_z, out_seg, rec);
+  } else {
+    mega_forward_kernel<false><<<grid, block, 0, s>>>(
+        rows, pixel_ids, sample_ids0, p, out_x, out_y, out_z, out_seg, rec);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// The launch arguments of both builds: the rows (sweep: n_spheres sphere
+// rows then n_rects rect rows, at most 64; accel: n_spheres widened leaf
+// rows [N+pad][32] and n_rects 0), the sphere tree's nodes [n_nodes][8] and
+// leaf size (accel mode when n_nodes > 0; nodes may be null in sweep mode),
+// then the camera, the lanes and the render constants.  `camc` is a HOST
+// array of 24 floats (copied into the kernel's arguments); every other
+// pointer is device memory.
+
 #ifndef ART_RECORD
-// Launches the forward instance (K1) on `stream`.  `camc` is a HOST array of
-// 24 floats (copied into the kernel's arguments); every other pointer is
-// device memory.  Returns cudaGetLastError() (0 on success).
+// Launches the forward instance (K1, or K3's in accel mode) on `stream`.
+// Returns cudaGetLastError() (0 on success).
 extern "C" int art_mega_forward(const float* rows, int n_spheres, int n_rects,
-                                const float* camc, const uint32_t* pixel_ids,
+                                const float* nodes, int n_nodes,
+                                int leaf_size, const float* camc,
+                                const uint32_t* pixel_ids,
                                 const uint32_t* sample_ids0, int n,
                                 uint32_t seed, uint32_t limit, uint32_t stride,
                                 int width, int height, int max_depth,
@@ -547,15 +725,13 @@ extern "C" int art_mega_forward(const float* rows, int n_spheres, int n_rects,
                                 float* out_x, float* out_y, float* out_z,
                                 int* out_seg, void* stream) {
   Params p;
-  const cudaError_t bad = make_params(n_spheres, n_rects, camc, n, seed, limit,
-                                      stride, width, height, max_depth, t_min,
-                                      flags, block, p);
+  const cudaError_t bad = make_params(n_spheres, n_rects, nodes, n_nodes,
+                                      leaf_size, camc, n, seed, limit, stride,
+                                      width, height, max_depth, t_min, flags,
+                                      block, p);
   if (bad != cudaSuccess) return (int)bad;
-  if (n == 0) return (int)cudaSuccess;
-  const int grid = (n + block - 1) / block;
-  mega_forward_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      rows, pixel_ids, sample_ids0, p, out_x, out_y, out_z, out_seg, Record{});
-  return (int)cudaGetLastError();
+  return (int)launch(rows, pixel_ids, sample_ids0, p, block, out_x, out_y,
+                     out_z, out_seg, Record{}, stream);
 }
 
 // threefry-2x32 (13 rounds) words and their uniforms for key (seed, key1) and
@@ -574,12 +750,13 @@ extern "C" int art_threefry_words(uint32_t seed, uint32_t key1,
   return (int)cudaGetLastError();
 }
 #else
-// Launches the record instance (K2) on `stream`: art_mega_forward's
-// arguments plus the residual outputs codes [record_iters][n] int32 and
-// tprev [3][record_iters][n] f32 (device memory, every element written) and
-// the texture count (the dielectric sentinel id).  Returns
-// cudaGetLastError() (0 on success).
+// Launches the record instance (K2, or K3's in accel mode) on `stream`:
+// art_mega_forward's arguments plus the residual outputs codes
+// [record_iters][n] int32 and tprev [3][record_iters][n] f32 (device memory,
+// every element written) and the texture count (the dielectric sentinel
+// id).  Returns cudaGetLastError() (0 on success).
 extern "C" int art_mega_record(const float* rows, int n_spheres, int n_rects,
+                               const float* nodes, int n_nodes, int leaf_size,
                                const float* camc, const uint32_t* pixel_ids,
                                const uint32_t* sample_ids0, int n,
                                uint32_t seed, uint32_t limit, uint32_t stride,
@@ -589,18 +766,16 @@ extern "C" int art_mega_record(const float* rows, int n_spheres, int n_rects,
                                int* out_seg, int record_iters, int n_textures,
                                int* codes, float* tprev, void* stream) {
   Params p;
-  const cudaError_t bad = make_params(n_spheres, n_rects, camc, n, seed, limit,
-                                      stride, width, height, max_depth, t_min,
-                                      flags, block, p);
+  const cudaError_t bad = make_params(n_spheres, n_rects, nodes, n_nodes,
+                                      leaf_size, camc, n, seed, limit, stride,
+                                      width, height, max_depth, t_min, flags,
+                                      block, p);
   if (bad != cudaSuccess) return (int)bad;
   if (record_iters < 1 || codes == nullptr || tprev == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
-  if (n == 0) return (int)cudaSuccess;
-  const int grid = (n + block - 1) / block;
-  mega_forward_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      rows, pixel_ids, sample_ids0, p, out_x, out_y, out_z, out_seg,
-      Record{codes, tprev, record_iters, n_textures});
-  return (int)cudaGetLastError();
+  return (int)launch(rows, pixel_ids, sample_ids0, p, block, out_x, out_y,
+                     out_z, out_seg,
+                     Record{codes, tprev, record_iters, n_textures}, stream);
 }
 #endif

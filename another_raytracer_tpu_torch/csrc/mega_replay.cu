@@ -5,8 +5,12 @@
 // Replaces: another_raytracer_tpu/ops/pallas/mega_diff.py::_traced_bwd (the
 // T <= 16 select-sum replay) and _bwd_large (the T > 16 gather/scatter
 // replay), both a reverse lax.scan over the record-mode megakernel's
-// residual rows.  One kernel covers both: the albedo table and the per-lane
-// gradient columns live in shared memory whatever the texture count T.
+// residual rows.  One kernel, two instances by where a lane's gradients
+// accumulate (template argument SHARED_TABLE), for any texture count T up to
+// the shared-memory limit (~4,800; the random scene has 485):
+//   per-lane columns (T up to 292): each thread its own column of the
+//     gradient table, summed in a fixed order: deterministic;
+//   one block-wide table (larger T): shared-memory atomics (below).
 //
 // The radiance of a lane is an explicit multiplicative chain,
 //   L = sum_chains sum_k (prod_{j<k} a_j) x_k,
@@ -29,12 +33,22 @@
 // contiguous.  What the design does about it: one pass, no recompute of the
 // sweep or the shading; tprev is read only on live rows.
 //
-// Determinism: each thread accumulates its lane's gradients in its own
-// column of a shared table [K][blockDim] (K = 2 (T+1) 3 + 3 entries: tex_ca
-// and tex_cb rows with the sentinel row, then the background), with no
-// atomics.  The block then sums each entry over its threads in a fixed order
-// and writes one partial row; the wrapper sums the rows.  The result does
-// not depend on scheduling.
+// Determinism, per-lane columns: each thread accumulates its lane's
+// gradients in its own column of a shared table [K][blockDim] (K = 2 (T+1) 3
+// + 3 entries: tex_ca and tex_cb rows with the sentinel row, then the
+// background), with no atomics.  The block then sums each entry over its
+// threads in a fixed order and writes one partial row; the wrapper sums the
+// rows.  The result does not depend on scheduling.  The columns take
+// (6 (T+1) + 3) floats per thread, so at 32 threads they outgrow the 227 KB
+// of shared memory above T = 292.
+//
+// Block-wide table (SHARED_TABLE): the block's threads add into ONE shared
+// table [K] with shared-memory atomicAdd, and the block writes it as its
+// partial row: 2 x 6 (T+1) x 4 B = 23 KB at T = 485, for any block size.
+// The order of the atomic adds changes from run to run, so the result is NOT
+// bit-deterministic: it equals the plain version to float rounding (held to
+// rtol 1e-5).  Contention: lanes of a block that hit the same texture in the
+// same iteration add to the same entry (the random scene's checker ground).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC  (another_raytracer_tpu_torch/ops/kernels/_build.py)
@@ -46,13 +60,17 @@ namespace {
 
 enum Flags : int { HAS_CHECKER = 1, HAS_METAL = 2, HAS_DIEL = 4 };
 
-// Shared-memory bytes for texture count T at `block` threads.
-__host__ __device__ inline size_t smem_bytes(int T, int block) {
+// Shared-memory bytes for texture count T at `block` threads (the wrapper's
+// mega_diff.replay_smem_bytes picks the instance and block from the same
+// formula).
+__host__ __device__ inline size_t smem_bytes(int T, int block,
+                                             bool shared_table) {
   const size_t tab = 6 * (size_t)(T + 1);
   const size_t k = tab + 3;
-  return (tab + k * (size_t)block) * sizeof(float);
+  return (tab + k * (shared_table ? 1 : (size_t)block)) * sizeof(float);
 }
 
+template <bool SHARED_TABLE>
 __global__ void mega_replay_kernel(const int* __restrict__ codes,
                                    const float* __restrict__ tprev,
                                    const float* __restrict__ ghat,
@@ -66,9 +84,13 @@ __global__ void mega_replay_kernel(const int* __restrict__ codes,
   const int tab_n = 6 * rows;         // albedo table [2][T+1][3]
   const int K = tab_n + 3;            // gradient entries per lane
   float* tab = smem;
-  float* acc = smem + tab_n;          // [K][blockDim]
+  float* acc = smem + tab_n;  // [K][blockDim], or [K] with SHARED_TABLE
   const int tx = threadIdx.x;
   const int nb = blockDim.x;
+  // Entry k of this thread's column is acc[k * nb + tx]; of the block's one
+  // table, acc[k].
+  const int stride = SHARED_TABLE ? 1 : nb;
+  const int col0 = SHARED_TABLE ? 0 : tx;
 
   const bool has_checker = flags & HAS_CHECKER;
   const bool has_metal = flags & HAS_METAL;
@@ -79,7 +101,11 @@ __global__ void mega_replay_kernel(const int* __restrict__ codes,
     const int half = k / (3 * rows), t = (k / 3) % rows, c = k % 3;
     tab[k] = t == T ? sentinel : (half ? cb : ca)[t * 3 + c];
   }
-  for (int k = 0; k < K; ++k) acc[k * nb + tx] = 0.0f;
+  if constexpr (SHARED_TABLE) {
+    for (int k = tx; k < K; k += nb) acc[k] = 0.0f;
+  } else {
+    for (int k = 0; k < K; ++k) acc[k * nb + tx] = 0.0f;
+  }
   __syncthreads();
 
   const int lane = blockIdx.x * nb + tx;
@@ -115,26 +141,59 @@ __global__ void mega_replay_kernel(const int* __restrict__ codes,
       const int tid = min(code >> 4, T);  // clamp only guards the reads
       const int slot = (has_checker && (code & 8) ? rows : 0) + tid;
       const float* a = tab + slot * 3;
-      float* col = acc + (size_t)slot * 3 * nb + tx;
+      float* col = acc + (size_t)slot * 3 * stride + col0;
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
         const float r_after = end ? 0.0f : r[c];
         // ev 1 scatter: d a += gterm * r_after; ev 2 light: d x += gterm.
-        col[c * nb] += ev == 1 ? gterm[c] * r_after : gterm[c];
+        const float g_a = ev == 1 ? gterm[c] * r_after : gterm[c];
+        if constexpr (SHARED_TABLE) {
+          atomicAdd(col + c, g_a);
+        } else {
+          col[c * stride] += g_a;
+        }
         r[c] = ev == 1 ? a[c] * r_after : a[c];
       }
     }
 #pragma unroll
-    for (int c = 0; c < 3; ++c) acc[(tab_n + c) * nb + tx] = gbg[c];
+    for (int c = 0; c < 3; ++c) {
+      if constexpr (SHARED_TABLE) {
+        atomicAdd(acc + tab_n + c, gbg[c]);
+      } else {
+        acc[(tab_n + c) * nb + tx] = gbg[c];
+      }
+    }
   }
   __syncthreads();
 
-  // Sum each entry over the block's threads in a fixed order.
-  for (int k = tx; k < K; k += nb) {
-    float s = 0.0f;
-    for (int j = 0; j < nb; ++j) s += acc[k * nb + j];
-    partial[(size_t)blockIdx.x * K + k] = s;
+  if constexpr (SHARED_TABLE) {
+    for (int k = tx; k < K; k += nb) partial[(size_t)blockIdx.x * K + k] = acc[k];
+  } else {
+    // Sum each entry over the block's threads in a fixed order.
+    for (int k = tx; k < K; k += nb) {
+      float s = 0.0f;
+      for (int j = 0; j < nb; ++j) s += acc[k * nb + j];
+      partial[(size_t)blockIdx.x * K + k] = s;
+    }
   }
+}
+
+template <bool SHARED_TABLE>
+cudaError_t launch(const int* codes, const float* tprev, const float* ghat,
+                   const float* ca, const float* cb, const float* bg,
+                   int iters, int n, int T, int flags, int block,
+                   float* partial, cudaStream_t stream) {
+  const size_t bytes = smem_bytes(T, block, SHARED_TABLE);
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        mega_replay_kernel<SHARED_TABLE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return e;
+  }
+  const int grid = (n + block - 1) / block;
+  mega_replay_kernel<SHARED_TABLE><<<grid, block, bytes, stream>>>(
+      codes, tprev, ghat, ca, cb, bg, iters, n, T, flags, partial);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -142,33 +201,24 @@ __global__ void mega_replay_kernel(const int* __restrict__ codes,
 // Launches the replay on `stream`.  codes [iters][n] int32, tprev
 // [3][iters][n], ghat [3][n], ca and cb [T][3], bg [3] are device memory;
 // partial receives [ceil(n / block)][6 (T+1) + 3] floats (tex_ca rows,
-// sentinel row, tex_cb rows, sentinel row, background).  Returns
+// sentinel row, tex_cb rows, sentinel row, background).  shared_table 0
+// takes the per-lane columns, 1 the block-wide table.  Returns
 // cudaGetLastError() (0 on success).
 extern "C" int art_mega_replay(const int* codes, const float* tprev,
                                const float* ghat, const float* ca,
                                const float* cb, const float* bg, int iters,
                                int n, int T, int flags, int block,
-                               float* partial, void* stream) {
+                               int shared_table, float* partial,
+                               void* stream) {
   if (iters < 0 || n < 0 || T < 1 || block <= 0 || block > 1024 ||
       block % 32 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   if (n == 0) return (int)cudaSuccess;
-  const size_t bytes = smem_bytes(T, block);
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        mega_replay_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int grid = (n + block - 1) / block;
-  mega_replay_kernel<<<grid, block, bytes, static_cast<cudaStream_t>(stream)>>>(
-      codes, tprev, ghat, ca, cb, bg, iters, n, T, flags, partial);
-  return (int)cudaGetLastError();
-}
-
-// Shared-memory bytes the replay needs at texture count T and `block`
-// threads (the wrapper picks the block from it).
-extern "C" long long art_mega_replay_smem(int T, int block) {
-  return (long long)smem_bytes(T, block);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(shared_table
+                   ? launch<true>(codes, tprev, ghat, ca, cb, bg, iters, n,
+                                  T, flags, block, partial, s)
+                   : launch<false>(codes, tprev, ghat, ca, cb, bg, iters, n,
+                                   T, flags, block, partial, s));
 }

@@ -1,18 +1,20 @@
 """Fused differentiable path: record-mode megakernel primal + replay backward
 (port of ``another_raytracer_tpu.ops.pallas.mega_diff``).
 
-For sweep scenes with lambertian / metal / dielectric / diffuse-light
-materials and solid / checker textures, a lane's radiance is an explicit
-multiplicative chain,
+For the megakernel's scenes (sweep scenes, and scenes whose spheres sit in
+one BVH: ``mega_kernel.supports`` / ``supports_accel``) with lambertian /
+metal / dielectric / diffuse-light materials and solid / checker textures, a
+lane's radiance is an explicit multiplicative chain,
 
     L_lane = sum_chains sum_k (prod_{j<k} a_j) x_k,
 
 x_k a light's texture or the background, so its complete gradient with
 respect to the shading parameters is a function of the per-iteration winner
 texture ids and events plus the current parameter values.  The forward runs
-the megakernel in record mode (K2, ``mega_kernel.trace_regenerative_mega``
-with ``record_iters``), which writes one code row and the entry throughput
-per loop iteration; the backward is a reverse replay over those rows
+the megakernel in record mode (K2, or K3's record instance on a sphere tree:
+``mega_kernel.trace_regenerative_mega`` with ``record_iters``), which writes
+one code row and the entry throughput per loop iteration; the backward is a
+reverse replay over those rows
 (``replay_backward``: the CUDA kernel ``csrc/mega_replay.cu`` on CUDA
 tensors, ``replay_backward_reference`` on CPU tensors).  No sweep, no
 hit-record recompute and no shading math in the backward.
@@ -61,7 +63,8 @@ def supports_diff(scene, cam, spp_cap: int, sample_stride: int,
                   max_depth: int) -> bool:
     per_lane_samples = -(-int(spp_cap) // max(int(sample_stride), 1))
     return (
-        mega_kernel.supports(scene, cam)
+        (mega_kernel.supports(scene, cam)
+         or mega_kernel.supports_accel(scene, cam))
         and set(scene.mat_kinds) <= {scene_lib.MAT_LAMBERTIAN,
                                      scene_lib.MAT_METAL,
                                      scene_lib.MAT_DIELECTRIC,
@@ -85,9 +88,15 @@ def enabled(scene, cam, spp_cap, sample_stride, max_depth,
       * forced mode (FUSED_DIFF True) raises if a declared set holds a
         geometry leaf, instead of silently zeroing it.
 
-    The JAX package's auto mode also requires a non-CPU backend; here the
-    same gate decides on every device, and CPU tensors run the plain versions
-    of both kernels.
+    The JAX package's auto mode also requires a non-CPU backend, and leaves
+    scenes with a sphere tree on the autodiff path, where the TPU measured
+    the fused route 2.7x slower (mega_diff.py:142-153 there).  On the H100 the
+    port's lockstep path is host-bound (hundreds of small ops per bounce):
+    a fwd+bwd step on the random scene (360x270, spp 16, depth 8) took
+    10.1 ms fused and 1,399 ms lockstep (chip_smoke.py's gate phase, H100
+    80GB HBM3 at 700 W), so auto takes those scenes too.  The same gate
+    decides on every device, and CPU tensors run the plain versions of both
+    kernels.
     """
     if FUSED_DIFF is False:
         return False
@@ -150,15 +159,39 @@ def _lib():
 
     lib = _build.load("mega_replay")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.art_mega_replay.argtypes = [P, P, P, P, P, P, I, I, I, I, I, P, P]
+    lib.art_mega_replay.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P, P]
     lib.art_mega_replay.restype = I
-    lib.art_mega_replay_smem.argtypes = [I, I]
-    lib.art_mega_replay_smem.restype = ctypes.c_longlong
     return lib
 
 
 # Shared memory a block may use on an H100 (227 KB).
 _MAX_SMEM = 232448
+
+
+def replay_smem_bytes(T: int, block: int, shared_table: bool) -> int:
+    """Shared-memory bytes of one replay block (``smem_bytes`` in
+    csrc/mega_replay.cu): the albedo table, then the gradient columns, one
+    per thread or one for the block."""
+    tab = 6 * (T + 1)
+    return 4 * (tab + (tab + 3) * (1 if shared_table else block))
+
+
+def replay_instance(T: int):
+    """(shared_table, block) of the replay launch for T textures: the
+    deterministic per-lane columns while they fit at 32 threads or more
+    (T <= 292), else the block-wide table with atomics (csrc/mega_replay.cu
+    says why)."""
+    # The per-thread columns: halve the block until they fit the default
+    # 48 KB, and above that use the opt-in shared memory at 32 threads.
+    block = DEFAULT_REPLAY_BLOCK
+    while block > 32 and replay_smem_bytes(T, block, False) > 48 * 1024:
+        block //= 2
+    if replay_smem_bytes(T, block, False) <= _MAX_SMEM:
+        return False, block
+    if replay_smem_bytes(T, DEFAULT_REPLAY_BLOCK, True) > _MAX_SMEM:
+        raise ValueError(f"{T} textures exceed the replay kernel's shared "
+                         "memory")
+    return True, DEFAULT_REPLAY_BLOCK
 
 
 def prepare_replay(codes, tprev, ghat, ca, cb, bg, flags):
@@ -169,15 +202,7 @@ def prepare_replay(codes, tprev, ghat, ca, cb, bg, flags):
     iters, B = codes.shape
     T = ca.shape[0]
     lib = _lib()
-    # The per-thread gradient columns take (6 (T+1) + 3) floats each: halve
-    # the block until they fit the default 48 KB, and above that use the
-    # opt-in shared memory at 32 threads.
-    block = DEFAULT_REPLAY_BLOCK
-    while block > 32 and lib.art_mega_replay_smem(T, block) > 48 * 1024:
-        block //= 2
-    if lib.art_mega_replay_smem(T, block) > _MAX_SMEM:
-        raise ValueError(f"{T} textures exceed the replay kernel's shared "
-                         "memory")
+    shared_table, block = replay_instance(T)
     f32 = dict(dtype=torch.float32, device=dev)
     ins = (codes.contiguous(),
            torch.stack(tuple(tprev)).to(**f32).contiguous(),
@@ -191,7 +216,8 @@ def prepare_replay(codes, tprev, ghat, ca, cb, bg, flags):
 
     def run(_inputs=ins):  # the default keeps the tensors behind ptrs alive
         return lib.art_mega_replay(*ptrs, iters, B, T, int(flags), block,
-                                   partial.data_ptr(), stream)
+                                   int(shared_table), partial.data_ptr(),
+                                   stream)
 
     return run, partial
 

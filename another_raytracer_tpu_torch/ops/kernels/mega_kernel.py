@@ -1,38 +1,65 @@
-"""The forward megakernel: the ENTIRE regenerating forward wavefront of a
-sweep-only scene in one kernel (port of
-``another_raytracer_tpu.ops.pallas.mega_kernel``, sweep mode).
+"""The forward megakernel: the ENTIRE regenerating forward wavefront in one
+kernel (port of ``another_raytracer_tpu.ops.pallas.mega_kernel``), in its
+sweep mode (K1, record instance K2) and its accel mode (K3, forward and
+record instances).
 
 Per ray lane the kernel runs camera ray generation (engine.h:58-68 +
-camera.h:38-47), counter-based threefry draws (ops/rng.py), the closest-hit
-sweep over world-baked primitive rows (spheres first, then rects — the fold
-order of intersect.closest_hit), lambertian / metal / dielectric /
-diffuse-light shading with solid / checker textures, and per-lane sample
-regeneration until the lane's samples are spent.
+camera.h:38-47), counter-based threefry draws (ops/rng.py), the closest hit,
+lambertian / metal / dielectric / diffuse-light shading with solid / checker
+textures, and per-lane sample regeneration until the lane's samples are
+spent.  The closest hit is, per mode:
+
+* sweep (``supports``): every world-baked primitive row (spheres first, then
+  rects — the fold order of intersect.closest_hit), strict ``t < best_t``;
+* accel (``supports_accel``; the scene has one sphere tree and nothing else):
+  a walk of the sphere BVH (``scene.sph_bvh_nodes``) over the widened leaf
+  rows of ``pack_accel_rows``.  The TPU kernel walks a block of lanes with
+  ONE cursor (a packet DFS, mega_kernel.py:429-500 there): at node j every
+  lane runs the slab test, the block enters the subtree if any lane hit the
+  box, and a lane's leaf tests are masked by its own box test.  Child boxes
+  nest inside their parents and a lane's best t only shrinks, so a lane that
+  missed a box misses every box below it: the leaves a lane tests, and their
+  order, are those of its own stackless walk over the escape indices (the
+  argument of the BVH kernel K5, ``ops/bvh.py``).  Here every lane walks on
+  its own; within a leaf the strict ``t < best_t`` rule keeps the earlier
+  row on a tie; the winner's material columns are read once after the walk,
+  which is what the TPU kernel's per-improvement material fold leaves
+  behind.  K3's own arithmetic: dead lanes are parked (origin 1e8, direction
+  0; here they do not walk at all, which tests nothing either), the slab
+  starts at ``[t_min, best_t]``, and the hit normal is
+  ``(o + t d - c) / r`` with ``1/r`` taken as ``1/where(r != 0, r, 1)``.
 
 * ``trace_regenerative_mega`` is the wrapper: on CUDA tensors it launches the
   hand-written kernel ``csrc/mega_kernel.cu`` (built at first use, see
   ``_build.py``) or raises; on CPU tensors it runs the plain version.
 * ``trace_regenerative_mega_reference`` is the plain PyTorch version: the
   same per-lane algorithm as vectorised tensor ops on ``[B]`` lanes, with the
-  same rows, keys and fold order.  It runs on any device; the CPU tests hold
-  it against the JAX kernel in interpret mode, and ``chip_smoke.py`` holds
-  the CUDA kernel against it on the card.
-* ``record_iters > 0`` selects record mode (K2, the primal of the fused
-  differentiable path, ``mega_diff.py``): per lane and loop iteration one
-  int32 code ``tid*16 + checker_odd*8 + chain_end*4 + event`` (event 0 idle
-  or metal absorption, 1 scatter, 2 light hit, 3 miss; ``tid`` the winner's
-  texture id, ``n_textures`` for a dielectric scatter) and the throughput at
-  the iteration's entry.  Row ``i`` of a lane is that lane's own ``i``-th
-  loop iteration, which is the JAX kernel's block-level iteration ``i``: a
-  lane steps once per block iteration from iteration 0 until it is dead.
-  Rows past a lane's end are zero.  The JAX kernel writes the entry
-  throughput on idle rows too, and may set the odd bit there; the replay
-  ignores idle rows, and so do the comparisons.
+  same rows, keys and fold order (the accel walk through
+  ``ops.bvh.traverse_packed``, the plain version of K5, whose sphere test is
+  K3's; the normal recomputed with K3's formula from the winner's row and
+  t).  It runs on any device; the CPU tests hold it against the JAX kernel
+  in interpret mode, and ``chip_smoke.py`` holds the CUDA kernel against it
+  on the card.
+* ``record_iters > 0`` selects record mode (K2 / K3's record instance, the
+  primal of the fused differentiable path, ``mega_diff.py``): per lane and
+  loop iteration one int32 code ``tid*16 + checker_odd*8 + chain_end*4 +
+  event`` (event 0 idle or metal absorption, 1 scatter, 2 light hit, 3 miss;
+  ``tid`` the winner's texture id, ``n_textures`` for a dielectric scatter)
+  and the throughput at the iteration's entry.  Row ``i`` of a lane is that
+  lane's own ``i``-th loop iteration, which is the JAX kernel's block-level
+  iteration ``i``: a lane steps once per block iteration from iteration 0
+  until it is dead.  Rows past a lane's end are zero.  The JAX kernel writes
+  the entry throughput on idle rows too, and may set the odd bit there; the
+  replay ignores idle rows, and so do the comparisons.
+* ``MEGA_FORWARD`` and ``enabled`` decide whether a forward render takes
+  the megakernel (``ops/render.py``).
 
 Geometry is pre-baked into world space per primitive row (``pack_rows``):
 spheres as (c0, c1-c0, t0, 1/dt, r), rects as world parallelograms
 (q0, eu, ev, n, d0 = n.q0, |eu|^2, |ev|^2), then shared material / texture
-columns 16-26.
+columns 16-26.  Accel rows (``pack_accel_rows``) are the sphere tree's
+16-column leaf rows (c0, c1-c0, t0, 1/dt, r, code) widened by the same
+material columns.
 """
 
 from __future__ import annotations
@@ -43,6 +70,7 @@ import numpy as np
 import torch
 
 from another_raytracer_tpu_torch.models import scene as scene_lib
+from another_raytracer_tpu_torch.ops import bvh as bvh_ops
 from another_raytracer_tpu_torch.ops import rng, vec3
 from another_raytracer_tpu_torch.ops.vec3 import V3
 
@@ -83,6 +111,52 @@ def supports(scene, cam) -> bool:
         and 0 < (scene.n_spheres + scene.n_rects) <= MAX_ROWS
         and _shading_ok(scene)
     )
+
+
+# Leaf rows of the accel mode's sphere tree (mega_kernel.py:107 there; the
+# TPU's VMEM budget, kept so both packages accept the same scenes: here the
+# rows stay in device memory, 8192 x 32 x 4 B = 1 MB).
+ACCEL_MAX_ROWS = 8192
+
+
+def supports_accel(scene, cam) -> bool:
+    """Static applicability check, accel mode (mega_kernel.py:110-128): one
+    sphere tree and nothing else to intersect."""
+    return (
+        scene.sph_in_bvh
+        and scene.n_sph_bvh_nodes > 0
+        and scene.n_bvh_nodes == 0
+        and scene.n_rect_bvh_nodes == 0
+        and scene.n_rects == 0
+        and scene.sph_bvh_rows.shape[0] <= ACCEL_MAX_ROWS
+        and _shading_ok(scene)
+    )
+
+
+# None = auto (``enabled``), True forces the megakernel (raises on a scene
+# it does not support), False sends every forward render to the wavefront.
+MEGA_FORWARD = None
+
+
+def enabled(scene, cam) -> bool:
+    """Should a forward render of ``scene`` take the megakernel?
+
+    The JAX package's semantics (mega_kernel.py:131-140) except for the auto
+    rule.  JAX's auto takes sweep scenes only: on the TPU the accel mode
+    measured neutral against its wavefront with the packet BVH kernel.  On
+    the H100 the port's wavefront is host-bound (hundreds of small ops per
+    loop iteration, PERF.md), and K3 runs the whole loop in one launch: the
+    scene-1 README render (720x540, spp 100, depth 50) took 162 ms through
+    K3 and 33,197 ms through the wavefront + K5 (chip_smoke.py's gate phase,
+    H100 80GB HBM3 at 700 W), so auto takes accel scenes too.  The rule is
+    the same on every device; CPU tensors run the plain versions.
+    """
+    if MEGA_FORWARD is False:
+        return False
+    ok = supports(scene, cam) or supports_accel(scene, cam)
+    if MEGA_FORWARD is True and not ok:
+        raise ValueError("MEGA_FORWARD forced on but scene unsupported")
+    return ok
 
 
 # --------------------------------------------------------------------------
@@ -161,6 +235,18 @@ def pack_rows(scene):
     return torch.cat(parts, dim=0).reshape(-1).contiguous()
 
 
+def pack_accel_rows(scene):
+    """[N+pad, ROW_W] f32 rows of the accel mode (mega_kernel.py:786-790):
+    the sphere tree's 16-column leaf rows widened with the material columns
+    of each row's sphere.  Column 9 holds sphere id * 4 + kind, so the id is
+    recoverable for every leaf-ordered row; pad rows (r = 0, never hit) take
+    sphere 0's materials."""
+    rows16 = scene.sph_bvh_rows
+    orig = torch.clamp(rows16[:, 9].to(torch.int64) // 4, 0, scene.n_spheres - 1)
+    return torch.cat([rows16, _mat_cols(scene, scene.sph_mat[orig])],
+                     dim=1).contiguous()
+
+
 def pack_camera(scene, cam):
     """The 24 camera constants (mega_kernel.py:794-799): origin,
     lower_left - origin, horizontal, vertical, u, v, (lens_radius, time0,
@@ -206,7 +292,9 @@ def trace_regenerative_mega(scene, cam, pixel_ids, sample_ids0, seed, *,
                             sample_end, spp_cap, max_depth: int, t_min: float,
                             block: int = DEFAULT_BLOCK, record_iters: int = 0):
     """Drop-in counterpart of the JAX ``trace_regenerative_mega`` (same
-    arguments and return contract) for scenes where ``supports()`` holds.
+    arguments and return contract) for scenes where ``supports()`` or
+    ``supports_accel()`` holds; a scene with a sphere tree runs the accel
+    mode (K3), as the JAX wrapper decides (mega_kernel.py:776 there).
 
     ``pixel_ids`` / ``sample_ids0`` are int64 [B] tensors of uint32 values;
     lanes whose first sample is >= min(sample_end, spp_cap) (for example
@@ -219,9 +307,9 @@ def trace_regenerative_mega(scene, cam, pixel_ids, sample_ids0, seed, *,
     ``csrc/mega_kernel.cu``; CPU tensors run the plain version; any other
     device raises.
     """
-    if not supports(scene, cam):
+    if not (supports(scene, cam) or supports_accel(scene, cam)):
         raise ValueError("trace_regenerative_mega: scene not supported "
-                         "(see supports())")
+                         "(see supports() and supports_accel())")
     _check_lanes(pixel_ids, sample_ids0, scene)
     kw = dict(width=width, height=height, sample_stride=sample_stride,
               sample_end=sample_end, spp_cap=spp_cap, max_depth=max_depth,
@@ -235,10 +323,13 @@ def trace_regenerative_mega(scene, cam, pixel_ids, sample_ids0, seed, *,
 
 
 # Launches of the CUDA kernel, incremented once per launch and nowhere else:
-# ``launches`` counts the forward instance (K1), ``record_launches`` the
-# record instance (K2).
+# ``launches`` counts the sweep forward instance (K1), ``record_launches``
+# the sweep record instance (K2), ``accel_launches`` and
+# ``accel_record_launches`` the accel mode's two instances (K3).
 trace_regenerative_mega.launches = 0
 trace_regenerative_mega.record_launches = 0
+trace_regenerative_mega.accel_launches = 0
+trace_regenerative_mega.accel_record_launches = 0
 
 
 def _check_record_iters(record_iters, *, sample_end, spp_cap, sample_stride,
@@ -262,11 +353,13 @@ def _u32_bits(x):
 
 
 def _lib(record=False):
-    """The forward build (K1, threefry check) or the record build (K2)."""
+    """The forward build (K1 and K3's forward instance, threefry check) or
+    the record build (K2 and K3's record instance)."""
     from another_raytracer_tpu_torch.ops.kernels import _build
 
     P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-    args = [P, I, I, P, P, P, I, U, U, U, I, I, I, F, I, I, P, P, P, P]
+    args = [P, I, I, P, I, I, P, P, P, I, U, U, U, I, I, I, F, I, I,
+            P, P, P, P]
     if record:
         lib = _build.load("mega_kernel_record")
         lib.art_mega_record.argtypes = args + [I, I, P, P, P]
@@ -293,7 +386,17 @@ def prepare_launch(scene, cam, pixel_ids, sample_ids0, seed, *, width,
     _check_record_iters(record_iters, sample_end=sample_end, spp_cap=spp_cap,
                         sample_stride=sample_stride, max_depth=max_depth)
     lib = _lib(record=bool(record_iters))
-    rows = pack_rows(scene)
+    accel = scene.n_sph_bvh_nodes > 0
+    if accel:
+        # K3: the widened leaf rows (all of them, pad rows included) and
+        # the sphere tree's nodes.
+        rows = pack_accel_rows(scene)
+        nodes = scene.sph_bvh_nodes.to(torch.float32).contiguous()
+        geometry = (rows, rows.shape[0], 0, nodes, scene.n_sph_bvh_nodes,
+                    scene.bvh_leaf_size)
+    else:
+        rows = pack_rows(scene)
+        geometry = (rows, scene.n_spheres, scene.n_rects, None, 0, 0)
     camc = pack_camera(scene, cam)
     limit = min(int(sample_end), int(spp_cap), rng.MASK32)
     pix = _u32_bits(pixel_ids)
@@ -303,7 +406,7 @@ def prepare_launch(scene, cam, pixel_ids, sample_ids0, seed, *, width,
         raise ValueError("record_iters * lanes must stay below 2**31")
     out = [torch.empty(B, dtype=torch.float32, device=dev) for _ in range(3)]
     seg = torch.empty(B, dtype=torch.int32, device=dev)
-    args = (rows, scene.n_spheres, scene.n_rects, camc, pix, samp, B,
+    args = (*geometry, camc, pix, samp, B,
             int(seed) & rng.MASK32, limit, int(sample_stride), int(width),
             int(height), int(max_depth), float(t_min), _flags(scene, cam),
             int(block), *out, seg)
@@ -341,12 +444,13 @@ def _launch(scene, cam, pixel_ids, sample_ids0, seed, *, block, record_iters,
         raise RuntimeError(f"mega_kernel launch failed: CUDA error {err}")
     out, seg = outputs[:2]
     total, segments = V3(*out), seg.sum(dtype=torch.int64)
-    if record_iters:
-        if pixel_ids.shape[0]:
-            trace_regenerative_mega.record_launches += 1
-        return total, segments, outputs[2], V3(*outputs[3].unbind(0))
     if pixel_ids.shape[0]:
-        trace_regenerative_mega.launches += 1
+        counter = ("accel_" if scene.n_sph_bvh_nodes > 0 else "") + (
+            "record_launches" if record_iters else "launches")
+        setattr(trace_regenerative_mega, counter,
+                getattr(trace_regenerative_mega, counter) + 1)
+    if record_iters:
+        return total, segments, outputs[2], V3(*outputs[3].unbind(0))
     return total, segments
 
 
@@ -383,18 +487,38 @@ def trace_regenerative_mega_reference(scene, cam, pixel_ids, sample_ids0, seed,
                                       *, width: int, height: int,
                                       sample_stride: int, sample_end, spp_cap,
                                       max_depth: int, t_min: float,
-                                      record_iters: int = 0):
+                                      record_iters: int = 0,
+                                      work: bool = False):
     """The kernel's per-lane algorithm as tensor ops on [B] lanes (any
     device).  Every lane steps once per loop iteration while any lane is
     alive; a dead lane changes nothing, so each lane's result equals the
     kernel's own per-lane loop, and loop iteration ``it`` is every alive
     lane's own ``it``-th iteration (the record row).  Same return contract
-    as the wrapper."""
+    as the wrapper; with ``work`` (accel mode) the result also ends in the
+    walk's totals (slab tests, sphere tests), the work K3 does on these
+    inputs, which ``chip_smoke.py`` turns into its bound."""
     _check_lanes(pixel_ids, sample_ids0, scene)
     _check_record_iters(record_iters, sample_end=sample_end, spp_cap=spp_cap,
                         sample_stride=sample_stride, max_depth=max_depth)
+    if not (supports(scene, cam) or supports_accel(scene, cam)):
+        raise ValueError("trace_regenerative_mega_reference: scene not "
+                         "supported (see supports() and supports_accel())")
+    accel = scene.n_sph_bvh_nodes > 0
+    if work and not accel:
+        raise ValueError("work counts the accel mode's walk")
     f32 = np.float32
-    rows = pack_rows(scene).reshape(-1, ROW_W)
+    if accel:
+        rows = pack_accel_rows(scene)
+        # The walk reads the geometry columns and the code (0-9) only.
+        walk_rows = rows[:, :10].contiguous()
+        # Leaf row of each sphere: the walk reports the winner's code
+        # (sphere id * 4 + kind, column 9); pad rows are never hit.
+        row_of = torch.empty(scene.n_spheres, dtype=torch.int64,
+                             device=rows.device)
+        row_of[rows[:scene.n_spheres, 9].to(torch.int64) // 4] = torch.arange(
+            scene.n_spheres, device=rows.device)
+    else:
+        rows = pack_rows(scene).reshape(-1, ROW_W)
     ns = scene.n_spheres
     camc = [float(v) for v in pack_camera(scene, cam).tolist()]
     cam_o, cam_base, cam_h, cam_v, cam_u, cam_w = (
@@ -459,10 +583,15 @@ def trace_regenerative_mega_reference(scene, cam, pixel_ids, sample_ids0, seed,
                         device=fi.device)
     n_textures = scene.tex_kind.shape[0]
     it = 0
+    walked = [0, 0]
 
     while bool(alive.any()):
         a_len = vec3.dot(d, d)
-        best_t, r, b_n = _sweep(rows, ns, o, d, tm, a_len, t_min)
+        if accel:
+            best_t, r, b_n = _accel_hit(scene, rows, walk_rows, row_of, o, d,
+                                        tm, alive, t_min, walked)
+        else:
+            best_t, r, b_n = _sweep(rows, ns, o, d, tm, a_len, t_min)
         hit = alive & (best_t < BIG)
         miss_now = alive & ~hit
         tp_entry = tp
@@ -576,9 +705,45 @@ def trace_regenerative_mega_reference(scene, cam, pixel_ids, sample_ids0, seed,
             bounce = torch.where(regen, 0, bounce)
         alive = alive_next | regen
         seg = seg + regen.to(torch.int64)
+    out = (acc, seg.sum())
     if record_iters:
-        return acc, seg.sum(), codes, V3(*tprev.unbind(0))
-    return acc, seg.sum()
+        out = out + (codes, V3(*tprev.unbind(0)))
+    return out + (tuple(walked),) if work else out
+
+
+def _accel_hit(scene, rows, walk_rows, row_of, o: V3, d: V3, tm, alive,
+               t_min, walked):
+    """K3's closest hit for the alive lanes: the stackless walk of the
+    sphere tree (``ops.bvh.traverse_packed``, the plain version of K5, whose
+    sphere test and strict-``<`` leaf fold are K3's), then the winner's
+    normal with K3's own formula (mega_kernel.py:462-465 there).  Same
+    returns as ``_sweep``; adds the walk's slab and sphere tests to
+    ``walked``."""
+    B = o.x.shape[0]
+    dev = o.x.device
+    best_t = torch.full((B,), BIG, dtype=torch.float32, device=dev)
+    best = torch.zeros(B, dtype=torch.int64, device=dev)
+    lanes = alive.nonzero().squeeze(1)
+    n = lanes.numel()
+    if n:
+        sel = lambda v: V3(*(c[lanes] for c in v))  # noqa: E731
+        t, code, improved, slabs, tests = bvh_ops.traverse_packed(
+            scene.sph_bvh_nodes, walk_rows, sel(o), sel(d), tm[lanes], t_min,
+            torch.full((n,), BIG, dtype=torch.float32, device=dev),
+            torch.zeros(n, dtype=torch.int32, device=dev),
+            leaf_size=scene.bvh_leaf_size, prim="sphere", counts=True)
+        best_t[lanes] = t
+        best[lanes] = torch.where(improved, row_of[code.to(torch.int64) // 4],
+                                  0)
+        walked[0] += int(slabs.sum())
+        walked[1] += int(tests.sum())
+    r = rows[best]
+    frac = (tm - r[:, 6]) * r[:, 7]
+    rad = r[:, 8]
+    inv_r = 1.0 / torch.where(rad != 0.0, rad, torch.ones_like(rad))
+    b_n = V3(*((o[c] + best_t * d[c] - (r[:, c] + frac * r[:, 3 + c])) * inv_r
+               for c in range(3)))
+    return best_t, r, b_n
 
 
 def _sweep(rows, ns, o: V3, d: V3, tm, a_len, t_min):

@@ -1,18 +1,20 @@
 """Top-level render driver: pixels x samples -> radiance sums -> pixels (port
-of ``another_raytracer_tpu.ops.render``, single mode).
+of ``another_raytracer_tpu.ops.render``, single mode; the adaptive mode is
+``ops/adaptive.py``).
 
-Every forward render of a scene that the megakernel supports goes through
-``mega_kernel.trace_regenerative_mega`` (K1: the hand-written CUDA kernel
-for CUDA tensors, its plain PyTorch version for CPU tensors); every other
-forward render through the regenerating wavefront
-``integrator.trace_regenerative``, whose bounces run the BVH kernel K5 and
-the Perlin kernel K4.  (The JAX package sends spp == samples_per_pass
-renders through its lockstep scan instead; the paths agree bit for bit at
-samples_per_pass 1, render.py:69-74 there.)  Scenes with a BVH are traced
-in Morton pixel order.
+Every forward render that ``mega_kernel.enabled`` accepts goes through
+``mega_kernel.trace_regenerative_mega`` (K1 on sweep scenes, K3 on scenes
+whose spheres sit in one BVH: the hand-written CUDA kernel for CUDA tensors,
+its plain PyTorch version for CPU tensors); every other forward render
+through the regenerating wavefront ``integrator.trace_regenerative``, whose
+bounces run the BVH kernel K5 and the Perlin kernel K4
+(``mega_kernel.MEGA_FORWARD = False`` sends every forward render there).
+(The JAX package sends spp == samples_per_pass renders through its lockstep
+scan instead; the paths agree bit for bit at samples_per_pass 1,
+render.py:69-74 there.)  Scenes with a BVH are traced in Morton pixel order.
 
 Differentiable renders take the fused path (``mega_diff.radiance_fused``:
-the record-mode kernel K2 and the replay backward) when
+the record instance of K2 or K3 and the replay backward) when
 ``mega_diff.enabled`` accepts the scene and the declared trainable set, and
 otherwise the lockstep autograd path (``integrator.trace``), as in the JAX
 package; there Perlin noise runs through K4 with a zero gradient when the
@@ -76,7 +78,7 @@ def radiance_batch(scene, cam, pixel_ids, seed, *, width, height,
         samp0 = torch.where(lane_mask.repeat(spass), samp0,
                             torch.full_like(samp0, rng.MASK32))
     trace_fn = (mega_kernel.trace_regenerative_mega
-                if mega_kernel.supports(scene, cam)
+                if mega_kernel.enabled(scene, cam)
                 else integrator.trace_regenerative)
     acc, segments = trace_fn(
         scene, cam, pix, samp0, seed,
@@ -232,17 +234,18 @@ def render(scene, cam, config: RenderConfig, progress=None):
     """
     if scene.num_primitives == 0:
         raise ValueError("cannot render empty scene!")
-    if config.mode != RenderMode.SINGLE:
-        item = {RenderMode.ADAPTIVE: "M19",
-                RenderMode.PARALLEL_STRIPES: "M18",
-                RenderMode.PARALLEL_IMAGES: "M18"}[config.mode]
+    if config.mode in (RenderMode.PARALLEL_STRIPES, RenderMode.PARALLEL_IMAGES):
         raise NotImplementedError(
             f"render mode {config.mode.value!r} is not ported yet "
-            f"(ROADMAP {item}); use mode 'single'")
+            "(ROADMAP M18); use mode 'single' or 'adaptive'")
     if progress is not None:
         raise NotImplementedError(
             "progress sinks (preview / live view) are not ported yet "
             "(ROADMAP M20)")
+    if config.mode == RenderMode.ADAPTIVE:
+        from another_raytracer_tpu_torch.ops import adaptive
+
+        return adaptive.render_adaptive(scene, cam, config)
 
     acc, segments = render_radiance(
         scene, cam, config.seed,

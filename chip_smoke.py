@@ -23,9 +23,18 @@ holds every kernel against its plain PyTorch version:
   same through the plain versions on four scenes, the CLI on scene 1
   (720x540, spp 100, depth 50), a profiler trace of scene 1 at spp 1 (where
   the render's time goes), the CLI on scenes 3, 4 and 5 (spp 16), and the
-  two kernels' times beside their bounds.
+  two kernels' times beside their bounds;
+* the megakernel's accel mode (K3): its forward instance against its plain
+  version on scene 1 and an 81-sphere tree, its record instance and the
+  replay at scene 1's 485 textures against theirs at the bench size, the
+  scene-1 README render through the CLI in single and adaptive mode, fused
+  against lockstep gradients on scene 1 at the bench size, the two gate
+  measurements (the scene-1 render through K3 and through the wavefront +
+  K5; the fused and the lockstep step), and the times of K3's two
+  instances and the large-T replay beside their bounds.
 
-Every phase prints one line with its seconds, and any failure raises
+The wavefront phases run with ``mega_kernel.MEGA_FORWARD = False``, which
+sends scene 1 to the wavefront + K5 (its auto route is K3).  Every phase prints one line with its seconds, and any failure raises
 (non-zero exit).  The last three lines are the card's name and power limit
 (nvidia-smi), a JSON object describing each kernel, and
 ``{"ok": true, "device": {...}}``.
@@ -70,6 +79,10 @@ PEAK_OPS, PEAK_BYTES = 67e12, 3.35e12
 # a sphere row's test, a rect row's test, and the rest of a segment (one
 # 13-round threefry call, direction sampling, shading, carry updates).
 OPS_SPHERE_ROW, OPS_RECT_ROW, OPS_SEGMENT = 30, 35, 144
+# K3 per segment: OPS_SEGMENT, the winner's normal (9), and the walk's slab
+# and sphere tests (ops/bvh.py's OPS_PER_SLAB, OPS_PER_TEST), counted by the
+# plain version on the same inputs.
+OPS_K3_NORMAL = 9
 # Operations per residual row of the replay, and per point of K4
 # (csrc/mega_replay.cu, csrc/perlin_kernel.cu).
 OPS_REPLAY_ROW, OPS_PERLIN = 15, 96
@@ -152,8 +165,38 @@ def forward_bar(got, ref, got_segs, ref_segs, what):
     return stats
 
 
-def compare(scene, cam_params, width, height, spp, depth, device, seed=3):
-    """K1 vs its plain version on the same lanes; raises unless within bar."""
+def bvh_sphere_scene(device):
+    """81 spheres in one tree (tests/test_mega.py:74-95): checker ground,
+    lambertian / metal / dielectric, one moving sphere."""
+    from another_raytracer_tpu_torch.models.scene import SceneBuilder
+
+    b = SceneBuilder(background=(0.7, 0.8, 1.0), seed=9)
+    b.sphere((0, -1000, 0), 1000, b.lambertian(
+        texture=b.checker_texture((0.2, 0.3, 0.1), (0.9, 0.9, 0.9))))
+    rnd = np.random.default_rng(4)
+    for i in range(80):
+        c = (rnd.uniform(-6, 6), 0.3, rnd.uniform(-8, -1))
+        k = i % 4
+        if k == 0:
+            m = b.lambertian(color=tuple(rnd.uniform(0.2, 0.9, 3)))
+        elif k == 1:
+            m = b.metal(tuple(rnd.uniform(0.5, 1.0, 3)), rnd.uniform(0, 0.4))
+        elif k == 2:
+            m = b.dielectric(1.5)
+        else:
+            m = b.lambertian(color=(0.8, 0.4, 0.2))
+        b.sphere(c, 0.3, m)
+    b.moving_sphere((0, 0.5, -3), (0, 0.8, -3), 0, 1, 0.3,
+                    b.lambertian(color=(0.9, 0.2, 0.2)))
+    cam = dict(lookfrom=(0, 1.5, 3), lookat=(0, 0, -4), vfov=50.0,
+               time0=0.0, time1=1.0)
+    return b.build(device=device, sphere_bvh=True), cam
+
+
+def compare(scene, cam_params, width, height, spp, depth, device, seed=3,
+            what="K1"):
+    """The megakernel (K1, or K3 on a sphere tree) vs its plain version on
+    the same lanes; raises unless within bar."""
     import torch
 
     from another_raytracer_tpu_torch.ops import camera as camera_lib
@@ -169,14 +212,15 @@ def compare(scene, cam_params, width, height, spp, depth, device, seed=3):
     ref, ref_segs = mega_kernel.trace_regenerative_mega_reference(
         scene, cam, pix, samp, seed, **kw)
     torch.cuda.synchronize(device)
-    return forward_bar(got, ref, got_segs, ref_segs, "K1")
+    return forward_bar(got, ref, got_segs, ref_segs, what)
 
 
-def compare_record(scene, cam_params, device, seed=0):
-    """K2 vs its plain version at the bench size: the forward bar, codes
-    equal on >= 98% of lanes (event and end bit on every row; texture id and
-    checker bit where the event is a scatter or a light hit), and tprev
-    within 1e-5 on equal lanes.  Returns (stats, K2 outputs, cam)."""
+def compare_record(scene, cam_params, device, seed=0, what="K2"):
+    """The record instance (K2, or K3's on a sphere tree) vs its plain
+    version at the bench size: the forward bar, codes equal on >= 98% of
+    lanes (event and end bit on every row; texture id and checker bit where
+    the event is a scatter or a light hit), and tprev within 1e-5 on equal
+    lanes.  Returns (stats, the kernel's outputs, cam)."""
     import torch
 
     from another_raytracer_tpu_torch.ops import camera as camera_lib
@@ -192,7 +236,7 @@ def compare_record(scene, cam_params, device, seed=0):
     ref = mega_kernel.trace_regenerative_mega_reference(scene, cam, pix, samp,
                                                         seed, **kw)
     torch.cuda.synchronize(device)
-    stats = forward_bar(got[0], ref[0], got[1], ref[1], "K2")
+    stats = forward_bar(got[0], ref[0], got[1], ref[1], what)
     c, rc = got[2], ref[2]
     ev_end = ((c & 7) == (rc & 7)).all(dim=0)
     live = ((rc & 3) == 1) | ((rc & 3) == 2)
@@ -200,9 +244,12 @@ def compare_record(scene, cam_params, device, seed=0):
     equal = ev_end & tid_odd
     frac = float(equal.float().mean())
     tp_err = max(float((a - b)[:, equal].abs().max()) for a, b in zip(got[3], ref[3]))
-    stats.update(lanes_codes_equal=frac, tprev_max_err_equal_lanes=tp_err)
+    bit_equal = all(torch.equal(a, b) for a, b in zip(
+        (*got[0], got[2], *got[3]), (*ref[0], ref[2], *ref[3])))
+    stats.update(lanes_codes_equal=frac, tprev_max_err_equal_lanes=tp_err,
+                 bit_equal=bit_equal)
     if frac < 0.98 or tp_err > 1e-5:
-        raise AssertionError(f"K2 residual rows disagree: {stats}")
+        raise AssertionError(f"{what} residual rows disagree: {stats}")
     return stats, got, cam
 
 
@@ -232,6 +279,77 @@ def compare_replay(scene, got, device):
         err = max(err, float((a - b).abs().max()))
     return dict(textures=scene.tex_ca.shape[0], max_abs_err=err,
                 grad_tex_ca_max=float(plain[0].abs().max())), (args, ghat)
+
+
+def fused_vs_lockstep(scene, cam, target, params, kw, dev, seed=555):
+    """Gradients of the demo loss (render_value_and_grad of ``params``
+    against ``target``) through the fused path (the kernels) and the
+    lockstep autograd path.  Returns (loss rel diff, {leaf: gradient rel
+    L2}) on all pixels, the same without the pixels whose paths differ
+    between the two routes, and the number of those pixels."""
+    import torch
+
+    from another_raytracer_tpu_torch.grad import diff
+    from another_raytracer_tpu_torch.ops import render as render_lib
+
+    trainable = tuple(sorted(params))
+    spp = kw["spp"]
+    # The two routes' float arithmetic flips a few paths.  Find the pixels
+    # where a path differs: render both routes with every texture and the
+    # background recoloured (colours steer no path, and with a lit background
+    # every path that reaches a light or escapes shows in the radiance), and
+    # drop the pixels whose radiance differs beyond float rounding.
+    fp = scene.replace(
+        tex_ca=scene.tex_ca * torch.as_tensor(
+            np.random.default_rng(3).uniform(0.5, 1.5, tuple(scene.tex_ca.shape)),
+            dtype=torch.float32, device=dev),
+        background=torch.tensor([0.3, 0.5, 0.7], device=dev))
+
+    def images(sc):
+        out = []
+        for flag in (None, False):
+            with fused(flag), torch.no_grad():
+                a, _ = render_lib.render_radiance(sc, cam, seed,
+                                                  differentiable=True,
+                                                  trainable=trainable, **kw)
+            out.append(torch.stack(tuple(a), dim=1) / spp)
+        return out
+
+    def differ(a, b, rtol):
+        return ((a - b).abs() > rtol * torch.maximum(a.abs(), b.abs())
+                + 1e-2 * rtol).any(dim=1)
+
+    # Where paths agree, the two routes' radiance agrees to float rounding
+    # (~1e-7); a flip deep in a path moves a pixel by as little as ~1e-4 of
+    # its value, and the recolouring may shrink that, so flips are found at
+    # 1e-6.
+    flipped = differ(*images(fp), 1e-6)
+    img_f, img_l = images(scene)
+    if bool((differ(img_f, img_l, 1e-4) & ~flipped).any()):
+        raise AssertionError("the image differs on a pixel whose paths agree")
+    n_flipped = int(flipped.sum())
+    if n_flipped > FLIP_BUDGET * flipped.numel():
+        raise AssertionError(f"{n_flipped} of {flipped.numel()} pixels flipped")
+
+    def value_and_grads(flag, tgt):
+        with fused(flag):
+            return diff.render_value_and_grad(params, scene, cam, tgt, seed,
+                                              **kw)
+
+    def agreement(res_f, res_l):
+        (loss_f, g_f), (loss_l, g_l) = res_f, res_l
+        return (abs(float(loss_f) - float(loss_l)) / abs(float(loss_l)),
+                {k: rel_l2(g_f[k], g_l[k]) for k in g_f})
+
+    # The loss as is, then with the flipped pixels dropped: there each
+    # route's target is its own image, so the pixel adds no loss and no
+    # gradient on either route.
+    loss_all, errs_all = agreement(value_and_grads(None, target),
+                                   value_and_grads(False, target))
+    loss_rel, errs = agreement(
+        value_and_grads(None, torch.where(flipped[:, None], img_f, target)),
+        value_and_grads(False, torch.where(flipped[:, None], img_l, target)))
+    return loss_all, errs_all, loss_rel, errs, n_flipped
 
 
 def rel_l2(a, b):
@@ -265,6 +383,20 @@ def fused(flag):
         yield
     finally:
         mega_diff.FUSED_DIFF = saved
+
+
+@contextlib.contextmanager
+def mega_forward(flag):
+    """Set mega_kernel.MEGA_FORWARD (False: forward renders take the
+    wavefront), restored after."""
+    from another_raytracer_tpu_torch.ops.kernels import mega_kernel
+
+    saved = mega_kernel.MEGA_FORWARD
+    mega_kernel.MEGA_FORWARD = flag
+    try:
+        yield
+    finally:
+        mega_kernel.MEGA_FORWARD = saved
 
 
 def cuda_ms(fn, dev, runs):
@@ -513,6 +645,8 @@ def reset_counts():
 
     mega_kernel.trace_regenerative_mega.launches = 0
     mega_kernel.trace_regenerative_mega.record_launches = 0
+    mega_kernel.trace_regenerative_mega.accel_launches = 0
+    mega_kernel.trace_regenerative_mega.accel_record_launches = 0
     mega_diff.replay_backward.launches = 0
     bvh_kernel.bvh_closest_hit.launches = 0
     perlin_kernel.perlin_noise.launches = 0
@@ -525,24 +659,26 @@ def counts():
 
     return dict(K1=mega_kernel.trace_regenerative_mega.launches,
                 K2=mega_kernel.trace_regenerative_mega.record_launches,
+                K3=mega_kernel.trace_regenerative_mega.accel_launches,
+                K3_record=mega_kernel.trace_regenerative_mega.accel_record_launches,
                 replay=mega_diff.replay_backward.launches,
                 K5=bvh_kernel.bvh_closest_hit.launches,
                 K4=perlin_kernel.perlin_noise.launches)
 
 
-def run_cli(scene, width, height, spp, depth, tmp):
-    """The CLI in single mode on the card; returns (rc, stdout, image,
-    {kernel: launches in this run})."""
+def run_cli(scene, width, height, spp, depth, tmp, mode="single"):
+    """The CLI on the card; returns (rc, stdout, image, {kernel: launches in
+    this run})."""
     from another_raytracer_tpu_torch import cli
     from another_raytracer_tpu_torch.utils import imageio
 
-    out = os.path.join(tmp, f"scene{scene}.png")
+    out = os.path.join(tmp, f"scene{scene}_{mode}.png")
     buf = io.StringIO()
     reset_counts()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(["--scene", str(scene), "--width", str(width),
                        "--height", str(height), "--spp", str(spp),
-                       "--max-depth", str(depth), "--mode", "single",
+                       "--max-depth", str(depth), "--mode", mode,
                        "--device", "cuda", "--out", out])
     launched = counts()
     return rc, buf.getvalue(), imageio.load_png(out), launched
@@ -636,12 +772,20 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln]
         phase("build", f"{path.name} in {secs:.1f} s: " + " | ".join(usage))
     phase("build", f"all targets in {time.perf_counter() - t0:.1f} s")
+    # The template instances: sweep (ILb0E: K1, K2) and accel (ILb1E: K3).
     k1_regs, k1_spilled = kernel_usage(_build.build_log("mega_kernel"),
-                                       "mega_forward_kernel")
+                                       "mega_forward_kernelILb0E")
     k2_regs, _ = kernel_usage(_build.build_log("mega_kernel_record"),
-                              "mega_forward_kernel")
-    if k1_spilled:
-        raise AssertionError("K1's forward instance spills registers")
+                              "mega_forward_kernelILb0E")
+    k3_regs, k3_spilled = kernel_usage(_build.build_log("mega_kernel"),
+                                       "mega_forward_kernelILb1E")
+    k3r_regs, _ = kernel_usage(_build.build_log("mega_kernel_record"),
+                               "mega_forward_kernelILb1E")
+    if k1_spilled or k3_spilled:
+        raise AssertionError("a forward instance of the megakernel spills "
+                             "registers")
+    phase("build", f"megakernel registers: K1 {k1_regs}, K2 {k2_regs}, K3 "
+          f"forward {k3_regs}, K3 record {k3r_regs}")
     for target in ("bvh_kernel", "perlin_kernel"):
         entries = kernel_entries(_build.build_log(target))
         if not entries:
@@ -757,62 +901,12 @@ def main() -> int:
                                             differentiable=True, **tkw)
     target = torch.stack(tuple(acc), dim=1) / TSPP
     params, _ = diff.split_params(cornell)
-    trainable = tuple(sorted(params))
-    # The two routes' float arithmetic flips a few paths.  Find the pixels
-    # where a path differs: render both routes with every texture and the
-    # background recoloured (colours steer no path, and with a lit background
-    # every path that reaches a light or escapes shows in the radiance), and
-    # drop the pixels whose radiance differs beyond float rounding.
-    fp = cornell.replace(
-        tex_ca=cornell.tex_ca * torch.as_tensor(
-            np.random.default_rng(3).uniform(0.5, 1.5, tuple(cornell.tex_ca.shape)),
-            dtype=torch.float32, device=dev),
-        background=torch.tensor([0.3, 0.5, 0.7], device=dev))
-
-    def images(scene):
-        out = []
-        for flag in (None, False):
-            with fused(flag), torch.no_grad():
-                a, _ = render_lib.render_radiance(scene, tcam, 555,
-                                                  differentiable=True,
-                                                  trainable=trainable, **tkw)
-            out.append(torch.stack(tuple(a), dim=1) / TSPP)
-        return out
-
-    def differ(a, b):
-        return ((a - b).abs() > 1e-4 * torch.maximum(a.abs(), b.abs())
-                + 1e-6).any(dim=1)
-
-    flipped = differ(*images(fp))
-    img_f, img_l = images(cornell)
-    if bool((differ(img_f, img_l) & ~flipped).any()):
-        raise AssertionError("the demo image differs on a pixel whose paths agree")
-    n_flipped = int(flipped.sum())
-    if n_flipped > FLIP_BUDGET * flipped.numel():
-        raise AssertionError(f"{n_flipped} of {flipped.numel()} pixels flipped")
-
-    def value_and_grads(flag, tgt):
-        with fused(flag):
-            return diff.render_value_and_grad(params, cornell, tcam, tgt, 555,
-                                              **tkw)
-
-    def agreement(res_f, res_l):
-        (loss_f, g_f), (loss_l, g_l) = res_f, res_l
-        return (abs(float(loss_f) - float(loss_l)) / abs(float(loss_l)),
-                {k: rel_l2(g_f[k], g_l[k]) for k in g_f})
-
-    # The demo's loss as is, then with the flipped pixels dropped: there each
-    # route's target is its own image, so the pixel adds no loss and no
-    # gradient on either route.
-    loss_all, errs_all = agreement(value_and_grads(None, target),
-                                   value_and_grads(False, target))
-    loss_rel, errs = agreement(
-        value_and_grads(None, torch.where(flipped[:, None], img_f, target)),
-        value_and_grads(False, torch.where(flipped[:, None], img_l, target)))
+    loss_all, errs_all, loss_rel, errs, n_flipped = fused_vs_lockstep(
+        cornell, tcam, target, params, tkw, dev)
     phase("e2e_grads", f"cornell {TW}x{TH} spp{TSPP} depth{TDEPTH}, demo target, "
           f"fused vs lockstep: all pixels loss rel {loss_all:.2e}, gradient rel "
           f"L2 {json.dumps(errs_all)}; without the {n_flipped} of "
-          f"{flipped.numel()} pixels whose paths differ: loss rel "
+          f"{TW * TH} pixels whose paths differ: loss rel "
           f"{loss_rel:.2e}, gradient rel L2 {json.dumps(errs)}")
     if loss_rel > 1e-3 or max(errs.values()) > 1e-2:
         raise AssertionError("fused and lockstep gradients disagree")
@@ -963,10 +1057,12 @@ def main() -> int:
         cam = camera_lib.make_camera(aspect_ratio=CW / CH, device=dev, **cp)
         pix = torch.arange(CW * CH, device=dev)
         reset_counts()
-        got, got_segs = render_lib.radiance_batch(sc, cam, pix, 7, **wkw)
-        launched = counts()
-        with plain_wavefront():
-            ref, ref_segs = render_lib.radiance_batch(sc, cam, pix, 7, **wkw)
+        with mega_forward(False):
+            got, got_segs = render_lib.radiance_batch(sc, cam, pix, 7, **wkw)
+            launched = counts()
+            with plain_wavefront():
+                ref, ref_segs = render_lib.radiance_batch(sc, cam, pix, 7,
+                                                          **wkw)
         torch.cuda.synchronize(dev)
         st = forward_bar(got, ref, got_segs, ref_segs, name)
         st.update(K5_launches=launched["K5"], K4_launches=launched["K4"])
@@ -976,8 +1072,10 @@ def main() -> int:
         phase("compare_wavefront", f"{name} {CW}x{CH} spp{CSPP} depth{DEPTH}: "
               f"{json.dumps(st)}")
 
-    # 13. The BVH main path: scene 1 through the CLI at the README size.
-    with tempfile.TemporaryDirectory() as tmp:
+    # 13. The wavefront's BVH path: scene 1 through the CLI at the README
+    # size with MEGA_FORWARD = False (its auto route is K3, section 16): the
+    # forward gate's measurement of the wavefront + K5.
+    with tempfile.TemporaryDirectory() as tmp, mega_forward(False):
         rc, out, img, launched = run_cli(1, W, H, SPP, DEPTH, tmp)
     bvh_wall_ms, bvh_mrays, bvh_segs = cli_stats(out)
     k5_launches = launched["K5"]
@@ -985,13 +1083,16 @@ def main() -> int:
         raise AssertionError(f"main path (scene 1): rc={rc} {launched}\n{out}")
     if img.shape != (H, W, 3) or img.mean() < 10.0:
         raise AssertionError(f"scene 1 image is wrong: {img.shape} {img.mean()}")
-    phase("main_path_bvh", f"scene 1 {W}x{H} spp{SPP} depth{DEPTH} (CLI): "
+    phase("main_path_bvh", f"scene 1 {W}x{H} spp{SPP} depth{DEPTH} (CLI, "
+          f"wavefront + K5): "
           f"{bvh_wall_ms} ms wall, {bvh_segs} segments, {bvh_mrays} Mrays/s; "
           f"launches {json.dumps(launched)}; PNG mean {img.mean():.2f}")
 
     # Where scene 1's render time goes, from a profiler trace at spp 1 (each
     # wavefront loop iteration launches K5 once).
-    wall_ms, busy_ms, n_kern, launched, top = profile_render(scene1, cam1, 1, dev)
+    with mega_forward(False):
+        wall_ms, busy_ms, n_kern, launched, top = profile_render(scene1, cam1,
+                                                                 1, dev)
     iters = max(launched["K5"], 1)
     phase("profile_bvh", f"scene 1 {W}x{H} spp1 depth{DEPTH}: {wall_ms:.1f} ms "
           f"wall, {iters} loop iterations ({wall_ms / iters:.2f} ms each); "
@@ -1093,6 +1194,201 @@ def main() -> int:
           f"ms; plain {k4_plain_ms:.3f} ms; bound {k4_bound_ms:.4f} ms by "
           f"{k4_bound_by}; {k4_launches} launches in scenes 3, 4 and 5's renders")
 
+    # 16. The megakernel's accel mode (K3).  Its forward instance against
+    # its plain version on scene 1 and the 81-sphere tree.
+    k3_cmp = {}
+    for name, (sc, cp) in [("scene 1 (random)", (scene1, cam1)),
+                           ("81-sphere tree", bvh_sphere_scene(dev))]:
+        reset_counts()
+        st = compare(sc, cp, CW, CH, CSPP, DEPTH, dev, what="K3")
+        if counts()["K3"] != 1:
+            raise AssertionError(f"{name}: the comparison skipped K3 {counts()}")
+        k3_cmp[name] = st
+        phase("compare_k3", f"{name} {CW}x{CH} spp{CSPP} depth{DEPTH}: "
+              f"{json.dumps(st)}")
+
+    # Its record instance and the replay at scene 1's 485 textures (the
+    # block-wide table) at the bench size.
+    st_k3r, got_k3r, bcam1 = compare_record(scene1, cam1, dev, what="K3 record")
+    phase("compare_k3_record", f"scene 1 {BW}x{BH} spp{BSPP} depth{BDEPTH}: "
+          f"{json.dumps(st_k3r)}")
+    rp485, (rp485_args, _) = compare_replay(scene1, got_k3r, dev)
+    if not mega_diff.replay_instance(rp485["textures"])[0]:
+        raise AssertionError("scene 1's replay did not take the block-wide table")
+    phase("compare_replay", f"scene 1, {rp485['textures']} textures (block-wide "
+          f"table, atomics): {json.dumps(rp485)}")
+
+    # The accel main path: the scene-1 README render through the CLI, in
+    # single and in adaptive mode.
+    accel_cli, pngs = {}, {}
+    for mode in ("single", "adaptive"):
+        with tempfile.TemporaryDirectory() as tmp:
+            rc, out, img, launched = run_cli(1, W, H, SPP, DEPTH, tmp, mode)
+        wall_ms, mrays, segs = cli_stats(out)
+        if (rc != 0 or launched["K3"] < 1 or launched["K5"] or launched["K1"]
+                or segs <= 0):
+            raise AssertionError(f"main path (scene 1, {mode}): rc={rc} "
+                                 f"{launched}\n{out}")
+        if img.shape != (H, W, 3) or img.mean() < 10.0:
+            raise AssertionError(f"scene 1 {mode} image is wrong: {img.mean()}")
+        accel_cli[mode], pngs[mode] = (wall_ms, mrays, segs, launched), img
+        phase("main_path_accel", f"scene 1 {W}x{H} spp{SPP} depth{DEPTH} "
+              f"(CLI, mode {mode}): {wall_ms} ms wall, {segs} segments, {mrays} "
+              f"Mrays/s; launches {json.dumps(launched)}; PNG mean "
+              f"{img.mean():.2f}")
+    # The adaptive render traces every big square's corners with the same
+    # kernel and keys as the single render: the same colours there.
+    corners = np.zeros((H, W), bool)
+    for y0 in (0, 11):
+        for x0 in (0, 11):
+            corners[y0::12, x0::12] = True
+    if not np.array_equal(pngs["adaptive"][corners], pngs["single"][corners]):
+        raise AssertionError("adaptive corners differ from the single render")
+    k3_launches = accel_cli["single"][3]["K3"]
+    phase("main_path_accel", f"adaptive vs single: corners equal, median |diff| "
+          f"{np.median(np.abs(pngs['adaptive'].astype(int) - pngs['single'])):.1f}"
+          f", {accel_cli['adaptive'][2] / accel_cli['single'][2]:.3f} of the "
+          f"segments")
+
+    # The fused training path on scene 1 at the bench size: fused (K3's
+    # record instance and the replay) against lockstep gradients.
+    bkw1 = dict(width=BW, height=BH, spp=BSPP, samples_per_pass=1,
+                max_depth=BDEPTH, t_min=1e-3)
+    params1, _ = diff.split_params(scene1)
+    with torch.no_grad():
+        acc, _ = render_lib.render_radiance(scene1, bcam1, 99,
+                                            differentiable=True, **bkw1)
+    target1 = torch.stack(tuple(acc), dim=1) / BSPP
+    reset_counts()
+    loss_all, errs_all, loss_rel, errs, n_flipped = fused_vs_lockstep(
+        scene1, bcam1, target1, params1, bkw1, dev)
+    train_launched = counts()
+    phase("main_path_accel_training", f"scene 1 {BW}x{BH} spp{BSPP} "
+          f"depth{BDEPTH}, fused vs lockstep: all pixels loss rel "
+          f"{loss_all:.2e}, gradient rel L2 {json.dumps(errs_all)}; without the "
+          f"{n_flipped} of {BW * BH} pixels whose paths differ: loss rel "
+          f"{loss_rel:.2e}, gradient rel L2 {json.dumps(errs)}; launches "
+          f"{json.dumps(train_launched)}")
+    if loss_rel > 1e-3 or max(errs.values()) > 1e-2:
+        raise AssertionError("fused and lockstep gradients disagree on scene 1")
+    if train_launched["K3_record"] < 1 or train_launched["replay"] < 1:
+        raise AssertionError("scene 1's training path skipped K3 or the replay")
+
+    # K3 alone at the README size (Morton-ordered lanes, as the render runs
+    # it), through its wrapper, and its plain version once (which also
+    # counts the walk's slab and sphere tests: the bound's work).
+    cam = camera_lib.make_camera(aspect_ratio=W / H, device=dev, **cam1)
+    order, _ = render_lib.morton_order(W, H)
+    pix_m = torch.from_numpy(order.astype(np.int64)).to(dev)
+    samp_m = torch.zeros_like(pix_m)
+    kw = dict(width=W, height=H, sample_stride=1, sample_end=SPP, spp_cap=SPP,
+              max_depth=DEPTH, t_min=1e-3)
+    run, (k3_out, k3_seg) = mega_kernel.prepare_launch(scene1, cam, pix_m,
+                                                       samp_m, 0, **kw)
+    k3_ms, k3_runs = cuda_ms(bare(run), dev, 5)
+    k3_wrap_ms, _ = cuda_ms(lambda: mega_kernel.trace_regenerative_mega(
+        scene1, cam, pix_m, samp_m, 0, **kw), dev, 3)
+    segs_k3 = int(k3_seg.sum())
+    torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    ref_k3 = mega_kernel.trace_regenerative_mega_reference(
+        scene1, cam, pix_m, samp_m, 0, work=True, **kw)
+    torch.cuda.synchronize(dev)
+    k3_plain_ms = (time.perf_counter() - t) * 1e3
+    # At 100 samples a lane nearly always holds a path that FMA contraction
+    # flipped, so the per-lane bar (made for a few samples, compare_k3)
+    # does not apply: hold the segments and the image's mean radiance.
+    got_mean = float(torch.stack(k3_out).mean())
+    plain_mean = float(torch.stack(tuple(ref_k3[0])).mean())
+    st_full = dict(segments_plain=int(ref_k3[1]),
+                   mean_radiance=got_mean, mean_radiance_plain=plain_mean)
+    if (abs(segs_k3 - int(ref_k3[1])) > 0.01 * int(ref_k3[1])
+            or abs(got_mean - plain_mean) > 0.01 * plain_mean):
+        raise AssertionError(f"K3 at the README size disagrees with its "
+                             f"plain version: {st_full}")
+    slabs3, tests3 = ref_k3[-1]
+    nodes_bytes = scene1.sph_bvh_nodes.numel() * 4
+    rows_bytes = scene1.sph_bvh_rows.shape[0] * mega_kernel.ROW_W * 4
+    k3_bound_ms, k3_bound_by = bound(
+        slabs3 * bvh_ops.OPS_PER_SLAB
+        + tests3 * bvh_ops.OPS_PER_TEST["sphere", False]
+        + segs_k3 * (OPS_SEGMENT + OPS_K3_NORMAL),
+        W * H * 24 + rows_bytes + nodes_bytes)
+    phase("timing_k3", f"scene 1 {W}x{H} spp{SPP} depth{DEPTH}: K3 alone "
+          f"{k3_ms:.3f} ms (runs {k3_runs}), {k3_regs} registers, no spills; "
+          f"through its wrapper {k3_wrap_ms:.3f} ms; {segs_k3} segments, "
+          f"{segs_k3 / k3_ms / 1e3:.1f} Mrays/s; plain {k3_plain_ms:.1f} ms "
+          f"({json.dumps(st_full)}); {slabs3} slab and {tests3} sphere tests "
+          f"({slabs3 / segs_k3:.1f} / {tests3 / segs_k3:.1f} per segment): "
+          f"bound {k3_bound_ms:.3f} ms by {k3_bound_by}")
+
+    # The forward gate: the scene-1 README render through K3 and through the
+    # wavefront + K5 (section 13), both through the CLI.
+    k3_wall = accel_cli["single"][0]
+    phase("gate", f"forward, scene 1 {W}x{H} spp{SPP} depth{DEPTH} through the "
+          f"CLI: K3 {k3_wall} ms wall (kernel {k3_ms:.3f} ms, "
+          f"{100 * k3_ms / max(k3_wall, 1):.1f}% of the wall), wavefront + K5 "
+          f"{bvh_wall_ms} ms wall ({bvh_wall_ms / max(k3_wall, 1):.1f}x); auto "
+          f"takes K3: {mega_kernel.enabled(scene1, cam)}")
+    if not (k3_wall < bvh_wall_ms and mega_kernel.enabled(scene1, cam)):
+        raise AssertionError("the forward gate's default disagrees with its "
+                             "measurement")
+
+    # The fused gate: a fwd+bwd step on scene 1 at the bench size, fused
+    # against lockstep.
+    zero_target = torch.zeros((BW * BH, 3), device=dev)
+
+    def step1():
+        return diff.render_value_and_grad(params1, scene1, bcam1,
+                                              zero_target, 0, **bkw1)
+
+    fused_ms, fused_runs = cuda_ms(step1, dev, 5)
+    with fused(False):
+        lock_ms, lock_runs = cuda_ms(step1, dev, 2)
+    fused_auto = mega_diff.enabled(scene1, bcam1, BSPP, 1, BDEPTH,
+                                   trainable=tuple(params1))
+    phase("gate", f"fused, scene 1 {BW}x{BH} spp{BSPP} depth{BDEPTH} fwd+bwd "
+          f"step (render_value_and_grad, CUDA events, median): fused "
+          f"{fused_ms:.3f} ms (runs {fused_runs}), lockstep {lock_ms:.1f} ms "
+          f"(runs {lock_runs}) ({lock_ms / fused_ms:.1f}x); auto takes the "
+          f"fused path: {fused_auto}")
+    if not (fused_ms < lock_ms and fused_auto):
+        raise AssertionError("the fused gate's default disagrees with its "
+                             "measurement")
+
+    # K3's record instance and the large-T replay alone at the bench size.
+    pixb, sampb = lanes(BW, BH, dev)
+    rkw = dict(width=BW, height=BH, sample_stride=1, sample_end=BSPP,
+               spp_cap=BSPP, max_depth=BDEPTH, t_min=1e-3,
+               record_iters=BSPP * BDEPTH)
+    run, _ = mega_kernel.prepare_launch(scene1, bcam1, pixb, sampb, 0, **rkw)
+    k3r_ms, _ = cuda_ms(bare(run), dev, 5)
+    torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    ref_k3r = mega_kernel.trace_regenerative_mega_reference(
+        scene1, bcam1, pixb, sampb, 0, work=True, **rkw)
+    torch.cuda.synchronize(dev)
+    k3r_plain_ms = (time.perf_counter() - t) * 1e3
+    slabs3r, tests3r = ref_k3r[-1]
+    resid = BSPP * BDEPTH * BW * BH * 16
+    k3r_bound_ms, k3r_bound_by = bound(
+        slabs3r * bvh_ops.OPS_PER_SLAB
+        + tests3r * bvh_ops.OPS_PER_TEST["sphere", False]
+        + st_k3r["segments"] * (OPS_SEGMENT + OPS_K3_NORMAL),
+        BW * BH * 24 + rows_bytes + nodes_bytes + resid)
+    run, _ = mega_diff.prepare_replay(*rp485_args)
+    rp485_ms, _ = cuda_ms(bare(run), dev, 5)
+    rp485_plain_ms, _ = cuda_ms(
+        lambda: mega_diff.replay_backward_reference(*rp485_args), dev, 3)
+    rp485_bound_ms, rp485_bound_by = bound(
+        BSPP * BDEPTH * BW * BH * OPS_REPLAY_ROW, resid + BW * BH * 12)
+    phase("timing_k3", f"scene 1 {BW}x{BH} spp{BSPP} depth{BDEPTH}: K3 record "
+          f"alone {k3r_ms:.3f} ms vs plain {k3r_plain_ms:.1f} ms ({k3r_regs} "
+          f"registers), bound {k3r_bound_ms:.4f} ms by {k3r_bound_by}; replay "
+          f"at T = {rp485['textures']} alone {rp485_ms:.3f} ms vs plain "
+          f"{rp485_plain_ms:.1f} ms, bound {rp485_bound_ms:.4f} ms by "
+          f"{rp485_bound_by}")
+
     # Bounds of the earlier kernels from this run's work: segments x the
     # per-segment operations; the bytes a lane reads and writes, the rows,
     # and K2's / the replay's residual rows.
@@ -1129,13 +1425,42 @@ def main() -> int:
          "bound_ms": k2_bound_ms, "bound_by": k2_bound_by, "library_ms": None,
          "registers": k2_regs,
          "lanes_codes_equal": st_c["lanes_codes_equal"]},
+        {"name": "mega_kernel accel forward instance (K3, megakernel with "
+                 "the sphere-BVH walk)",
+         "route": "cuda", "source": SRC + "mega_kernel.cu",
+         "replaces": JAX_PALLAS + "mega_kernel.py:882",
+         "launches": k3_launches,
+         "max_abs_err": k3_cmp["scene 1 (random)"]["max_abs_err"],
+         "ms": k3_ms, "plain_ms": k3_plain_ms,
+         "bound_ms": k3_bound_ms, "bound_by": k3_bound_by, "library_ms": None,
+         "wrapper_ms": k3_wrap_ms, "registers": k3_regs,
+         "segments": segs_k3, "mrays_per_s": segs_k3 / k3_ms / 1e3},
+        {"name": "mega_kernel accel record instance (K3, fused "
+                 "differentiable primal on a sphere tree)",
+         "route": "cuda", "source": SRC + "mega_kernel.cu",
+         "replaces": JAX_PALLAS + "mega_kernel.py:882",
+         "launches": train_launched["K3_record"],
+         "max_abs_err": st_k3r["max_abs_err"],
+         "ms": k3r_ms, "plain_ms": k3r_plain_ms,
+         "bound_ms": k3r_bound_ms, "bound_by": k3r_bound_by,
+         "library_ms": None, "registers": k3r_regs,
+         "lanes_codes_equal": st_k3r["lanes_codes_equal"],
+         "bit_equal": st_k3r["bit_equal"]},
         {"name": "mega_replay (replay backward of the fused path)",
          "route": "cuda", "source": SRC + "mega_replay.cu",
          "replaces": JAX_PALLAS + "mega_diff.py:266",
          "launches": replay_launches,
          "max_abs_err": replay_stats["max_abs_err"],
          "ms": replay_ms, "plain_ms": replay_plain_ms,
-         "bound_ms": rp_bound_ms, "bound_by": rp_bound_by, "library_ms": None},
+         "bound_ms": rp_bound_ms, "bound_by": rp_bound_by, "library_ms": None,
+         "textures": replay_stats["textures"],
+         "large_t": {"textures": rp485["textures"],
+                     "instance": "block-wide table",
+                     "launches": train_launched["replay"],
+                     "max_abs_err": rp485["max_abs_err"],
+                     "ms": rp485_ms, "plain_ms": rp485_plain_ms,
+                     "bound_ms": rp485_bound_ms,
+                     "bound_by": rp485_bound_by}},
         {"name": "bvh_kernel (K5, BVH closest hit)",
          "route": "cuda", "source": SRC + "bvh_kernel.cu",
          "replaces": JAX_PALLAS + "bvh_kernel.py:537",

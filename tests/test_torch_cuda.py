@@ -265,14 +265,153 @@ def test_perlin_kernel_matches_plain(dev):
 
 
 def test_cli_renders_bvh_and_noise_scenes_through_the_kernels(dev, tmp_path):
-    for scene_id, counter in (("1", bvh_kernel.bvh_closest_hit),
-                              ("3", perlin_kernel.perlin_noise),
-                              ("5", perlin_kernel.perlin_noise)):
+    # Scene 1 takes the megakernel's accel mode (K3), scenes 3 and 5 the
+    # wavefront with the Perlin kernel (K4).
+    for scene_id, counter, attr in (
+            ("1", mega_kernel.trace_regenerative_mega, "accel_launches"),
+            ("3", perlin_kernel.perlin_noise, "launches"),
+            ("5", perlin_kernel.perlin_noise, "launches")):
         out = tmp_path / f"scene{scene_id}.png"
-        before = counter.launches
+        before = getattr(counter, attr)
         assert cli.main(["--scene", scene_id, "--width", str(W), "--height",
                          str(H), "--spp", "4", "--max-depth", "20", "--mode",
                          "single", "--device", "cuda", "--out", str(out)]) == 0
-        assert counter.launches > before
+        assert getattr(counter, attr) > before
         img = imageio.load_png(out)
         assert img.shape == (H, W, 3) and img.mean() > 5.0
+
+
+# --------------------------------------------------------------------------
+# K3 (the megakernel's accel mode) and the large-T replay
+# --------------------------------------------------------------------------
+
+
+def _bvh_sphere_scene(device):
+    # tests/test_mega.py:74-95: 81 spheres in one tree, checker ground,
+    # lambertian / metal / dielectric, one moving sphere.
+    b = SceneBuilder(background=(0.7, 0.8, 1.0), seed=9)
+    b.sphere((0, -1000, 0), 1000, b.lambertian(
+        texture=b.checker_texture((0.2, 0.3, 0.1), (0.9, 0.9, 0.9))))
+    rnd = np.random.default_rng(4)
+    for i in range(80):
+        c = (rnd.uniform(-6, 6), 0.3, rnd.uniform(-8, -1))
+        k = i % 4
+        if k == 0:
+            m = b.lambertian(color=tuple(rnd.uniform(0.2, 0.9, 3)))
+        elif k == 1:
+            m = b.metal(tuple(rnd.uniform(0.5, 1.0, 3)), rnd.uniform(0, 0.4))
+        elif k == 2:
+            m = b.dielectric(1.5)
+        else:
+            m = b.lambertian(color=(0.8, 0.4, 0.2))
+        b.sphere(c, 0.3, m)
+    b.moving_sphere((0, 0.5, -3), (0, 0.8, -3), 0, 1, 0.3,
+                    b.lambertian(color=(0.9, 0.2, 0.2)))
+    cam = dict(lookfrom=(0, 1.5, 3), lookat=(0, 0, -4), vfov=50.0,
+               time0=0.0, time1=1.0)
+    return b.build(device=device, sphere_bvh=True), cam
+
+
+ACCEL_SCENES = {"random_scene": library.random_scene,
+                "bvh_sphere_scene": _bvh_sphere_scene}
+
+
+def _accel(name, dev, record_iters=0, spp=4, depth=50):
+    scene, params = ACCEL_SCENES[name](device=dev)
+    cam = camera.make_camera(aspect_ratio=W / H, device=dev, **params)
+    assert mega_kernel.supports_accel(scene, cam)
+    pix = torch.arange(W * H, device=dev)
+    samp = torch.zeros(W * H, dtype=torch.int64, device=dev)
+    kw = dict(width=W, height=H, sample_stride=1, sample_end=spp, spp_cap=spp,
+              max_depth=depth, t_min=1e-3, record_iters=record_iters)
+    attr = "accel_record_launches" if record_iters else "accel_launches"
+    before = getattr(mega_kernel.trace_regenerative_mega, attr)
+    got = mega_kernel.trace_regenerative_mega(scene, cam, pix, samp, 3, **kw)
+    assert getattr(mega_kernel.trace_regenerative_mega, attr) == before + 1
+    want = mega_kernel.trace_regenerative_mega_reference(scene, cam, pix, samp,
+                                                         3, **kw)
+    return scene, got, want
+
+
+@pytest.mark.parametrize("name", list(ACCEL_SCENES))
+def test_accel_kernel_matches_plain(name, dev):
+    _, (got, got_segs), (want, want_segs) = _accel(name, dev)
+    got, want = vec3.to_numpy(got), vec3.to_numpy(want)
+    assert np.isfinite(got).all() and got.mean() > 0
+    # The bar of tests/test_mega.py:37-45 (the forward build contracts FMA).
+    assert abs(int(got_segs) - int(want_segs)) <= max(4, 0.01 * int(want_segs))
+    diff = np.abs(got - want)
+    assert (diff > 2e-2).mean() <= 0.02
+    assert np.median(diff) < 1e-5
+
+
+@pytest.mark.parametrize("name", list(ACCEL_SCENES))
+def test_accel_record_kernel_matches_plain(name, dev):
+    # Built without FMA contraction, K3's record instance equals its plain
+    # version bit for bit, as K2 does.
+    _, got, want = _accel(name, dev, record_iters=4 * 8, depth=8)
+    assert int(got[1]) == int(want[1])
+    assert torch.equal(got[2], want[2])
+    for a, b in zip((*got[0], *got[3]), (*want[0], *want[3])):
+        assert torch.equal(a, b)
+    assert bool(((got[2] & 3) == 1).any()) and bool(((got[2] >> 4) > 16).any())
+
+
+def test_replay_kernel_large_t_matches_plain(dev):
+    # The random scene's 485 textures take the block-wide table with
+    # atomics: not bit-deterministic, equal to float rounding.
+    scene, got, _ = _accel("random_scene", dev, record_iters=4 * 8, depth=8)
+    T = scene.tex_ca.shape[0]
+    assert T == 485 and mega_diff.replay_instance(T)[0]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ghat = vec3.V3(*(torch.rand(W * H, generator=gen, device=dev) + 0.2
+                     for _ in range(3)))
+    args = (got[2], got[3], ghat, scene.tex_ca, scene.tex_cb,
+            scene.background, mega_diff._flags(scene))
+    before = mega_diff.replay_backward.launches
+    kern = mega_diff.replay_backward(*args)
+    assert mega_diff.replay_backward.launches == before + 1
+    plain = mega_diff.replay_backward_reference(*args)
+    for a, b in zip(kern, plain):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * float(b.abs().max()))
+    assert float(kern[0].abs().max()) > 0 and float(kern[1].abs().max()) > 0
+
+
+def test_fused_grads_on_the_random_scene(dev):
+    # T = 485 > 292: the fused path runs K3's record instance and the
+    # large-T replay, and agrees with the lockstep autograd path.
+    scene, params = library.random_scene(device=dev)
+    cam = camera.make_camera(aspect_ratio=W / H, device=dev, **params)
+    kw = dict(width=W, height=H, spp=4, samples_per_pass=1, max_depth=6,
+              t_min=1e-3)
+    leaves, _ = diff.split_params(scene, ("tex_ca", "tex_cb", "background"))
+    target = torch.zeros((W * H, 3), device=dev)
+    k3 = mega_kernel.trace_regenerative_mega.accel_record_launches
+    saved = mega_diff.FUSED_DIFF
+    mega_diff.FUSED_DIFF = True
+    try:
+        loss_f, g_f = diff.render_value_and_grad(leaves, scene, cam, target, 4,
+                                                 **kw)
+        assert mega_kernel.trace_regenerative_mega.accel_record_launches == k3 + 1
+        mega_diff.FUSED_DIFF = False
+        loss_l, g_l = diff.render_value_and_grad(leaves, scene, cam, target, 4,
+                                                 **kw)
+    finally:
+        mega_diff.FUSED_DIFF = saved
+    # Ulp-level differences between the two routes flip a few paths.
+    assert abs(float(loss_f) - float(loss_l)) <= 1e-3 * float(loss_l)
+    for k in g_l:
+        assert torch.isfinite(g_f[k]).all()
+        num = float((g_f[k] - g_l[k]).norm())
+        assert num <= 1e-2 * max(float(g_l[k].norm()), 1e-30), k
+
+
+def test_cli_renders_scene1_adaptive(dev, tmp_path):
+    out = tmp_path / "scene1.png"
+    before = mega_kernel.trace_regenerative_mega.accel_launches
+    assert cli.main(["--scene", "1", "--width", "96", "--height", "72",
+                     "--spp", "4", "--max-depth", "20", "--mode", "adaptive",
+                     "--device", "cuda", "--out", str(out)]) == 0
+    assert mega_kernel.trace_regenerative_mega.accel_launches > before
+    img = imageio.load_png(out)
+    assert img.shape == (72, 96, 3) and img.mean() > 5.0

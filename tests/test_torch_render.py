@@ -71,8 +71,7 @@ def test_cli_writes_png(tmp_path, capsys):
 def test_unported_paths_raise(tmp_path):
     scene, params = tlib.cornell_box(device="cpu")
     cam = tcam.make_camera(aspect_ratio=W / H, device="cpu", **params)
-    for mode, item in [(RenderMode.ADAPTIVE, "M19"),
-                       (RenderMode.PARALLEL_STRIPES, "M18"),
+    for mode, item in [(RenderMode.PARALLEL_STRIPES, "M18"),
                        (RenderMode.PARALLEL_IMAGES, "M18")]:
         with pytest.raises(NotImplementedError, match=item):
             trender.render(scene, cam, RenderConfig(width=W, height=H,
@@ -93,8 +92,10 @@ def test_unported_paths_raise(tmp_path):
         with pytest.raises(NotImplementedError, match=item):
             tlib.build(alias, device="cpu")
     out = str(tmp_path / "x.png")
-    # The JAX CLI's defaults (--scene 9 --mode adaptive) are not ported yet.
-    for argv in ([], ["--mode", "single", "--scene", "9"],
+    # The JAX CLI's default scene (9) and the parallel modes are not ported
+    # yet.
+    for argv in ([], ["--mode", "adaptive", "--scene", "9"],
+                 ["--mode", "parallel_stripes", "--scene", "6"],
                  ["--mode", "single", "--scene", "6", "--live"],
                  ["--mode", "single", "--scene", "6", "--obj", "x.obj"]):
         with pytest.raises(SystemExit):
