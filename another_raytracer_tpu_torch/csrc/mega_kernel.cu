@@ -16,7 +16,7 @@
 //   sweep: every world-baked row, sphere rows then rect rows;
 //   accel: a stackless walk of the sphere tree over its escape indices.
 //
-// Accel mode (template argument ACCEL; everything else is the same code).
+// Accel mode (template argument WALK; everything else is the same code).
 // The TPU kernel walks a block of lanes with ONE cursor (packet DFS): at node
 // j every lane runs the slab test, the block enters the subtree if any lane
 // hit the box, and a lane's leaf tests are masked by its own box test.
@@ -30,11 +30,35 @@
 // index and the shading reads its columns once, which is the same result.
 // The sphere test, the slab test from [t_min, best_t] and the hit normal
 // (o + t d - c) / r with 1/r = 1/(r != 0 ? r : 1) are K3's arithmetic.
-// The widened rows ([N+pad][32]: the tree's 16 columns, then the material
-// columns) and the nodes ([M][8]) stay in device memory, read through the
-// read-only cache: the random scene's rows are 903 x 128 B = 116 KB, more
-// than the sweep's shared-memory table is sized for, and up to 1 MB
-// (ACCEL_MAX_ROWS).
+//
+// The walk reads compact tables (the wrapper's pack_accel_tables): a node
+// as 2 float4 (lo.xyz, escape | hi.xyz, meta), a sphere as 3 (c0.xyz, r |
+// c1 - c0, t0 | 1/dt, 0, 0, 0), nodes first.  Where they fit in a block's
+// shared memory (the random scene: 55 x 32 + 903 x 48 = 45,104 B) each block
+// copies them there once with 16-byte loads and the walk reads them with
+// 16-byte shared loads (WALK = ACCEL_SHARED); larger trees (up to
+// ACCEL_MAX_ROWS = 8192 rows, ~393 KB) are read by the same walk from device
+// memory through 16-byte read-only loads (ACCEL_GLOBAL).  The wrapper picks
+// by size.  The material columns stay in the widened rows ([N+pad][32]) in
+// device memory: shading reads the winner's columns 16-27 once per segment
+// as 3 float4.
+//
+// Postponed leaves (the while-while traversal of Aila & Laine, HPG 2009):
+// a lane advances over inner nodes on its own until it stands on a leaf
+// whose box it hit, or its walk has ended; the warp tests leaves only when
+// every lane that entered the walk together holds a leaf or has finished
+// (__any_sync), and then every leaf-holding lane tests its leaf at once.  A
+// lane's slab test after a leaf depends on the best t that leaf left, so it
+// cannot run ahead: each lane visits the same nodes and tests the same rows
+// in the same order as a plain per-lane walk, which keeps winners, t bits
+// and counts; what goes is the divergence between slab steps and 32-row
+// leaf loops inside a warp.
+//
+// The counting build (-DART_COUNT -fmad=false: the record build's
+// arithmetic, so its paths are the plain version's) tallies per launch the
+// slab and sphere tests, the active-lane share of the warp's slab and leaf
+// steps (sum of popc(__activemask()) over warp steps / 32 x warp steps), and
+// the sphere tests in the leaf that holds one given sphere (the ground).
 //
 // What bounds it on this card: instruction issue, not memory.  A lane reads
 // 8 bytes and writes 16; everything else (ray state, the 13-round threefry,
@@ -47,7 +71,9 @@
 //
 // In accel mode add the walk's latency: each node visit is a dependent
 // chain (load the node, test the box, pick the next node) and the lanes of a
-// warp diverge to other nodes.
+// warp diverge to other nodes; shared memory shortens each link of that
+// chain, and postponed leaves keep a warp's lanes together in the leaf
+// loops, where most of the walk's arithmetic is.
 //
 // What the design does about it: state never leaves registers; every thread
 // of a warp reads the same row in the same sweep step, so shared-memory reads
@@ -57,15 +83,18 @@
 // (the TPU kernel's per-lane regeneration), so divergence is confined to the
 // tail of each lane's budget; random draws and shading branches that a lane
 // does not need are skipped, which is exact because each draw is a pure
-// function of its key and counter.  Tuning (block size, occupancy, draw
-// batching) is later work.
+// function of its key and counter.  The block is 128 threads for every
+// instance, measured for K3 against 64-512 (chip_smoke.py, PERF.md); at 128
+// K3's 45 KB of shared tables, not its registers, cap an SM's blocks.
 //
 // Record mode (K2, and K3's record instance) is the same kernel compiled with
 // the compile-time constant RECORD set, so the forward instances keep their
 // registers and their time and only the record instances pay for the
-// residual writes.  The file is built twice (ops/kernels/_build.py): as is,
-// for the forward instances (art_mega_forward, art_threefry_words), and with
-// -DART_RECORD -fmad=false for the record instances (art_mega_record).  The
+// residual writes.  The file is built three times (ops/kernels/_build.py):
+// as is, for the forward instances (art_mega_forward, art_threefry_words),
+// with -DART_RECORD -fmad=false for the record instances (art_mega_record),
+// and with -DART_COUNT -fmad=false for K3's counting instance
+// (art_mega_count, a measurement: the port's paths never launch it).  The
 // record build contracts no a*b+c into an FMA and takes sin and cos in double
 // (correctly rounded float results) and rsqrt as 1/sqrt: those are the plain
 // version's ops, so its recorded paths are the plain version's bit for bit
@@ -124,11 +153,27 @@ constexpr bool RECORD = true;
 #else
 constexpr bool RECORD = false;
 #endif
+#ifdef ART_COUNT
+constexpr bool COUNT = true;
+#else
+constexpr bool COUNT = false;
+#endif
+// The record and counting builds take the plain version's transcendentals.
+constexpr bool EXACT = RECORD || COUNT;
 
 enum Flags : int {
   HAS_LENS = 1, HAS_TIME = 2, HAS_METAL = 4, HAS_DIEL = 8, HAS_LIGHT = 16,
   HAS_CHECKER = 32,
 };
+
+// The closest hit of each kernel instance: the sweep (K1, K2), or K3's walk
+// with its compact tables in shared memory or in device memory.
+enum Walk : int { SWEEP = 0, ACCEL_SHARED = 1, ACCEL_GLOBAL = 2 };
+
+// Float4s per node and per sphere of the compact tables.
+constexpr int NODE_F4 = 2, SPHERE_F4 = 3;
+// Shared memory one block may take on sm_90 after opting in.
+constexpr int MAX_SMEM = 232448;
 
 // Camera constants, the layout of the wrapper's 24-float pack
 // (mega_kernel.py:794-799): o, lower_left - o, horizontal, vertical, u, v,
@@ -144,9 +189,11 @@ struct Params {
   float inv_w1, inv_h1, h1, t_min;
   uint32_t seed, limit, stride;
   int width, n, n_spheres, n_rects, max_depth, flags;
-  // Accel mode: nodes [n_nodes][8] (device memory), leaf rows n_spheres.
-  const float* nodes;
-  int n_nodes, leaf_size;
+  // Accel mode: the compact tables (n_nodes nodes, then n_spheres leaf-order
+  // spheres) in device memory, and the bytes of shared memory a block copies
+  // them into (0: the walk reads them from device memory).
+  const float4* tab;
+  int n_nodes, leaf_size, smem_bytes;
 };
 
 // Residual outputs of the record instance: codes [iters][n] int32 and
@@ -156,6 +203,20 @@ struct Record {
   float* tprev;
   int iters, n_textures;
 };
+
+// Output of the counting instance: TALLIES u64 totals (device memory, added
+// to), and the node of the leaf whose sphere tests are tallied apart.
+struct Tallies {
+  unsigned long long* out;
+  int ground_node;
+};
+// Per-thread tallies, summed into Tallies::out in this order.  A warp step
+// is tallied by the lowest active lane only.
+struct Tally {
+  unsigned long long slabs, spheres, slab_steps, slab_active, leaf_steps,
+      leaf_active, ground;
+};
+constexpr int TALLIES = 7;
 
 __host__ __device__ constexpr int rot_of(int r) {
   return r == 0 ? 13 : r == 1 ? 15 : r == 2 ? 26 : r == 3 ? 6
@@ -188,15 +249,15 @@ __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
 
 // The transcendentals of each build (see the header).
 __device__ __forceinline__ float sin_(float x) {
-  if constexpr (RECORD) return (float)sin((double)x);
+  if constexpr (EXACT) return (float)sin((double)x);
   else return sinf(x);
 }
 __device__ __forceinline__ float cos_(float x) {
-  if constexpr (RECORD) return (float)cos((double)x);
+  if constexpr (EXACT) return (float)cos((double)x);
   else return cosf(x);
 }
 __device__ __forceinline__ float rsqrt_(float x) {
-  if constexpr (RECORD) return 1.0f / sqrtf(x);
+  if constexpr (EXACT) return 1.0f / sqrtf(x);
   else return rsqrtf(x);
 }
 
@@ -256,7 +317,18 @@ __device__ __forceinline__ float dot3(const float a[3], const float b[3]) {
   return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
 }
 
-__device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
+// Table reads of the accel walk: shared memory, or device memory through
+// the read-only cache.
+template <bool SHARED>
+__device__ __forceinline__ float4 ld4(const float4* p) {
+  if constexpr (SHARED) return *p;
+  else return __ldg(p);
+}
+template <bool SHARED>
+__device__ __forceinline__ float ld1(const float4* p) {
+  if constexpr (SHARED) return p->x;
+  else return __ldg(reinterpret_cast<const float*>(p));
+}
 
 __device__ __forceinline__ float safe_inv(float c) {
   const float tiny = c < 0.0f ? -1e-20f : 1e-20f;
@@ -323,81 +395,173 @@ __device__ __forceinline__ int sweep_hit(const Params& p,
   return best;
 }
 
-// Accel mode: the stackless walk of the sphere tree over the widened leaf
-// rows in device memory (mega_kernel.py:384-500).  Same returns.
+// The lowest active lane tallies one warp step of `active` lanes.
+__device__ __forceinline__ void warp_step(unsigned long long& steps,
+                                          unsigned long long& active) {
+  const unsigned m = __activemask();
+  if ((int)(threadIdx.x & 31) == __ffs(m) - 1) {
+    ++steps;
+    active += __popc(m);
+  }
+}
+
+// Slab test of a node (a: lo.xyz, escape | b: hi.xyz, meta) from
+// [t_min, best_t].
+__device__ __forceinline__ bool slab_hit(const float4& a, const float4& b,
+                                         const float o[3], float ix, float iy,
+                                         float iz, float t_min, float best_t) {
+  float tn = t_min, tf = best_t;
+  {
+    const float u = (a.x - o[0]) * ix, v = (b.x - o[0]) * ix;
+    tn = fmaxf(tn, fminf(u, v));
+    tf = fminf(tf, fmaxf(u, v));
+  }
+  {
+    const float u = (a.y - o[1]) * iy, v = (b.y - o[1]) * iy;
+    tn = fmaxf(tn, fminf(u, v));
+    tf = fminf(tf, fmaxf(u, v));
+  }
+  {
+    const float u = (a.z - o[2]) * iz, v = (b.z - o[2]) * iz;
+    tn = fmaxf(tn, fminf(u, v));
+    tf = fminf(tf, fmaxf(u, v));
+  }
+  return tn < tf;
+}
+
+// A leaf's spheres (meta = first * 64 + count) in leaf order, the strict
+// `t < best_t` rule keeping the earlier row on a tie.
+template <bool SHARED>
+__device__ __forceinline__ void leaf_test(const Params& p,
+                                          const float4* __restrict__ geo,
+                                          int meta, const float o[3],
+                                          const float d[3], float tm,
+                                          float a_len, float inv_a,
+                                          float& best_t, int& best,
+                                          Tally& tl) {
+  const int count = min(meta % META_SCALE, p.leaf_size);
+  const int first = meta / META_SCALE;
+  if constexpr (COUNT) tl.spheres += count;
+  for (int k = 0; k < count; ++k) {
+    if constexpr (COUNT) warp_step(tl.leaf_steps, tl.leaf_active);
+    const int row = min(first + k, p.n_spheres - 1);
+    const float4* s = geo + SPHERE_F4 * row;
+    const float4 g0 = ld4<SHARED>(s), g1 = ld4<SHARED>(s + 1);
+    const float frac = (tm - g1.w) * ld1<SHARED>(s + 2);
+    const float ocx = o[0] - (g0.x + frac * g1.x);
+    const float ocy = o[1] - (g0.y + frac * g1.y);
+    const float ocz = o[2] - (g0.z + frac * g1.z);
+    const float rad = g0.w;
+    const float half_b = ocx * d[0] + ocy * d[1] + ocz * d[2];
+    const float c = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
+    const float disc = half_b * half_b - a_len * c;
+    if (!(disc > 0.0f)) continue;
+    const float sq = sqrtf(disc);
+    const float root1 = (-half_b - sq) * inv_a;
+    const float t = (root1 > p.t_min && root1 < best_t)
+                        ? root1 : (-half_b + sq) * inv_a;
+    if (t > p.t_min && t < best_t) {
+      best_t = t;
+      best = row;
+    }
+  }
+}
+
+// Accel mode: the stackless walk of the sphere tree over the compact tables
+// (mega_kernel.py:384-500 there), with leaves postponed warp-wide.  Returns
+// the winner's leaf-order row (-1 on a miss), its t in best_t and its normal.
+template <int WALK>
 __device__ __forceinline__ int accel_hit(const Params& p,
-                                         const float* __restrict__ rows,
+                                         const float4* __restrict__ tab,
                                          const float o[3], const float d[3],
                                          float tm, float a_len, float& best_t,
-                                         float bn[3]) {
+                                         float bn[3], Tally& tl,
+                                         int ground_node) {
+  constexpr bool SH = WALK == ACCEL_SHARED;
+  const float4* nodes = tab;
+  const float4* geo = tab + NODE_F4 * p.n_nodes;
   const float ix = safe_inv(d[0]), iy = safe_inv(d[1]), iz = safe_inv(d[2]);
   const float inv_a = 1.0f / (a_len > 0.0f ? a_len : 1.0f);
   int best = -1;
   int j = 0;
-  while (j < p.n_nodes) {
-    const float* nd = p.nodes + 8 * (size_t)j;
-    float tn = p.t_min, tf = best_t;
-    {
-      const float a = (ldg(nd + 0) - o[0]) * ix, b = (ldg(nd + 3) - o[0]) * ix;
-      tn = fmaxf(tn, fminf(a, b));
-      tf = fminf(tf, fmaxf(a, b));
-    }
-    {
-      const float a = (ldg(nd + 1) - o[1]) * iy, b = (ldg(nd + 4) - o[1]) * iy;
-      tn = fmaxf(tn, fminf(a, b));
-      tf = fminf(tf, fmaxf(a, b));
-    }
-    {
-      const float a = (ldg(nd + 2) - o[2]) * iz, b = (ldg(nd + 5) - o[2]) * iz;
-      tn = fmaxf(tn, fminf(a, b));
-      tf = fminf(tf, fmaxf(a, b));
-    }
-    if (!(tn < tf)) {
-      j = (int)ldg(nd + 6);
-      continue;
-    }
-    const int meta = (int)ldg(nd + 7);
-    const int count = min(meta % META_SCALE, p.leaf_size);
-    const int first = meta / META_SCALE;
-    for (int k = 0; k < count; ++k) {
-      const int row = min(first + k, p.n_spheres - 1);
-      const float* r = rows + (size_t)row * ROW_W;
-      const float frac = (tm - ldg(r + 6)) * ldg(r + 7);
-      const float ocx = o[0] - (ldg(r + 0) + frac * ldg(r + 3));
-      const float ocy = o[1] - (ldg(r + 1) + frac * ldg(r + 4));
-      const float ocz = o[2] - (ldg(r + 2) + frac * ldg(r + 5));
-      const float rad = ldg(r + 8);
-      const float half_b = ocx * d[0] + ocy * d[1] + ocz * d[2];
-      const float c = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
-      const float disc = half_b * half_b - a_len * c;
-      if (!(disc > 0.0f)) continue;
-      const float sq = sqrtf(disc);
-      const float root1 = (-half_b - sq) * inv_a;
-      const float t = (root1 > p.t_min && root1 < best_t)
-                          ? root1 : (-half_b + sq) * inv_a;
-      if (t > p.t_min && t < best_t) {
-        best_t = t;
-        best = row;
+  // The lanes that entered the walk together; each goes round the outer loop
+  // until none of them holds a leaf, so all of them meet at every __any_sync.
+  const unsigned warp = __activemask();
+  while (true) {
+    int leaf = -1, meta = 0;
+    while (j < p.n_nodes) {
+      if constexpr (COUNT) {
+        ++tl.slabs;
+        warp_step(tl.slab_steps, tl.slab_active);
       }
+      const float4 a = ld4<SH>(nodes + NODE_F4 * j);
+      const float4 b = ld4<SH>(nodes + NODE_F4 * j + 1);
+      if (!slab_hit(a, b, o, ix, iy, iz, p.t_min, best_t)) {
+        j = (int)a.w;
+        continue;
+      }
+      const int m = (int)b.w;
+      if (m % META_SCALE) {
+        leaf = j++;
+        meta = m;
+        break;
+      }
+      ++j;
     }
-    ++j;
+    if (!__any_sync(warp, leaf >= 0)) break;
+    if (leaf >= 0) {
+      if constexpr (COUNT) {
+        if (leaf == ground_node) tl.ground += min(meta % META_SCALE,
+                                                  p.leaf_size);
+      }
+      leaf_test<SH>(p, geo, meta, o, d, tm, a_len, inv_a, best_t, best, tl);
+    }
   }
   if (best >= 0) {
     // The winner's outward normal, K3's formula (mega_kernel.py:462-465).
-    const float* r = rows + (size_t)best * ROW_W;
-    const float frac = (tm - ldg(r + 6)) * ldg(r + 7);
-    const float rad = ldg(r + 8);
-    const float inv_r = 1.0f / (rad != 0.0f ? rad : 1.0f);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const float ck = ldg(r + k) + frac * ldg(r + 3 + k);
-      bn[k] = (o[k] + best_t * d[k] - ck) * inv_r;
-    }
+    const float4* s = geo + SPHERE_F4 * best;
+    const float4 g0 = ld4<SH>(s), g1 = ld4<SH>(s + 1);
+    const float frac = (tm - g1.w) * ld1<SH>(s + 2);
+    const float inv_r = 1.0f / (g0.w != 0.0f ? g0.w : 1.0f);
+    bn[0] = (o[0] + best_t * d[0] - (g0.x + frac * g1.x)) * inv_r;
+    bn[1] = (o[1] + best_t * d[1] - (g0.y + frac * g1.y)) * inv_r;
+    bn[2] = (o[2] + best_t * d[2] - (g0.z + frac * g1.z)) * inv_r;
   }
   return best;
 }
 
+// The winner's material columns: in the sweep, reads of the shared-memory
+// row; in accel mode its columns 16-27 of the widened rows, read from
+// device memory once as 3 float4.  Indexed by compile-time column numbers.
 template <bool ACCEL>
+struct Mat {
+  const float* r;
+  __device__ __forceinline__ Mat(const float* rows, int best)
+      : r(rows + (size_t)best * ROW_W) {}
+  __device__ __forceinline__ float operator[](int c) const { return r[c]; }
+};
+template <>
+struct Mat<true> {
+  float4 q[3];
+  __device__ __forceinline__ Mat(const float* rows, int best) {
+    const float4* r =
+        reinterpret_cast<const float4*>(rows + (size_t)best * ROW_W + C_MKIND);
+    q[0] = __ldg(r);
+    q[1] = __ldg(r + 1);
+    q[2] = __ldg(r + 2);
+  }
+  __device__ __forceinline__ float operator[](int c) const {
+    const float4& v = q[(c - C_MKIND) >> 2];
+    switch (c & 3) {
+      case 0: return v.x;
+      case 1: return v.y;
+      case 2: return v.z;
+      default: return v.w;
+    }
+  }
+};
+
+template <int WALK>
 __global__ void mega_forward_kernel(const float* __restrict__ rows_g,
                                     const uint32_t* __restrict__ pixel_ids,
                                     const uint32_t* __restrict__ sample_ids0,
@@ -406,10 +570,22 @@ __global__ void mega_forward_kernel(const float* __restrict__ rows_g,
                                     float* __restrict__ out_y,
                                     float* __restrict__ out_z,
                                     int* __restrict__ out_seg,
-                                    const Record rec) {
-  const float* rows;  // sweep: the shared-memory table; accel: rows_g
+                                    const Record rec, const Tallies tly) {
+  constexpr bool ACCEL = WALK != SWEEP;
+  // sweep: the shared-memory table; accel: rows_g (the material columns)
+  const float* rows;
+  const float4* tab = nullptr;  // accel: the compact tables
   if constexpr (ACCEL) {
     rows = rows_g;
+    if constexpr (WALK == ACCEL_SHARED) {
+      extern __shared__ float4 tab_s[];
+      const int n4 = NODE_F4 * p.n_nodes + SPHERE_F4 * p.n_spheres;
+      for (int k = threadIdx.x; k < n4; k += blockDim.x) tab_s[k] = p.tab[k];
+      __syncthreads();
+      tab = tab_s;
+    } else {
+      tab = p.tab;
+    }
   } else {
     __shared__ float rows_s[MAX_ROWS * ROW_W];
     const int n_rows = p.n_spheres + p.n_rects;
@@ -419,6 +595,7 @@ __global__ void mega_forward_kernel(const float* __restrict__ rows_g,
     __syncthreads();
     rows = rows_s;
   }
+  Tally tl{};
 
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= p.n) return;
@@ -461,7 +638,8 @@ __global__ void mega_forward_kernel(const float* __restrict__ rows_g,
     float bn[3] = {0.0f, 0.0f, 0.0f};
     int best;
     if constexpr (ACCEL) {
-      best = accel_hit(p, rows, o, d, tm, a_len, best_t, bn);
+      best = accel_hit<WALK>(p, tab, o, d, tm, a_len, best_t, bn, tl,
+                             tly.ground_node);
     } else {
       best = sweep_hit(p, rows, o, d, tm, a_len, best_t, bn);
     }
@@ -474,7 +652,7 @@ __global__ void mega_forward_kernel(const float* __restrict__ rows_g,
       if constexpr (RECORD) ev = 3;
     } else {
       // ---- shade + scatter (shade.emit_and_scatter) ----------------------
-      const float* r = rows + (size_t)best * ROW_W;
+      const Mat<ACCEL> r(rows, best);
       const bool front = dot3(bn, d) < 0.0f;
       float n[3], hp[3];
 #pragma unroll
@@ -625,6 +803,15 @@ __global__ void mega_forward_kernel(const float* __restrict__ rows_g,
       rec.tprev[2 * plane + row] = 0.0f;
     }
   }
+  if constexpr (COUNT) {
+    const unsigned long long v[TALLIES] = {
+        tl.slabs, tl.spheres, tl.slab_steps, tl.slab_active, tl.leaf_steps,
+        tl.leaf_active, tl.ground};
+#pragma unroll
+    for (int k = 0; k < TALLIES; ++k) {
+      if (v[k]) atomicAdd(tly.out + k, v[k]);
+    }
+  }
 }
 
 __global__ void threefry_words_kernel(uint32_t seed, uint32_t key1,
@@ -646,20 +833,28 @@ __global__ void threefry_words_kernel(uint32_t seed, uint32_t key1,
 
 // Checks the launch arguments and fills the kernel's Params; returns
 // cudaSuccess or cudaErrorInvalidValue.  n_nodes > 0 selects accel mode:
-// `nodes` [n_nodes][8] and n_spheres widened leaf rows, no rect rows.
-cudaError_t make_params(int n_spheres, int n_rects, const float* nodes,
-                        int n_nodes, int leaf_size, const float* camc, int n,
-                        uint32_t seed, uint32_t limit, uint32_t stride,
-                        int width, int height, int max_depth, float t_min,
-                        int flags, int block, Params& p) {
+// `tab` the compact tables of n_nodes nodes and n_spheres leaf-order spheres,
+// n_spheres widened rows, no rect rows, and smem_bytes either 0 (the walk
+// reads device memory) or the tables' size (each block copies them into
+// shared memory).
+cudaError_t make_params(int n_spheres, int n_rects, const float* tab,
+                        int n_nodes, int leaf_size, int smem_bytes,
+                        const float* camc, int n, uint32_t seed,
+                        uint32_t limit, uint32_t stride, int width, int height,
+                        int max_depth, float t_min, int flags, int block,
+                        Params& p) {
   if (n_spheres < 0 || n_rects < 0 || n_nodes < 0 || n < 0 || width < 2 ||
       height < 2 || stride == 0 || block <= 0) {
     return cudaErrorInvalidValue;
   }
-  if (n_nodes > 0 ? (nodes == nullptr || n_rects != 0 || n_spheres < 1 ||
-                     leaf_size < 1 || leaf_size >= META_SCALE)
+  const long long tab_bytes =
+      16LL * (NODE_F4 * (long long)n_nodes + SPHERE_F4 * (long long)n_spheres);
+  if (n_nodes > 0 ? (tab == nullptr || n_rects != 0 || n_spheres < 1 ||
+                     leaf_size < 1 || leaf_size >= META_SCALE ||
+                     (smem_bytes != 0 && (smem_bytes != tab_bytes ||
+                                          smem_bytes > MAX_SMEM)))
                   : (n_spheres + n_rects > MAX_ROWS ||
-                     n_spheres + n_rects == 0)) {
+                     n_spheres + n_rects == 0 || smem_bytes != 0)) {
     return cudaErrorInvalidValue;
   }
   float* cam = reinterpret_cast<float*>(&p.cam);
@@ -677,46 +872,126 @@ cudaError_t make_params(int n_spheres, int n_rects, const float* nodes,
   p.n_rects = n_rects;
   p.max_depth = max_depth;
   p.flags = flags;
-  p.nodes = nodes;
+  p.tab = reinterpret_cast<const float4*>(tab);
   p.n_nodes = n_nodes;
   p.leaf_size = leaf_size;
+  p.smem_bytes = smem_bytes;
   return cudaSuccess;
 }
 
-// Launches the sweep or the accel instance of this build.
+template <int WALK>
+cudaError_t launch_walk(const float* rows, const uint32_t* pixel_ids,
+                        const uint32_t* sample_ids0, const Params& p,
+                        int block, float* out_x, float* out_y, float* out_z,
+                        int* out_seg, const Record& rec, const Tallies& tly,
+                        cudaStream_t s) {
+  const int smem = WALK == ACCEL_SHARED ? p.smem_bytes : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        mega_forward_kernel<WALK>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  mega_forward_kernel<WALK><<<(p.n + block - 1) / block, block, smem, s>>>(
+      rows, pixel_ids, sample_ids0, p, out_x, out_y, out_z, out_seg, rec, tly);
+  return cudaGetLastError();
+}
+
+// Launches this build's instance for `p`: the sweep, or the accel walk on
+// the tables in shared memory (smem_bytes > 0) or in device memory.
 cudaError_t launch(const float* rows, const uint32_t* pixel_ids,
                    const uint32_t* sample_ids0, const Params& p, int block,
                    float* out_x, float* out_y, float* out_z, int* out_seg,
-                   const Record& rec, void* stream) {
+                   const Record& rec, const Tallies& tly, void* stream) {
   if (p.n == 0) return cudaSuccess;
-  const int grid = (p.n + block - 1) / block;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p.n_nodes > 0) {
-    mega_forward_kernel<true><<<grid, block, 0, s>>>(
-        rows, pixel_ids, sample_ids0, p, out_x, out_y, out_z, out_seg, rec);
-  } else {
-    mega_forward_kernel<false><<<grid, block, 0, s>>>(
-        rows, pixel_ids, sample_ids0, p, out_x, out_y, out_z, out_seg, rec);
-  }
-  return cudaGetLastError();
+#define ART_LAUNCH(WALK)                                                    \
+  launch_walk<WALK>(rows, pixel_ids, sample_ids0, p, block, out_x, out_y,    \
+                    out_z, out_seg, rec, tly, s)
+#ifdef ART_COUNT
+  if (p.n_nodes == 0) return cudaErrorInvalidValue;
+#else
+  if (p.n_nodes == 0) return ART_LAUNCH(SWEEP);
+#endif
+  return p.smem_bytes ? ART_LAUNCH(ACCEL_SHARED) : ART_LAUNCH(ACCEL_GLOBAL);
+#undef ART_LAUNCH
 }
 
 }  // namespace
 
-// The launch arguments of both builds: the rows (sweep: n_spheres sphere
+// The launch arguments of every build: the rows (sweep: n_spheres sphere
 // rows then n_rects rect rows, at most 64; accel: n_spheres widened leaf
-// rows [N+pad][32] and n_rects 0), the sphere tree's nodes [n_nodes][8] and
-// leaf size (accel mode when n_nodes > 0; nodes may be null in sweep mode),
-// then the camera, the lanes and the render constants.  `camc` is a HOST
-// array of 24 floats (copied into the kernel's arguments); every other
-// pointer is device memory.
+// rows [N+pad][32] and n_rects 0), the accel walk's compact tables, node
+// count and leaf size (accel mode when n_nodes > 0; tab may be null in sweep
+// mode) and the shared-memory bytes of its tables (0: device memory), then
+// the camera, the lanes and the render constants.  `camc` is a HOST array of
+// 24 floats (copied into the kernel's arguments); every other pointer is
+// device memory.
 
-#ifndef ART_RECORD
+#if defined(ART_RECORD)
+// Launches the record instance (K2, or K3's in accel mode) on `stream`:
+// art_mega_forward's arguments plus the residual outputs codes
+// [record_iters][n] int32 and tprev [3][record_iters][n] f32 (device memory,
+// every element written) and the texture count (the dielectric sentinel
+// id).  Returns cudaGetLastError() (0 on success).
+extern "C" int art_mega_record(const float* rows, int n_spheres, int n_rects,
+                               const float* tab, int n_nodes, int leaf_size,
+                               int smem_bytes, const float* camc,
+                               const uint32_t* pixel_ids,
+                               const uint32_t* sample_ids0, int n,
+                               uint32_t seed, uint32_t limit, uint32_t stride,
+                               int width, int height, int max_depth,
+                               float t_min, int flags, int block,
+                               float* out_x, float* out_y, float* out_z,
+                               int* out_seg, int record_iters, int n_textures,
+                               int* codes, float* tprev, void* stream) {
+  Params p;
+  const cudaError_t bad = make_params(
+      n_spheres, n_rects, tab, n_nodes, leaf_size, smem_bytes, camc, n, seed,
+      limit, stride, width, height, max_depth, t_min, flags, block, p);
+  if (bad != cudaSuccess) return (int)bad;
+  if (record_iters < 1 || codes == nullptr || tprev == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)launch(rows, pixel_ids, sample_ids0, p, block, out_x, out_y,
+                     out_z, out_seg,
+                     Record{codes, tprev, record_iters, n_textures},
+                     Tallies{nullptr, -1}, stream);
+}
+#elif defined(ART_COUNT)
+// Launches K3's counting instance on `stream`: art_mega_forward's arguments
+// (accel mode only) plus the node of the leaf tallied apart, and `tallies`,
+// TALLIES u64 totals in device memory that the launch adds to: slab tests, sphere
+// tests, slab warp steps, their active lanes, leaf warp steps, their active
+// lanes, sphere tests in the ground node's leaf.  Returns
+// cudaGetLastError() (0 on success).
+extern "C" int art_mega_count(const float* rows, int n_spheres, int n_rects,
+                              const float* tab, int n_nodes, int leaf_size,
+                              int smem_bytes, const float* camc,
+                              const uint32_t* pixel_ids,
+                              const uint32_t* sample_ids0, int n,
+                              uint32_t seed, uint32_t limit, uint32_t stride,
+                              int width, int height, int max_depth,
+                              float t_min, int flags, int block, float* out_x,
+                              float* out_y, float* out_z, int* out_seg,
+                              int ground_node, unsigned long long* tallies,
+                              void* stream) {
+  Params p;
+  const cudaError_t bad = make_params(
+      n_spheres, n_rects, tab, n_nodes, leaf_size, smem_bytes, camc, n, seed,
+      limit, stride, width, height, max_depth, t_min, flags, block, p);
+  if (bad != cudaSuccess) return (int)bad;
+  if (tallies == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)launch(rows, pixel_ids, sample_ids0, p, block, out_x, out_y,
+                     out_z, out_seg, Record{}, Tallies{tallies, ground_node},
+                     stream);
+}
+#else
 // Launches the forward instance (K1, or K3's in accel mode) on `stream`.
 // Returns cudaGetLastError() (0 on success).
 extern "C" int art_mega_forward(const float* rows, int n_spheres, int n_rects,
-                                const float* nodes, int n_nodes,
-                                int leaf_size, const float* camc,
+                                const float* tab, int n_nodes, int leaf_size,
+                                int smem_bytes, const float* camc,
                                 const uint32_t* pixel_ids,
                                 const uint32_t* sample_ids0, int n,
                                 uint32_t seed, uint32_t limit, uint32_t stride,
@@ -725,13 +1000,12 @@ extern "C" int art_mega_forward(const float* rows, int n_spheres, int n_rects,
                                 float* out_x, float* out_y, float* out_z,
                                 int* out_seg, void* stream) {
   Params p;
-  const cudaError_t bad = make_params(n_spheres, n_rects, nodes, n_nodes,
-                                      leaf_size, camc, n, seed, limit, stride,
-                                      width, height, max_depth, t_min, flags,
-                                      block, p);
+  const cudaError_t bad = make_params(
+      n_spheres, n_rects, tab, n_nodes, leaf_size, smem_bytes, camc, n, seed,
+      limit, stride, width, height, max_depth, t_min, flags, block, p);
   if (bad != cudaSuccess) return (int)bad;
   return (int)launch(rows, pixel_ids, sample_ids0, p, block, out_x, out_y,
-                     out_z, out_seg, Record{}, stream);
+                     out_z, out_seg, Record{}, Tallies{nullptr, -1}, stream);
 }
 
 // threefry-2x32 (13 rounds) words and their uniforms for key (seed, key1) and
@@ -748,34 +1022,5 @@ extern "C" int art_threefry_words(uint32_t seed, uint32_t key1,
                           static_cast<cudaStream_t>(stream)>>>(
       seed, key1, pixel, sample, n, w0, w1, u0, u1);
   return (int)cudaGetLastError();
-}
-#else
-// Launches the record instance (K2, or K3's in accel mode) on `stream`:
-// art_mega_forward's arguments plus the residual outputs codes
-// [record_iters][n] int32 and tprev [3][record_iters][n] f32 (device memory,
-// every element written) and the texture count (the dielectric sentinel
-// id).  Returns cudaGetLastError() (0 on success).
-extern "C" int art_mega_record(const float* rows, int n_spheres, int n_rects,
-                               const float* nodes, int n_nodes, int leaf_size,
-                               const float* camc, const uint32_t* pixel_ids,
-                               const uint32_t* sample_ids0, int n,
-                               uint32_t seed, uint32_t limit, uint32_t stride,
-                               int width, int height, int max_depth,
-                               float t_min, int flags, int block,
-                               float* out_x, float* out_y, float* out_z,
-                               int* out_seg, int record_iters, int n_textures,
-                               int* codes, float* tprev, void* stream) {
-  Params p;
-  const cudaError_t bad = make_params(n_spheres, n_rects, nodes, n_nodes,
-                                      leaf_size, camc, n, seed, limit, stride,
-                                      width, height, max_depth, t_min, flags,
-                                      block, p);
-  if (bad != cudaSuccess) return (int)bad;
-  if (record_iters < 1 || codes == nullptr || tprev == nullptr) {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)launch(rows, pixel_ids, sample_ids0, p, block, out_x, out_y,
-                     out_z, out_seg,
-                     Record{codes, tprev, record_iters, n_textures}, stream);
 }
 #endif

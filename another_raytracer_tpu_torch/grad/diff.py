@@ -128,7 +128,7 @@ def make_train_step(scene, cam, target, *, width, height, spp,
     return state, step
 
 
-def params_from_reference(params, device="cpu"):
+def params_from_reference(params, device="cuda"):
     """A JAX-package params dict (arrays readable by ``np.asarray``) -> the
     port's leaf tensors."""
     return {k: torch.from_numpy(np.array(np.asarray(v), np.float32)).to(device)
@@ -136,7 +136,7 @@ def params_from_reference(params, device="cpu"):
 
 
 def train_state_from_reference(params, opt_state, learning_rate,
-                               device="cpu") -> TrainState:
+                               device="cuda") -> TrainState:
     """Carry a JAX-package TrainState across: ``params`` its params dict and
     ``opt_state`` optax adam's state (``(ScaleByAdamState(count, mu, nu),
     EmptyState())``), read as numpy arrays.  optax's count, mu and nu become

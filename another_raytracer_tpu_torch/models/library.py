@@ -51,13 +51,12 @@ def _cam(lookfrom, lookat, vfov, aperture=0.0):
     )
 
 
-def random_scene(seed: int = 1234, device="cuda", **build_kw):
-    """~500 random spheres over a checkered ground (scene_manager.cpp:13-64).
-    Diffuse spheres are added twice: once static, once as a motion-blurred
-    duplicate rising by rand(0,0.5) — both are in the reference list.  The
-    sphere tree uses leaf size 32, as in the JAX package (its leaf choice,
-    library.py:80-84 there; set again by H100 measurement later, M21)."""
-    b = SceneBuilder(background=SKY, seed=seed)
+def add_random_spheres(b: SceneBuilder) -> int:
+    """Adds scene 1's spheres (scene_manager.cpp:13-64) to ``b``, drawing
+    from its generator, and returns how many it added.  Diffuse spheres are
+    added twice: once static, once as a motion-blurred duplicate rising by
+    rand(0,0.5) — both are in the reference list."""
+    n = b.n_spheres
     ground = b.lambertian(texture=b.checker_texture((0.2, 0.3, 0.1), (0.9, 0.9, 0.9)))
     b.sphere((0, -1000, 0), 1000, ground)
 
@@ -83,6 +82,16 @@ def random_scene(seed: int = 1234, device="cuda", **build_kw):
     b.sphere((0, 1, 0), 1.0, b.dielectric(1.5))
     b.sphere((-4, 1, 0), 1.0, b.lambertian(color=(0.4, 0.2, 0.1)))
     b.sphere((4, 1, 0), 1.0, b.metal((0.7, 0.6, 0.5), 0.0))
+    return b.n_spheres - n
+
+
+def random_scene(seed: int = 1234, device="cuda", **build_kw):
+    """~500 random spheres over a checkered ground (``add_random_spheres``).
+    The sphere tree uses leaf size 32, as in the JAX package (its leaf
+    choice, library.py:80-84 there; set again by H100 measurement later,
+    M21)."""
+    b = SceneBuilder(background=SKY, seed=seed)
+    add_random_spheres(b)
     build_kw = {"bvh_leaf_size": 32, **build_kw}
     return (b.build(device=device, **build_kw),
             _cam((13, 2, 3), (0, 0, 0), 20.0, aperture=0.1))

@@ -196,7 +196,7 @@ class SceneData:
         return dataclasses.replace(self, **fields)
 
 
-def scene_from_reference(obj, device="cpu") -> SceneData:
+def scene_from_reference(obj, device="cuda") -> SceneData:
     """Carry a JAX-package SceneData across: ``np.asarray`` on every leaf the
     port keeps, static fields copied.  Reads attributes only; imports no JAX."""
     kw = {}
@@ -283,6 +283,11 @@ class SceneBuilder:
         self._textures = []  # (kind, ca, cb, cc, scale, aux)
         self._images: list[_Image] = []
         self._perlins = []  # (ranvec [256,3], perm [3,256])
+
+    @property
+    def n_spheres(self) -> int:
+        """Spheres added so far, moving ones included."""
+        return len(self._spheres)
 
     # --- transforms -------------------------------------------------------
 

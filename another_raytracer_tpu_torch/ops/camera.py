@@ -94,7 +94,7 @@ def make_camera(
     )
 
 
-def camera_from_reference(cam, device="cpu") -> Camera:
+def camera_from_reference(cam, device="cuda") -> Camera:
     """Carry a JAX-package Camera across (``np.asarray`` on each leaf, static
     gates copied).  Reads attributes only; imports no JAX."""
     kw = {k: torch.from_numpy(np.array(np.asarray(getattr(cam, k)))).to(device)

@@ -25,13 +25,16 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # target -> (source in csrc/, extra nvcc flags).  The megakernel source is
-# built twice: its forward instance (K1) as is, and its record instance (K2)
-# without FMA contraction (csrc/mega_kernel.cu says why).  The BVH (K5) and
-# Perlin (K4) kernels contract no FMA either, so they equal their plain
-# versions bit for bit.
+# built three times: its forward instances (K1, K3) as is, its record
+# instances (K2, K3's) without FMA contraction (csrc/mega_kernel.cu says
+# why), and K3's counting instance with the record build's arithmetic (a
+# measurement; the port's paths never launch it).  The BVH (K5) and Perlin
+# (K4) kernels contract no FMA either, so they equal their plain versions
+# bit for bit.
 TARGETS = {
     "mega_kernel": ("mega_kernel.cu", ()),
     "mega_kernel_record": ("mega_kernel.cu", ("-DART_RECORD", "-fmad=false")),
+    "mega_kernel_count": ("mega_kernel.cu", ("-DART_COUNT", "-fmad=false")),
     "mega_replay": ("mega_replay.cu", ()),
     "bvh_kernel": ("bvh_kernel.cu", ("-fmad=false",)),
     "perlin_kernel": ("perlin_kernel.cu", ("-fmad=false",)),

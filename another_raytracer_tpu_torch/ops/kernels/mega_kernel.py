@@ -28,6 +28,10 @@ spent.  The closest hit is, per mode:
   0; here they do not walk at all, which tests nothing either), the slab
   starts at ``[t_min, best_t]``, and the hit normal is
   ``(o + t d - c) / r`` with ``1/r`` taken as ``1/where(r != 0, r, 1)``.
+  The CUDA walk reads the compact tables of ``pack_accel_tables`` from
+  shared memory where they fit a block (``accel_walk``), else from device
+  memory, and postpones leaves warp-wide (csrc/mega_kernel.cu); each lane's
+  visits, and so its result, are those of the per-lane walk.
 
 * ``trace_regenerative_mega`` is the wrapper: on CUDA tensors it launches the
   hand-written kernel ``csrc/mega_kernel.cu`` (built at first use, see
@@ -53,6 +57,9 @@ spent.  The closest hit is, per mode:
   replay ignores idle rows, and so do the comparisons.
 * ``MEGA_FORWARD`` and ``enabled`` decide whether a forward render takes
   the megakernel (``ops/render.py``).
+* ``walk_tallies`` launches K3's counting instance (CUDA only, a
+  measurement): the walk's slab and sphere tests, which equal the plain
+  version's ``work`` totals, and the active-lane share of its warp steps.
 
 Geometry is pre-baked into world space per primitive row (``pack_rows``):
 spheres as (c0, c1-c0, t0, 1/dt, r), rects as world parallelograms
@@ -84,7 +91,9 @@ _C_CA, _C_CB = 20, 23
 _C_TID = 26  # texture id (exact in f32)
 # Rows the kernel keeps in shared memory (64 x 32 f32 = 8 KB).
 MAX_ROWS = 64
-# Threads per CUDA block (one thread per lane).
+# Threads per CUDA block (one thread per lane).  Measured for the accel
+# instances too (chip_smoke.py times K3 at 64-512, PERF.md): 128 beat 64,
+# 256, 384 and 512 on the scene-1 README render and at the bench size.
 DEFAULT_BLOCK = 128
 
 # Bits of the kernel's ``flags`` argument (csrc/mega_kernel.cu, enum Flags).
@@ -114,9 +123,14 @@ def supports(scene, cam) -> bool:
 
 
 # Leaf rows of the accel mode's sphere tree (mega_kernel.py:107 there; the
-# TPU's VMEM budget, kept so both packages accept the same scenes: here the
-# rows stay in device memory, 8192 x 32 x 4 B = 1 MB).
+# TPU's VMEM budget, kept so both packages accept the same scenes: here at
+# most ~393 KB of compact tables, read from device memory above MAX_SMEM).
 ACCEL_MAX_ROWS = 8192
+# The accel walk's compact tables: a node is 2 float4, a sphere 3
+# (pack_accel_tables).
+NODE_BYTES, SPHERE_BYTES = 32, 48
+# Shared memory one block may take on the H100 after opting in (227 KB).
+MAX_SMEM = 232448
 
 
 def supports_accel(scene, cam) -> bool:
@@ -131,6 +145,22 @@ def supports_accel(scene, cam) -> bool:
         and scene.sph_bvh_rows.shape[0] <= ACCEL_MAX_ROWS
         and _shading_ok(scene)
     )
+
+
+def accel_smem_bytes(scene) -> int:
+    """Bytes of the accel walk's compact tables (``pack_accel_tables``)."""
+    return (scene.n_sph_bvh_nodes * NODE_BYTES
+            + scene.sph_bvh_rows.shape[0] * SPHERE_BYTES)
+
+
+def accel_walk(scene) -> str:
+    """Where K3's walk reads its tables: "shared" (each block copies them
+    into shared memory) where they fit ``MAX_SMEM``, else "global" (device
+    memory).  A choice by size; raises above ``ACCEL_MAX_ROWS``."""
+    if scene.sph_bvh_rows.shape[0] > ACCEL_MAX_ROWS:
+        raise ValueError(f"{scene.sph_bvh_rows.shape[0]} leaf rows: the "
+                         f"accel mode takes at most {ACCEL_MAX_ROWS}")
+    return "shared" if accel_smem_bytes(scene) <= MAX_SMEM else "global"
 
 
 # None = auto (``enabled``), True forces the megakernel (raises on a scene
@@ -247,6 +277,21 @@ def pack_accel_rows(scene):
                      dim=1).contiguous()
 
 
+def pack_accel_tables(scene):
+    """The accel walk's compact tables as one [2M + 3N, 4] f32 tensor (float4
+    rows, 16-byte aligned): per node of ``scene.sph_bvh_nodes`` (lo.xyz,
+    escape) | (hi.xyz, meta), then per leaf-order sphere row of
+    ``scene.sph_bvh_rows`` (c0.xyz, r) | (c1 - c0, t0) | (1/dt, 0, 0, 0).
+    The same values as the nodes and rows, regrouped."""
+    nodes = scene.sph_bvh_nodes.to(torch.float32)
+    rows = scene.sph_bvh_rows.to(torch.float32)
+    zero = torch.zeros_like(rows[:, :3])
+    node4 = torch.stack([nodes[:, [0, 1, 2, 6]], nodes[:, [3, 4, 5, 7]]], 1)
+    sph4 = torch.stack([rows[:, [0, 1, 2, 8]], rows[:, [3, 4, 5, 6]],
+                        torch.cat([rows[:, 7:8], zero], 1)], 1)
+    return torch.cat([node4.reshape(-1, 4), sph4.reshape(-1, 4)]).contiguous()
+
+
 def pack_camera(scene, cam):
     """The 24 camera constants (mega_kernel.py:794-799): origin,
     lower_left - origin, horizontal, vertical, u, v, (lens_radius, time0,
@@ -325,11 +370,15 @@ def trace_regenerative_mega(scene, cam, pixel_ids, sample_ids0, seed, *,
 # Launches of the CUDA kernel, incremented once per launch and nowhere else:
 # ``launches`` counts the sweep forward instance (K1), ``record_launches``
 # the sweep record instance (K2), ``accel_launches`` and
-# ``accel_record_launches`` the accel mode's two instances (K3).
+# ``accel_record_launches`` the accel mode's two instances (K3) on the
+# tables in shared memory, ``accel_global_launches`` and
+# ``accel_record_global_launches`` the same on the tables in device memory.
 trace_regenerative_mega.launches = 0
 trace_regenerative_mega.record_launches = 0
 trace_regenerative_mega.accel_launches = 0
 trace_regenerative_mega.accel_record_launches = 0
+trace_regenerative_mega.accel_global_launches = 0
+trace_regenerative_mega.accel_record_global_launches = 0
 
 
 def _check_record_iters(record_iters, *, sample_end, spp_cap, sample_stride,
@@ -352,18 +401,24 @@ def _u32_bits(x):
     return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32).contiguous()
 
 
-def _lib(record=False):
-    """The forward build (K1 and K3's forward instance, threefry check) or
-    the record build (K2 and K3's record instance)."""
+def _lib(build="forward"):
+    """The forward build (K1 and K3's forward instance, threefry check), the
+    record build (K2 and K3's record instance) or the counting build (K3's
+    counting instance)."""
     from another_raytracer_tpu_torch.ops.kernels import _build
 
     P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-    args = [P, I, I, P, I, I, P, P, P, I, U, U, U, I, I, I, F, I, I,
+    args = [P, I, I, P, I, I, I, P, P, P, I, U, U, U, I, I, I, F, I, I,
             P, P, P, P]
-    if record:
+    if build == "record":
         lib = _build.load("mega_kernel_record")
         lib.art_mega_record.argtypes = args + [I, I, P, P, P]
         lib.art_mega_record.restype = I
+        return lib
+    if build == "count":
+        lib = _build.load("mega_kernel_count")
+        lib.art_mega_count.argtypes = args + [I, P, P]
+        lib.art_mega_count.restype = I
         return lib
     lib = _build.load("mega_kernel")
     lib.art_mega_forward.argtypes = args + [P]
@@ -373,30 +428,51 @@ def _lib(record=False):
     return lib
 
 
+# The counting instance's totals, in the order csrc/mega_kernel.cu adds them.
+TALLIES = ("slab_tests", "sphere_tests", "slab_steps", "slab_active",
+           "leaf_steps", "leaf_active", "ground_tests")
+
+
+def _ground_node(scene) -> int:
+    """The leaf node holding the sphere of largest |radius| (the ground)."""
+    rows = scene.sph_bvh_rows
+    row = int(torch.argmax(rows[:, 8].abs()))
+    meta = scene.sph_bvh_nodes[:, 7].to(torch.int64)
+    first, count = meta // bvh_ops.META_SCALE, meta % bvh_ops.META_SCALE
+    leaf = ((count > 0) & (first <= row) & (row < first + count)).nonzero()
+    return int(leaf[0, 0])
+
+
 def prepare_launch(scene, cam, pixel_ids, sample_ids0, seed, *, width,
                    height, sample_stride, sample_end, spp_cap, max_depth,
-                   t_min, block=DEFAULT_BLOCK, record_iters=0):
+                   t_min, block=DEFAULT_BLOCK, record_iters=0, tally=False):
     """Everything one CUDA launch needs, built on the lanes' device: returns
     (run, output tensors).  ``run()`` is the bare launch (it returns the
     CUDA error code); the wrapper adds the checks, the launch count and the
-    segment sum."""
+    segment sum.  ``tally`` (accel mode only) selects the counting instance,
+    whose outputs end in the u64 totals of ``TALLIES`` (as int64)."""
     dev = pixel_ids.device
     if sample_stride < 1:
         raise ValueError("sample_stride must be >= 1")
     _check_record_iters(record_iters, sample_end=sample_end, spp_cap=spp_cap,
                         sample_stride=sample_stride, max_depth=max_depth)
-    lib = _lib(record=bool(record_iters))
     accel = scene.n_sph_bvh_nodes > 0
+    if tally and (record_iters or not accel):
+        raise ValueError("tally counts the accel mode's walk, without "
+                         "record_iters")
+    lib = _lib("count" if tally else "record" if record_iters else "forward")
     if accel:
-        # K3: the widened leaf rows (all of them, pad rows included) and
-        # the sphere tree's nodes.
+        # K3: the widened leaf rows (all of them, pad rows included: the
+        # material columns) and the walk's compact tables, copied into each
+        # block's shared memory where they fit.
         rows = pack_accel_rows(scene)
-        nodes = scene.sph_bvh_nodes.to(torch.float32).contiguous()
-        geometry = (rows, rows.shape[0], 0, nodes, scene.n_sph_bvh_nodes,
-                    scene.bvh_leaf_size)
+        tab = pack_accel_tables(scene)
+        smem = accel_smem_bytes(scene) if accel_walk(scene) == "shared" else 0
+        geometry = (rows, rows.shape[0], 0, tab, scene.n_sph_bvh_nodes,
+                    scene.bvh_leaf_size, smem)
     else:
         rows = pack_rows(scene)
-        geometry = (rows, scene.n_spheres, scene.n_rects, None, 0, 0)
+        geometry = (rows, scene.n_spheres, scene.n_rects, None, 0, 0, 0)
     camc = pack_camera(scene, cam)
     limit = min(int(sample_end), int(spp_cap), rng.MASK32)
     pix = _u32_bits(pixel_ids)
@@ -419,6 +495,11 @@ def prepare_launch(scene, cam, pixel_ids, sample_ids0, seed, *, width,
         entry = lib.art_mega_record
         args += (int(record_iters), scene.tex_kind.shape[0], codes, tprev)
         outputs = (out, seg, codes, tprev)
+    elif tally:
+        totals = torch.zeros(len(TALLIES), dtype=torch.int64, device=dev)
+        entry = lib.art_mega_count
+        args += (_ground_node(scene), totals)
+        outputs = (out, seg, totals)
     else:
         entry = lib.art_mega_forward
         outputs = (out, seg)
@@ -445,13 +526,50 @@ def _launch(scene, cam, pixel_ids, sample_ids0, seed, *, block, record_iters,
     out, seg = outputs[:2]
     total, segments = V3(*out), seg.sum(dtype=torch.int64)
     if pixel_ids.shape[0]:
-        counter = ("accel_" if scene.n_sph_bvh_nodes > 0 else "") + (
-            "record_launches" if record_iters else "launches")
+        counter = "record_launches" if record_iters else "launches"
+        if scene.n_sph_bvh_nodes > 0:
+            counter = (("accel_record_" if record_iters else "accel_")
+                       + ("global_" if accel_walk(scene) == "global" else "")
+                       + "launches")
         setattr(trace_regenerative_mega, counter,
                 getattr(trace_regenerative_mega, counter) + 1)
     if record_iters:
         return total, segments, outputs[2], V3(*outputs[3].unbind(0))
     return total, segments
+
+
+def walk_tallies(scene, cam, pixel_ids, sample_ids0, seed, *, width, height,
+                 sample_stride, sample_end, spp_cap, max_depth, t_min,
+                 block=DEFAULT_BLOCK):
+    """K3's counting instance on CUDA lanes (a measurement; the render paths
+    never launch it): the forward render with the record build's arithmetic,
+    so its paths, radiance and walk are the plain version's.  Returns
+    (radiance V3, segments, {tally: int}) with the ``TALLIES`` and the
+    active-lane shares ``slab_simt`` and ``leaf_simt`` (active lanes / (32 x
+    warp steps)) and ``ground_share`` (the ground leaf's share of the sphere
+    tests)."""
+    if pixel_ids.device.type != "cuda":
+        raise ValueError("walk_tallies needs CUDA tensors")
+    if not supports_accel(scene, cam):
+        raise ValueError("walk_tallies counts the accel mode's walk")
+    _check_lanes(pixel_ids, sample_ids0, scene)
+    run, (out, seg, totals) = prepare_launch(
+        scene, cam, pixel_ids, sample_ids0, seed, width=width, height=height,
+        sample_stride=sample_stride, sample_end=sample_end, spp_cap=spp_cap,
+        max_depth=max_depth, t_min=t_min, block=block, tally=True)
+    with torch.cuda.device(pixel_ids.device):
+        err = run()
+    if err != 0:
+        raise RuntimeError(f"mega_kernel count launch failed: CUDA error {err}")
+    walk_tallies.launches += 1
+    t = dict(zip(TALLIES, totals.tolist()))
+    t.update(slab_simt=t["slab_active"] / max(32 * t["slab_steps"], 1),
+             leaf_simt=t["leaf_active"] / max(32 * t["leaf_steps"], 1),
+             ground_share=t["ground_tests"] / max(t["sphere_tests"], 1))
+    return V3(*out), seg.sum(dtype=torch.int64), t
+
+
+walk_tallies.launches = 0
 
 
 def threefry_words_cuda(seed: int, key1: int, pixel, sample):
@@ -496,7 +614,7 @@ def trace_regenerative_mega_reference(scene, cam, pixel_ids, sample_ids0, seed,
     lane's own ``it``-th iteration (the record row).  Same return contract
     as the wrapper; with ``work`` (accel mode) the result also ends in the
     walk's totals (slab tests, sphere tests), the work K3 does on these
-    inputs, which ``chip_smoke.py`` turns into its bound."""
+    inputs, which its counting instance (``walk_tallies``) must equal."""
     _check_lanes(pixel_ids, sample_ids0, scene)
     _check_record_iters(record_iters, sample_end=sample_end, spp_cap=spp_cap,
                         sample_stride=sample_stride, max_depth=max_depth)

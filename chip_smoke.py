@@ -25,17 +25,24 @@ holds every kernel against its plain PyTorch version:
   the render's time goes), the CLI on scenes 3, 4 and 5 (spp 16), and the
   two kernels' times beside their bounds;
 * the megakernel's accel mode (K3): its forward instance against its plain
-  version on scene 1 and an 81-sphere tree, its record instance and the
-  replay at scene 1's 485 textures against theirs at the bench size, the
-  scene-1 README render through the CLI in single and adaptive mode, fused
-  against lockstep gradients on scene 1 at the bench size, the two gate
+  version on scene 1 and an 81-sphere tree, its record instance bit-equal
+  to its plain version at the bench size through both walks (scene 1's
+  tables in shared memory, a 6,000-sphere tree's in device memory), the
+  replay at scene 1's 485 textures against its plain version, the scene-1
+  README render through the CLI in single and adaptive mode, fused against
+  lockstep gradients on scene 1 at the bench size, the two gate
   measurements (the scene-1 render through K3 and through the wavefront +
-  K5; the fused and the lockstep step), and the times of K3's two
-  instances and the large-T replay beside their bounds.
+  K5; the fused and the lockstep step), K3 alone on the README render
+  (its plain version at the README width and spp 4), the counting
+  instance's walk totals (equal to the plain version's at the bench size;
+  at the README size the work of K3's bound) and the active-lane shares of
+  its walk, and the times of K3's two instances (at each block size of
+  ``K3_BLOCKS``) and the large-T replay beside their bounds.
 
 The wavefront phases run with ``mega_kernel.MEGA_FORWARD = False``, which
-sends scene 1 to the wavefront + K5 (its auto route is K3).  Every phase prints one line with its seconds, and any failure raises
-(non-zero exit).  The last three lines are the card's name and power limit
+sends scene 1 to the wavefront + K5 (its auto route is K3).  Every phase
+prints one line with its seconds, and any failure raises (non-zero exit).
+The last lines are the whole run's time, the card's name and power limit
 (nvidia-smi), a JSON object describing each kernel, and
 ``{"ok": true, "device": {...}}``.
 
@@ -66,6 +73,8 @@ CW, CH, CSPP = 180, 135, 4  # the wavefront comparison
 BW, BH, BSPP, BDEPTH = 360, 270, 16, 8  # bench.py (training)
 TW, TH, TSPP, TDEPTH = 180, 135, 8, 6  # scripts/train_demo.py, chip size
 TRAIN_STEPS = 24
+K3_PLAIN_SPP = 4  # K3's plain version at the README width
+K3_BLOCKS = (64, 128, 256, 384, 512)  # block sizes K3 is timed at
 K1_PR1_MS = 18.596  # K1 alone, README render (PERF.md, H100 80GB HBM3, 700 W)
 SRC = "another_raytracer_tpu_torch/csrc/"
 JAX_PALLAS = "another_raytracer_tpu/ops/pallas/"
@@ -87,7 +96,8 @@ OPS_K3_NORMAL = 9
 # (csrc/mega_replay.cu, csrc/perlin_kernel.cu).
 OPS_REPLAY_ROW, OPS_PERLIN = 15, 96
 
-_T_LAST = [time.perf_counter()]
+_T0 = time.perf_counter()
+_T_LAST = [_T0]
 
 
 def phase(name, line):
@@ -191,6 +201,27 @@ def bvh_sphere_scene(device):
     cam = dict(lookfrom=(0, 1.5, 3), lookat=(0, 0, -4), vfov=50.0,
                time0=0.0, time1=1.0)
     return b.build(device=device, sphere_bvh=True), cam
+
+
+def many_spheres_scene(device, n=6000):
+    """A tree too large for a block's shared memory, so K3 walks it from
+    device memory: scene 1's spheres (library.add_random_spheres, drawn
+    alike) plus spheres buried under its ground up to n in one tree (6,000:
+    301,536 B of compact tables).  Rays never reach the buried spheres
+    through the ground, so the image is scene 1's, but every downward ray
+    walks their subtree, which comes first in the tree."""
+    from another_raytracer_tpu_torch.models import library
+    from another_raytracer_tpu_torch.models.scene import SceneBuilder
+
+    b = SceneBuilder(background=library.SKY, seed=1234)
+    kept = library.add_random_spheres(b)
+    buried = b.lambertian(color=(0.5, 0.5, 0.5))
+    for i in range(n - kept):
+        b.sphere((0.5 * (i % 80) - 20, -1500.0 + 0.5 * (i // 6400),
+                  0.5 * ((i // 80) % 80) - 20), 0.2, buried)
+    cam = dict(lookfrom=(13, 2, 3), lookat=(0, 0, 0), vfov=20.0,
+               aperture=0.1, focus_dist=10.0, time0=0.0, time1=1.0)
+    return b.build(device=device, bvh_leaf_size=32), cam
 
 
 def compare(scene, cam_params, width, height, spp, depth, device, seed=3,
@@ -647,6 +678,8 @@ def reset_counts():
     mega_kernel.trace_regenerative_mega.record_launches = 0
     mega_kernel.trace_regenerative_mega.accel_launches = 0
     mega_kernel.trace_regenerative_mega.accel_record_launches = 0
+    mega_kernel.trace_regenerative_mega.accel_global_launches = 0
+    mega_kernel.trace_regenerative_mega.accel_record_global_launches = 0
     mega_diff.replay_backward.launches = 0
     bvh_kernel.bvh_closest_hit.launches = 0
     perlin_kernel.perlin_noise.launches = 0
@@ -661,6 +694,9 @@ def counts():
                 K2=mega_kernel.trace_regenerative_mega.record_launches,
                 K3=mega_kernel.trace_regenerative_mega.accel_launches,
                 K3_record=mega_kernel.trace_regenerative_mega.accel_record_launches,
+                K3_global=mega_kernel.trace_regenerative_mega.accel_global_launches,
+                K3_record_global=(mega_kernel.trace_regenerative_mega
+                                  .accel_record_global_launches),
                 replay=mega_diff.replay_backward.launches,
                 K5=bvh_kernel.bvh_closest_hit.launches,
                 K4=perlin_kernel.perlin_noise.launches)
@@ -772,18 +808,21 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln]
         phase("build", f"{path.name} in {secs:.1f} s: " + " | ".join(usage))
     phase("build", f"all targets in {time.perf_counter() - t0:.1f} s")
-    # The template instances: sweep (ILb0E: K1, K2) and accel (ILb1E: K3).
-    k1_regs, k1_spilled = kernel_usage(_build.build_log("mega_kernel"),
-                                       "mega_forward_kernelILb0E")
-    k2_regs, _ = kernel_usage(_build.build_log("mega_kernel_record"),
-                              "mega_forward_kernelILb0E")
-    k3_regs, k3_spilled = kernel_usage(_build.build_log("mega_kernel"),
-                                       "mega_forward_kernelILb1E")
-    k3r_regs, _ = kernel_usage(_build.build_log("mega_kernel_record"),
-                               "mega_forward_kernelILb1E")
-    if k1_spilled or k3_spilled:
+    # The template instances <walk>: the sweep (ILi0EE: K1, K2) and K3's
+    # walk on tables in shared (ILi1EE) or device memory (ILi2EE).
+    regs = {}
+    for build in ("mega_kernel", "mega_kernel_record"):
+        for walk, tag in (("sweep", 0), ("shared", 1), ("global", 2)):
+            regs[build, walk] = kernel_usage(
+                _build.build_log(build), f"mega_forward_kernelILi{tag}EE")
+    if any(regs["mega_kernel", w][1] for w in ("sweep", "shared", "global")):
         raise AssertionError("a forward instance of the megakernel spills "
                              "registers")
+    k1_regs, k2_regs = regs["mega_kernel", "sweep"][0], regs[
+        "mega_kernel_record", "sweep"][0]
+    k3_regs = {w: regs["mega_kernel", w][0] for w in ("shared", "global")}
+    k3r_regs = {w: regs["mega_kernel_record", w][0]
+                for w in ("shared", "global")}
     phase("build", f"megakernel registers: K1 {k1_regs}, K2 {k2_regs}, K3 "
           f"forward {k3_regs}, K3 record {k3r_regs}")
     for target in ("bvh_kernel", "perlin_kernel"):
@@ -1209,9 +1248,25 @@ def main() -> int:
 
     # Its record instance and the replay at scene 1's 485 textures (the
     # block-wide table) at the bench size.
+    # Bit-equal through both walks: scene 1's tables in shared memory, and
+    # a synthetic 6,000-sphere tree's in device memory.
+    reset_counts()
     st_k3r, got_k3r, bcam1 = compare_record(scene1, cam1, dev, what="K3 record")
-    phase("compare_k3_record", f"scene 1 {BW}x{BH} spp{BSPP} depth{BDEPTH}: "
-          f"{json.dumps(st_k3r)}")
+    phase("compare_k3_record", f"scene 1 {BW}x{BH} spp{BSPP} depth{BDEPTH} "
+          f"(shared-memory walk): {json.dumps(st_k3r)}")
+    many, many_cam = many_spheres_scene(dev)
+    st_k3rg, _, _ = compare_record(many, many_cam, dev,
+                                   what="K3 record (device-memory walk)")
+    walked = counts()
+    phase("compare_k3_record", f"{many.n_spheres} spheres "
+          f"({mega_kernel.accel_smem_bytes(many)} B of tables) {BW}x{BH} "
+          f"spp{BSPP} depth{BDEPTH} (device-memory walk): "
+          f"{json.dumps(st_k3rg)}; launches {json.dumps(walked)}")
+    if not (st_k3r["bit_equal"] and st_k3rg["bit_equal"]):
+        raise AssertionError("K3's record instance differs from its plain "
+                             "version")
+    if (walked["K3_record"], walked["K3_record_global"]) != (1, 1):
+        raise AssertionError(f"the record comparisons skipped a walk {walked}")
     rp485, (rp485_args, _) = compare_replay(scene1, got_k3r, dev)
     if not mega_diff.replay_instance(rp485["textures"])[0]:
         raise AssertionError("scene 1's replay did not take the block-wide table")
@@ -1275,38 +1330,52 @@ def main() -> int:
         raise AssertionError("scene 1's training path skipped K3 or the replay")
 
     # K3 alone at the README size (Morton-ordered lanes, as the render runs
-    # it), through its wrapper, and its plain version once (which also
-    # counts the walk's slab and sphere tests: the bound's work).
+    # it) and through its wrapper.
     cam = camera_lib.make_camera(aspect_ratio=W / H, device=dev, **cam1)
     order, _ = render_lib.morton_order(W, H)
     pix_m = torch.from_numpy(order.astype(np.int64)).to(dev)
     samp_m = torch.zeros_like(pix_m)
     kw = dict(width=W, height=H, sample_stride=1, sample_end=SPP, spp_cap=SPP,
               max_depth=DEPTH, t_min=1e-3)
-    run, (k3_out, k3_seg) = mega_kernel.prepare_launch(scene1, cam, pix_m,
-                                                       samp_m, 0, **kw)
+    run, (_, k3_seg) = mega_kernel.prepare_launch(scene1, cam, pix_m, samp_m,
+                                                  0, **kw)
     k3_ms, k3_runs = cuda_ms(bare(run), dev, 5)
+    # The block size: K3 alone at each candidate (DEFAULT_BLOCK's evidence).
+    k3_block_ms = {}
+    for blk in K3_BLOCKS:
+        run_b, _ = mega_kernel.prepare_launch(scene1, cam, pix_m, samp_m, 0,
+                                              block=blk, **kw)
+        k3_block_ms[blk] = cuda_ms(bare(run_b), dev, 3)[0]
     k3_wrap_ms, _ = cuda_ms(lambda: mega_kernel.trace_regenerative_mega(
         scene1, cam, pix_m, samp_m, 0, **kw), dev, 3)
     segs_k3 = int(k3_seg.sum())
+    # Its plain version at the README width and K3_PLAIN_SPP samples (at 100
+    # it takes minutes: one host step per node of the walk).  Over 388,800
+    # lanes a lane nearly always holds a path that FMA contraction flipped,
+    # so the per-lane bar (made for a few samples, compare_k3) does not
+    # apply: hold the segments and the image's mean radiance to 1%.
+    kw4 = dict(kw, sample_end=K3_PLAIN_SPP, spp_cap=K3_PLAIN_SPP)
+    got4, segs4 = mega_kernel.trace_regenerative_mega(scene1, cam, pix_m,
+                                                      samp_m, 0, **kw4)
     torch.cuda.synchronize(dev)
     t = time.perf_counter()
-    ref_k3 = mega_kernel.trace_regenerative_mega_reference(
-        scene1, cam, pix_m, samp_m, 0, work=True, **kw)
+    ref4, ref_segs4 = mega_kernel.trace_regenerative_mega_reference(
+        scene1, cam, pix_m, samp_m, 0, **kw4)
     torch.cuda.synchronize(dev)
     k3_plain_ms = (time.perf_counter() - t) * 1e3
-    # At 100 samples a lane nearly always holds a path that FMA contraction
-    # flipped, so the per-lane bar (made for a few samples, compare_k3)
-    # does not apply: hold the segments and the image's mean radiance.
-    got_mean = float(torch.stack(k3_out).mean())
-    plain_mean = float(torch.stack(tuple(ref_k3[0])).mean())
-    st_full = dict(segments_plain=int(ref_k3[1]),
-                   mean_radiance=got_mean, mean_radiance_plain=plain_mean)
-    if (abs(segs_k3 - int(ref_k3[1])) > 0.01 * int(ref_k3[1])
+    got_mean = float(torch.stack(tuple(got4)).mean())
+    plain_mean = float(torch.stack(tuple(ref4)).mean())
+    st_full = dict(spp=K3_PLAIN_SPP, segments=int(segs4),
+                   segments_plain=int(ref_segs4), mean_radiance=got_mean,
+                   mean_radiance_plain=plain_mean)
+    if (abs(int(segs4) - int(ref_segs4)) > 0.01 * int(ref_segs4)
             or abs(got_mean - plain_mean) > 0.01 * plain_mean):
-        raise AssertionError(f"K3 at the README size disagrees with its "
+        raise AssertionError(f"K3 at the README width disagrees with its "
                              f"plain version: {st_full}")
-    slabs3, tests3 = ref_k3[-1]
+    # The walk's work on this run's inputs, from the counting instance (its
+    # totals equal the plain version's: checked at the bench size below).
+    _, _, tal = mega_kernel.walk_tallies(scene1, cam, pix_m, samp_m, 0, **kw)
+    slabs3, tests3 = tal["slab_tests"], tal["sphere_tests"]
     nodes_bytes = scene1.sph_bvh_nodes.numel() * 4
     rows_bytes = scene1.sph_bvh_rows.shape[0] * mega_kernel.ROW_W * 4
     k3_bound_ms, k3_bound_by = bound(
@@ -1314,13 +1383,19 @@ def main() -> int:
         + tests3 * bvh_ops.OPS_PER_TEST["sphere", False]
         + segs_k3 * (OPS_SEGMENT + OPS_K3_NORMAL),
         W * H * 24 + rows_bytes + nodes_bytes)
+    simt = {m: round(tal[m], 4) for m in ("slab_simt", "leaf_simt",
+                                          "ground_share")}
     phase("timing_k3", f"scene 1 {W}x{H} spp{SPP} depth{DEPTH}: K3 alone "
-          f"{k3_ms:.3f} ms (runs {k3_runs}), {k3_regs} registers, no spills; "
-          f"through its wrapper {k3_wrap_ms:.3f} ms; {segs_k3} segments, "
-          f"{segs_k3 / k3_ms / 1e3:.1f} Mrays/s; plain {k3_plain_ms:.1f} ms "
-          f"({json.dumps(st_full)}); {slabs3} slab and {tests3} sphere tests "
-          f"({slabs3 / segs_k3:.1f} / {tests3 / segs_k3:.1f} per segment): "
-          f"bound {k3_bound_ms:.3f} ms by {k3_bound_by}")
+          f"{k3_ms:.3f} ms (runs {k3_runs}), block "
+          f"{mega_kernel.DEFAULT_BLOCK}, {k3_regs['shared']} registers, "
+          f"{mega_kernel.accel_smem_bytes(scene1)} B of shared memory, no "
+          f"spills; through its wrapper {k3_wrap_ms:.3f} ms; {segs_k3} "
+          f"segments, {segs_k3 / k3_ms / 1e3:.1f} Mrays/s; plain at spp"
+          f"{K3_PLAIN_SPP} {k3_plain_ms:.1f} ms ({json.dumps(st_full)}); "
+          f"{slabs3} slab and {tests3} sphere tests ({slabs3 / segs_k3:.1f} / "
+          f"{tests3 / segs_k3:.1f} per segment): bound {k3_bound_ms:.3f} ms by "
+          f"{k3_bound_by}; active-lane shares {json.dumps(simt)}; by block "
+          f"{json.dumps(k3_block_ms)} ms")
 
     # The forward gate: the scene-1 README render through K3 and through the
     # wavefront + K5 (section 13), both through the CLI.
@@ -1363,6 +1438,11 @@ def main() -> int:
                record_iters=BSPP * BDEPTH)
     run, _ = mega_kernel.prepare_launch(scene1, bcam1, pixb, sampb, 0, **rkw)
     k3r_ms, _ = cuda_ms(bare(run), dev, 5)
+    k3r_block_ms = {}
+    for blk in K3_BLOCKS:
+        run_b, _ = mega_kernel.prepare_launch(scene1, bcam1, pixb, sampb, 0,
+                                              block=blk, **rkw)
+        k3r_block_ms[blk] = cuda_ms(bare(run_b), dev, 3)[0]
     torch.cuda.synchronize(dev)
     t = time.perf_counter()
     ref_k3r = mega_kernel.trace_regenerative_mega_reference(
@@ -1370,6 +1450,22 @@ def main() -> int:
     torch.cuda.synchronize(dev)
     k3r_plain_ms = (time.perf_counter() - t) * 1e3
     slabs3r, tests3r = ref_k3r[-1]
+    # The counting instance on the same lanes walks exactly the plain
+    # version's nodes and rows.
+    fkw = {k: v for k, v in rkw.items() if k != "record_iters"}
+    rad_c, segs_c, tal_b = mega_kernel.walk_tallies(scene1, bcam1, pixb,
+                                                    sampb, 0, **fkw)
+    work_c = (tal_b["slab_tests"], tal_b["sphere_tests"])
+    if (work_c != (slabs3r, tests3r) or int(segs_c) != int(ref_k3r[1])
+            or not all(torch.equal(a, b) for a, b in zip(rad_c, ref_k3r[0]))):
+        raise AssertionError(f"the counting instance differs from the plain "
+                             f"version: {work_c} vs {(slabs3r, tests3r)}")
+    simt_b = {m: round(tal_b[m], 4) for m in ("slab_simt", "leaf_simt",
+                                              "ground_share")}
+    phase("compare_k3_count", f"scene 1 {BW}x{BH} spp{BSPP} depth{BDEPTH}: "
+          f"the counting instance's {slabs3r} slab and {tests3r} sphere tests, "
+          f"segments and radiance equal the plain version's; active-lane "
+          f"shares {json.dumps(simt_b)}")
     resid = BSPP * BDEPTH * BW * BH * 16
     k3r_bound_ms, k3r_bound_by = bound(
         slabs3r * bvh_ops.OPS_PER_SLAB
@@ -1383,8 +1479,9 @@ def main() -> int:
     rp485_bound_ms, rp485_bound_by = bound(
         BSPP * BDEPTH * BW * BH * OPS_REPLAY_ROW, resid + BW * BH * 12)
     phase("timing_k3", f"scene 1 {BW}x{BH} spp{BSPP} depth{BDEPTH}: K3 record "
-          f"alone {k3r_ms:.3f} ms vs plain {k3r_plain_ms:.1f} ms ({k3r_regs} "
-          f"registers), bound {k3r_bound_ms:.4f} ms by {k3r_bound_by}; replay "
+          f"alone {k3r_ms:.3f} ms vs plain {k3r_plain_ms:.1f} ms "
+          f"({k3r_regs['shared']} registers), bound {k3r_bound_ms:.4f} ms by "
+          f"{k3r_bound_by}; by block {json.dumps(k3r_block_ms)} ms; replay "
           f"at T = {rp485['textures']} alone {rp485_ms:.3f} ms vs plain "
           f"{rp485_plain_ms:.1f} ms, bound {rp485_bound_ms:.4f} ms by "
           f"{rp485_bound_by}")
@@ -1405,6 +1502,8 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()
+    phase("total", f"chip_smoke ran {time.perf_counter() - _T0:.1f} s, builds "
+          "included")
     print(smi[0])
     print(json.dumps({"kernels": [
         {"name": "mega_kernel forward instance (K1, forward sweep megakernel)",
@@ -1431,9 +1530,15 @@ def main() -> int:
          "replaces": JAX_PALLAS + "mega_kernel.py:882",
          "launches": k3_launches,
          "max_abs_err": k3_cmp["scene 1 (random)"]["max_abs_err"],
-         "ms": k3_ms, "plain_ms": k3_plain_ms,
+         "ms": k3_ms, "plain_ms": k3_plain_ms, "plain_spp": K3_PLAIN_SPP,
          "bound_ms": k3_bound_ms, "bound_by": k3_bound_by, "library_ms": None,
-         "wrapper_ms": k3_wrap_ms, "registers": k3_regs,
+         "wrapper_ms": k3_wrap_ms, "registers": k3_regs["shared"],
+         "registers_device_memory_walk": k3_regs["global"],
+         "block": mega_kernel.DEFAULT_BLOCK,
+         "smem_bytes": mega_kernel.accel_smem_bytes(scene1),
+         "block_ms": k3_block_ms,
+         "slab_simt": tal["slab_simt"], "leaf_simt": tal["leaf_simt"],
+         "ground_share": tal["ground_share"],
          "segments": segs_k3, "mrays_per_s": segs_k3 / k3_ms / 1e3},
         {"name": "mega_kernel accel record instance (K3, fused "
                  "differentiable primal on a sphere tree)",
@@ -1443,9 +1548,15 @@ def main() -> int:
          "max_abs_err": st_k3r["max_abs_err"],
          "ms": k3r_ms, "plain_ms": k3r_plain_ms,
          "bound_ms": k3r_bound_ms, "bound_by": k3r_bound_by,
-         "library_ms": None, "registers": k3r_regs,
+         "library_ms": None, "registers": k3r_regs["shared"],
+         "registers_device_memory_walk": k3r_regs["global"],
+         "block": mega_kernel.DEFAULT_BLOCK,
+         "smem_bytes": mega_kernel.accel_smem_bytes(scene1),
+         "block_ms": k3r_block_ms,
+         "slab_simt": tal_b["slab_simt"], "leaf_simt": tal_b["leaf_simt"],
          "lanes_codes_equal": st_k3r["lanes_codes_equal"],
-         "bit_equal": st_k3r["bit_equal"]},
+         "bit_equal": st_k3r["bit_equal"],
+         "bit_equal_device_memory_walk": st_k3rg["bit_equal"]},
         {"name": "mega_replay (replay backward of the fused path)",
          "route": "cuda", "source": SRC + "mega_replay.cu",
          "replaces": JAX_PALLAS + "mega_diff.py:266",
@@ -1483,8 +1594,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    t0 = time.perf_counter()
-    rc = main()
-    print(f"chip_smoke finished in {time.perf_counter() - t0:.1f} s",
-          file=sys.stderr)
-    sys.exit(rc)
+    sys.exit(main())

@@ -70,8 +70,8 @@ def _both(name, width=W, height=H):
     """(JAX scene, JAX camera), (port scene, port camera) for one scene."""
     ref, params = SCENES[name]()
     ref_cam = jcam.make_camera(aspect_ratio=width / height, **params)
-    return ((ref, ref_cam), (tscene.scene_from_reference(ref),
-                             tcam.camera_from_reference(ref_cam)))
+    return ((ref, ref_cam), (tscene.scene_from_reference(ref, device="cpu"),
+                             tcam.camera_from_reference(ref_cam, device="cpu")))
 
 
 def _kw(spp=SPP, depth=DEPTH, record_iters=0):
@@ -167,8 +167,8 @@ def test_supports_accel_matches_reference():
     verdicts = []
     for ref, params in cases:
         ref_cam = jcam.make_camera(aspect_ratio=1.0, **params)
-        port = tscene.scene_from_reference(ref)
-        cam = tcam.camera_from_reference(ref_cam)
+        port = tscene.scene_from_reference(ref, device="cpu")
+        cam = tcam.camera_from_reference(ref_cam, device="cpu")
         verdicts.append(tmk.supports_accel(port, cam))
         assert verdicts[-1] == jmk.supports_accel(ref, ref_cam)
         assert tmk.supports(port, cam) == jmk.supports(ref, ref_cam)

@@ -74,8 +74,8 @@ def _masks(monkeypatch, module):
 def test_adaptive_matches_jax(name, monkeypatch):
     ref, params = SCENES[name]()
     ref_cam = jcam.make_camera(aspect_ratio=W / H, **params)
-    port = tscene.scene_from_reference(ref)
-    cam = tcam.camera_from_reference(ref_cam)
+    port = tscene.scene_from_reference(ref, device="cpu")
+    cam = tcam.camera_from_reference(ref_cam, device="cpu")
     assert (tmk.supports_accel if name == "forty_spheres"
             else tmk.supports)(port, cam)
     cfg = dict(width=W, height=H, samples_per_pixel=SPP, max_depth=DEPTH,

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from another_raytracer_tpu_torch import cli
 from another_raytracer_tpu_torch.grad import diff
 from another_raytracer_tpu_torch.models import bvh as bvh_lib
@@ -286,48 +287,33 @@ def test_cli_renders_bvh_and_noise_scenes_through_the_kernels(dev, tmp_path):
 # --------------------------------------------------------------------------
 
 
-def _bvh_sphere_scene(device):
-    # tests/test_mega.py:74-95: 81 spheres in one tree, checker ground,
-    # lambertian / metal / dielectric, one moving sphere.
-    b = SceneBuilder(background=(0.7, 0.8, 1.0), seed=9)
-    b.sphere((0, -1000, 0), 1000, b.lambertian(
-        texture=b.checker_texture((0.2, 0.3, 0.1), (0.9, 0.9, 0.9))))
-    rnd = np.random.default_rng(4)
-    for i in range(80):
-        c = (rnd.uniform(-6, 6), 0.3, rnd.uniform(-8, -1))
-        k = i % 4
-        if k == 0:
-            m = b.lambertian(color=tuple(rnd.uniform(0.2, 0.9, 3)))
-        elif k == 1:
-            m = b.metal(tuple(rnd.uniform(0.5, 1.0, 3)), rnd.uniform(0, 0.4))
-        elif k == 2:
-            m = b.dielectric(1.5)
-        else:
-            m = b.lambertian(color=(0.8, 0.4, 0.2))
-        b.sphere(c, 0.3, m)
-    b.moving_sphere((0, 0.5, -3), (0, 0.8, -3), 0, 1, 0.3,
-                    b.lambertian(color=(0.9, 0.2, 0.2)))
-    cam = dict(lookfrom=(0, 1.5, 3), lookat=(0, 0, -4), vfov=50.0,
-               time0=0.0, time1=1.0)
-    return b.build(device=device, sphere_bvh=True), cam
-
-
 ACCEL_SCENES = {"random_scene": library.random_scene,
-                "bvh_sphere_scene": _bvh_sphere_scene}
+                "bvh_sphere_scene": chip_smoke.bvh_sphere_scene,
+                "many_spheres_scene": chip_smoke.many_spheres_scene}
+
+
+# Where each accel scene's walk reads its tables.
+WALKS = {"random_scene": "shared", "bvh_sphere_scene": "shared",
+         "many_spheres_scene": "global"}
 
 
 def _accel(name, dev, record_iters=0, spp=4, depth=50):
     scene, params = ACCEL_SCENES[name](device=dev)
     cam = camera.make_camera(aspect_ratio=W / H, device=dev, **params)
     assert mega_kernel.supports_accel(scene, cam)
+    assert mega_kernel.accel_walk(scene) == WALKS[name]
     pix = torch.arange(W * H, device=dev)
     samp = torch.zeros(W * H, dtype=torch.int64, device=dev)
     kw = dict(width=W, height=H, sample_stride=1, sample_end=spp, spp_cap=spp,
               max_depth=depth, t_min=1e-3, record_iters=record_iters)
-    attr = "accel_record_launches" if record_iters else "accel_launches"
-    before = getattr(mega_kernel.trace_regenerative_mega, attr)
+    attr = (("accel_record_" if record_iters else "accel_")
+            + ("global_" if WALKS[name] == "global" else "") + "launches")
+    counters = dict(vars(mega_kernel.trace_regenerative_mega))
     got = mega_kernel.trace_regenerative_mega(scene, cam, pix, samp, 3, **kw)
-    assert getattr(mega_kernel.trace_regenerative_mega, attr) == before + 1
+    # One launch, counted by its own instance's counter and no other.
+    after = dict(vars(mega_kernel.trace_regenerative_mega))
+    assert {k: after[k] - counters[k] for k in after
+            if after[k] != counters[k]} == {attr: 1}
     want = mega_kernel.trace_regenerative_mega_reference(scene, cam, pix, samp,
                                                          3, **kw)
     return scene, got, want
@@ -349,12 +335,37 @@ def test_accel_kernel_matches_plain(name, dev):
 def test_accel_record_kernel_matches_plain(name, dev):
     # Built without FMA contraction, K3's record instance equals its plain
     # version bit for bit, as K2 does.
-    _, got, want = _accel(name, dev, record_iters=4 * 8, depth=8)
+    scene, got, want = _accel(name, dev, record_iters=4 * 8, depth=8)
     assert int(got[1]) == int(want[1])
     assert torch.equal(got[2], want[2])
     for a, b in zip((*got[0], *got[3]), (*want[0], *want[3])):
         assert torch.equal(a, b)
-    assert bool(((got[2] & 3) == 1).any()) and bool(((got[2] >> 4) > 16).any())
+    assert bool(((got[2] & 3) == 1).any())
+    if scene.tex_kind.shape[0] > 16:
+        assert bool(((got[2] >> 4) > 16).any())
+
+
+@pytest.mark.parametrize("name", list(ACCEL_SCENES))
+def test_walk_tallies_equal_plain_work(name, dev):
+    # The counting instance (the record build's arithmetic) walks exactly
+    # the plain version's nodes and rows.
+    scene, params = ACCEL_SCENES[name](device=dev)
+    cam = camera.make_camera(aspect_ratio=W / H, device=dev, **params)
+    pix = torch.arange(W * H, device=dev)
+    samp = torch.zeros(W * H, dtype=torch.int64, device=dev)
+    kw = dict(width=W, height=H, sample_stride=1, sample_end=4, spp_cap=4,
+              max_depth=8, t_min=1e-3)
+    before = mega_kernel.walk_tallies.launches
+    rad, segs, t = mega_kernel.walk_tallies(scene, cam, pix, samp, 3, **kw)
+    assert mega_kernel.walk_tallies.launches == before + 1
+    want = mega_kernel.trace_regenerative_mega_reference(scene, cam, pix, samp,
+                                                         3, work=True, **kw)
+    assert (t["slab_tests"], t["sphere_tests"]) == tuple(want[-1])
+    assert int(segs) == int(want[1])
+    for a, b in zip(rad, want[0]):
+        assert torch.equal(a, b)
+    assert 0 < t["slab_simt"] <= 1 and 0 < t["leaf_simt"] <= 1
+    assert 0 < t["ground_tests"] <= t["sphere_tests"]
 
 
 def test_replay_kernel_large_t_matches_plain(dev):

@@ -103,8 +103,8 @@ def _both(name, width=W, height=H):
     """(JAX scene, JAX camera), (port scene, port camera)."""
     ref, params = SCENES[name]()
     ref_cam = jcam.make_camera(aspect_ratio=width / height, **params)
-    return ((ref, ref_cam), (tscene.scene_from_reference(ref),
-                             tcam.camera_from_reference(ref_cam)))
+    return ((ref, ref_cam), (tscene.scene_from_reference(ref, device="cpu"),
+                             tcam.camera_from_reference(ref_cam, device="cpu")))
 
 
 def _record_kw(spp=SPP, depth=DEPTH):
@@ -347,8 +347,8 @@ def test_gate_matches_jax(monkeypatch, fused_flag):
     verdicts = []
     for ref, params in cases:
         ref_cam = jcam.make_camera(aspect_ratio=1.0, **params)
-        port = tscene.scene_from_reference(ref)
-        cam = tcam.camera_from_reference(ref_cam)
+        port = tscene.scene_from_reference(ref, device="cpu")
+        cam = tcam.camera_from_reference(ref_cam, device="cpu")
         for spp, depth in [(SPP, DEPTH), (16, 8), (1000, 50), (32, 8)]:
             sd = tmd.supports_diff(port, cam, spp, 1, depth)
             assert sd == jmd.supports_diff(ref, ref_cam, spp, 1, depth)
@@ -422,14 +422,15 @@ def test_train_state_from_reference_matches_optax():
 
     ts = diff.train_state_from_reference(
         {k: np.asarray(v) for k, v in params.items()},
-        jax.tree.map(np.asarray, state), 5e-2)
+        jax.tree.map(np.asarray, state), 5e-2, device="cpu")
     for k, p in ts.params.items():
         p.grad = torch.from_numpy(grads[k])
     ts.opt_state.step()
     for k, p in ts.params.items():
         np.testing.assert_allclose(p.detach().numpy(), np.asarray(want[k]),
                                    rtol=1e-6, atol=1e-6, err_msg=k)
-    assert diff.params_from_reference(params)["tex_ca"].dtype == torch.float32
+    carried = diff.params_from_reference(params, device="cpu")
+    assert carried["tex_ca"].dtype == torch.float32
 
 
 def test_make_train_step_lowers_loss():

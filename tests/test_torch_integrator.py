@@ -66,8 +66,8 @@ SCENES = {"cornell": jlib.cornell_box, "checker": jlib.two_spheres,
 def _both(name):
     ref, params = SCENES[name]()
     ref_cam = jcam.make_camera(aspect_ratio=W / H, **params)
-    return ((ref, ref_cam), (tscene.scene_from_reference(ref),
-                             tcam.camera_from_reference(ref_cam)))
+    return ((ref, ref_cam), (tscene.scene_from_reference(ref, device="cpu"),
+                             tcam.camera_from_reference(ref_cam, device="cpu")))
 
 
 def _jv(a):
@@ -323,10 +323,10 @@ def test_geometry_gradient_matches_jax(name, leaf):
 def test_trace_refuses_unported_kinds():
     b = JBuilder(seed=1)
     b.triangle((0, 0, -2), (1, 0, -2), (0, 1, -2), b.lambertian(color=(1, 0, 0)))
-    tri = tscene.scene_from_reference(b.build())
+    tri = tscene.scene_from_reference(b.build(), device="cpu")
     b = JBuilder(seed=1)
     b.constant_medium_sphere((0, 0, -2), 1.0, 0.5, color=(1, 1, 1))
-    med = tscene.scene_from_reference(b.build())
+    med = tscene.scene_from_reference(b.build(), device="cpu")
     tint.check_supported(tri)  # triangles are traced since the BVH slice
     with pytest.raises(NotImplementedError, match="M15"):
         tint.check_supported(med)

@@ -55,8 +55,9 @@ def _both(name):
     """(JAX scene, JAX camera), (port scene, port camera) for one scene."""
     ref, params = SCENES[name]()
     ref_cam = jcam.make_camera(aspect_ratio=W / H, **params)
-    port = tscene.scene_from_reference(ref)
-    return (ref, ref_cam), (port, tcam.camera_from_reference(ref_cam))
+    port = tscene.scene_from_reference(ref, device="cpu")
+    return (ref, ref_cam), (port, tcam.camera_from_reference(ref_cam,
+                                                             device="cpu"))
 
 
 def _lanes():
@@ -123,12 +124,13 @@ def test_supports_matches_reference():
     verdicts = []
     for ref, params in cases:
         ref_cam = jcam.make_camera(aspect_ratio=1.0, **params)
-        port = tscene.scene_from_reference(ref)
-        cam = tcam.camera_from_reference(ref_cam)
+        port = tscene.scene_from_reference(ref, device="cpu")
+        cam = tcam.camera_from_reference(ref_cam, device="cpu")
         verdicts.append(tmk.supports(port, cam))
         assert verdicts[-1] == jmk.supports(ref, ref_cam)
     assert verdicts == [True, True, False, False, False, False, True]
     with pytest.raises(ValueError, match="not supported"):
-        tmk.trace_regenerative_mega(tscene.scene_from_reference(cases[2][0]),
-                                    cam, *_lanes(), 0, **KW)
+        tmk.trace_regenerative_mega(
+            tscene.scene_from_reference(cases[2][0], device="cpu"), cam,
+            *_lanes(), 0, **KW)
 

@@ -1,6 +1,7 @@
 """Port vs JAX: scene construction, scene transfer and the camera."""
 
 import dataclasses
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +12,7 @@ from another_raytracer_tpu.models import library as jlib
 from another_raytracer_tpu.models.scene import SceneBuilder as JBuilder
 from another_raytracer_tpu.ops import camera as jcam
 from another_raytracer_tpu.ops import vec3 as jvec3
+from another_raytracer_tpu_torch.grad import diff
 from another_raytracer_tpu_torch.models import library as tlib
 from another_raytracer_tpu_torch.models import scene as tscene
 from another_raytracer_tpu_torch.ops import camera as tcam
@@ -62,10 +64,20 @@ def test_builder_and_scene_from_reference_round_trip():
     ref = _metal_builder(JBuilder).build()
     port = _metal_builder(tscene.SceneBuilder).build(device="cpu")
     _assert_scene_equal(port, ref)
-    carried = tscene.scene_from_reference(ref)
+    carried = tscene.scene_from_reference(ref, device="cpu")
     _assert_scene_equal(carried, ref)
     assert carried.has_motion and not carried.has_accel
     assert carried.to("cpu").background.device.type == "cpu"
+
+
+@pytest.mark.parametrize("fn", [tscene.scene_from_reference,
+                                tcam.camera_from_reference,
+                                diff.params_from_reference,
+                                diff.train_state_from_reference],
+                         ids=lambda fn: fn.__name__)
+def test_converters_default_to_the_card(fn):
+    # Like the builders and make_camera: CPU callers say device="cpu".
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 def test_builder_refuses_unported():
@@ -98,7 +110,7 @@ def test_make_camera_matches_reference(params):
                                    np.asarray(getattr(ref, k)), rtol=1e-6,
                                    atol=0, err_msg=k)
     assert (port.has_lens, port.has_time) == (ref.has_lens, ref.has_time)
-    carried = tcam.camera_from_reference(ref)
+    carried = tcam.camera_from_reference(ref, device="cpu")
     np.testing.assert_array_equal(carried.lower_left.numpy(),
                                   np.asarray(ref.lower_left))
     assert carried.has_lens == ref.has_lens
