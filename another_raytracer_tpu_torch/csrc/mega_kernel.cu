@@ -1,5 +1,5 @@
 // Forward megakernel for NVIDIA Hopper (sm_90a): the whole regenerating
-// path-trace loop of a scene, one thread per ray lane.
+// path-trace loop of a scene, one ray lane per thread at a time.
 //
 // Replaces: another_raytracer_tpu/ops/pallas/mega_kernel.py::_kernel,
 // reached through trace_regenerative_mega, in both its modes and both its
@@ -15,6 +15,31 @@
 // lane's sample budget is spent.  The closest hit is, per mode:
 //   sweep: every world-baked row, sphere rows then rect rows;
 //   accel: a stackless walk of the sphere tree over its escape indices.
+//
+// Sweep mode reads compact tables (the wrapper's pack_sweep_tables): a
+// sphere as 3 float4 (c0.xyz, r | c1 - c0, t0 | 1/dt, 0, 0, 0), a rect as 4
+// (n.xyz, n.q0 | q0.xyz, |eu|^2 | eu.xyz, |ev|^2 | ev.xyz, 0), spheres
+// first: at most 64 rows, 4 KB, which each block copies into shared memory
+// once.  Every thread of a warp reads the same row in the same step, so each
+// 16-byte load is a broadcast: a rect test takes 4 shared loads where the
+// 32-float rows took 15.  The tests are the plain version's operation for
+// operation on the same float values; the winner's normal is computed once
+// after the sweep, and its material columns are read from the widened rows
+// in device memory, as in accel mode.
+//
+// Lane fetch (K1, the sweep's forward instance, and its counting instance):
+// the grid is persistent (as many blocks as the card holds at once) and each
+// thread takes lanes from a counter in device memory that the launch zeroes,
+// one warp-aggregated atomicAdd per group of threads that fetch together.  A
+// thread fetches its next lane in the same loop step in which its lane has
+// spent its samples, so no thread waits for its warp's slowest pixel and no
+// SM slot for its block's slowest warp; only the last lanes leave a tail.
+// Each lane still runs the per-lane algorithm below and writes its own
+// outputs, so the outputs are those of one lane per thread bit for bit (the
+// wrapper can launch either).  The record instance (K2) keeps one lane per
+// thread: its rows are coalesced because a warp's lanes write the same row
+// together, and at the bench size its lanes fit the card in one wave.  K3
+// keeps it too: its walk wants Morton-neighbour lanes to enter together.
 //
 // Accel mode (template argument WALK; everything else is the same code).
 // The TPU kernel walks a block of lanes with ONE cursor (packet DFS): at node
@@ -57,13 +82,17 @@
 // The counting build (-DART_COUNT -fmad=false: the record build's
 // arithmetic, so its paths are the plain version's) tallies per launch the
 // slab and sphere tests, the active-lane share of the warp's slab and leaf
-// steps (sum of popc(__activemask()) over warp steps / 32 x warp steps), and
-// the sphere tests in the leaf that holds one given sphere (the ground).
+// steps (sum of popc(__activemask()) over warp steps / 32 x warp steps), the
+// sphere tests in the leaf that holds one given sphere (the ground), in
+// sweep mode its sphere and rect row tests, in both modes the warp steps of
+// the lane loop with their active lanes and the most of one warp, and each
+// block's start and end %globaltimer (the wrapper's tail_share reads how
+// much SM-slot time the launch's tail left idle).
 //
 // What bounds it on this card: instruction issue, not memory.  A lane reads
 // 8 bytes and writes 16; everything else (ray state, the 13-round threefry,
 // an ~25-flop test per row per segment, the shading math) lives in registers,
-// and the row table (at most 64 rows x 32 floats = 8 KB) in shared memory.
+// and the sweep's tables (at most 4 KB) in shared memory.
 // The costs are ALU work per segment, warp divergence (a warp runs until its
 // slowest lane has spent its samples, and lanes of a warp take different
 // material branches), and registers per thread, which set how many warps an
@@ -80,12 +109,15 @@
 // are broadcasts (in accel mode the renders trace in Morton order, so a
 // warp's lanes are neighbouring pixels whose walks mostly coincide); a lane
 // whose path ends re-arms with its next sample at once
-// (the TPU kernel's per-lane regeneration), so divergence is confined to the
-// tail of each lane's budget; random draws and shading branches that a lane
+// (the TPU kernel's per-lane regeneration), and in K1 a thread whose lane is
+// spent takes the next lane at once (lane fetch), so divergence is confined
+// to the tail of the launch; random draws and shading branches that a lane
 // does not need are skipped, which is exact because each draw is a pure
-// function of its key and counter.  The block is 128 threads for every
-// instance, measured for K3 against 64-512 (chip_smoke.py, PERF.md); at 128
-// K3's 45 KB of shared tables, not its registers, cap an SM's blocks.
+// function of its key and counter, and the lens and the scatter take sin and
+// cos of one angle with one range reduction.  The block is 128 threads for
+// every instance, measured for K1 and K3 against 64-512 (chip_smoke.py,
+// PERF.md); at 128 K3's 45 KB of shared tables, not its registers, cap an
+// SM's blocks.
 //
 // Record mode (K2, and K3's record instance) is the same kernel compiled with
 // the compile-time constant RECORD set, so the forward instances keep their
@@ -93,7 +125,7 @@
 // residual writes.  The file is built three times (ops/kernels/_build.py):
 // as is, for the forward instances (art_mega_forward, art_threefry_words),
 // with -DART_RECORD -fmad=false for the record instances (art_mega_record),
-// and with -DART_COUNT -fmad=false for K3's counting instance
+// and with -DART_COUNT -fmad=false for the counting instances
 // (art_mega_count, a measurement: the port's paths never launch it).  The
 // record build contracts no a*b+c into an FMA and takes sin and cos in double
 // (correctly rounded float results) and rsqrt as 1/sqrt: those are the plain
@@ -170,8 +202,9 @@ enum Flags : int {
 // with its compact tables in shared memory or in device memory.
 enum Walk : int { SWEEP = 0, ACCEL_SHARED = 1, ACCEL_GLOBAL = 2 };
 
-// Float4s per node and per sphere of the compact tables.
-constexpr int NODE_F4 = 2, SPHERE_F4 = 3;
+// Float4s per node and per sphere of the compact tables (both modes), and
+// per rect of the sweep's tables.
+constexpr int NODE_F4 = 2, SPHERE_F4 = 3, RECT_F4 = 4;
 // Shared memory one block may take on sm_90 after opting in.
 constexpr int MAX_SMEM = 232448;
 
@@ -189,11 +222,15 @@ struct Params {
   float inv_w1, inv_h1, h1, t_min;
   uint32_t seed, limit, stride;
   int width, n, n_spheres, n_rects, max_depth, flags;
-  // Accel mode: the compact tables (n_nodes nodes, then n_spheres leaf-order
-  // spheres) in device memory, and the bytes of shared memory a block copies
-  // them into (0: the walk reads them from device memory).
+  // The compact tables in device memory.  Accel mode: n_nodes nodes, then
+  // n_spheres leaf-order spheres, and the bytes of shared memory a block
+  // copies them into (0: the walk reads them from device memory).  Sweep:
+  // n_spheres spheres, then n_rects rects, copied into shared memory.
   const float4* tab;
   int n_nodes, leaf_size, smem_bytes;
+  // Sweep forward and counting instances: the lane counter of lane fetch
+  // (null: one lane per thread, lane = global thread index).
+  int* next;
 };
 
 // Residual outputs of the record instance: codes [iters][n] int32 and
@@ -205,18 +242,24 @@ struct Record {
 };
 
 // Output of the counting instance: TALLIES u64 totals (device memory, added
-// to), and the node of the leaf whose sphere tests are tallied apart.
+// to), the node of the leaf whose sphere tests are tallied apart, and per
+// block its start and end %globaltimer (ns; null: not recorded).
 struct Tallies {
   unsigned long long* out;
   int ground_node;
+  unsigned long long* times;
 };
-// Per-thread tallies, summed into Tallies::out in this order.  A warp step
-// is tallied by the lowest active lane only.
+// Per-thread tallies, summed into Tallies::out in this order (then the
+// largest loop-step count of one warp, TALLY_WARP_MAX).  A warp step is
+// tallied by the lowest active lane only.  spheres counts sphere tests in
+// either mode (the walk's leaves, or the sweep's sphere rows), rects the
+// sweep's rect rows, loop_steps / loop_active the warp's steps of the lane
+// loop (one closest hit and its shading each) and their active lanes.
 struct Tally {
   unsigned long long slabs, spheres, slab_steps, slab_active, leaf_steps,
-      leaf_active, ground;
+      leaf_active, ground, rects, loop_steps, loop_active;
 };
-constexpr int TALLIES = 7;
+constexpr int TALLIES = 10, TALLY_WARP_MAX = 10;
 
 __host__ __device__ constexpr int rot_of(int r) {
   return r == 0 ? 13 : r == 1 ? 15 : r == 2 ? 26 : r == 3 ? 6
@@ -252,9 +295,17 @@ __device__ __forceinline__ float sin_(float x) {
   if constexpr (EXACT) return (float)sin((double)x);
   else return sinf(x);
 }
-__device__ __forceinline__ float cos_(float x) {
-  if constexpr (EXACT) return (float)cos((double)x);
-  else return cosf(x);
+// sin and cos of one angle with one range reduction (the same values as
+// sin_ and cos_).
+__device__ __forceinline__ void sincos_(float x, float& s, float& c) {
+  if constexpr (EXACT) {
+    double sd, cd;
+    sincos((double)x, &sd, &cd);
+    s = (float)sd;
+    c = (float)cd;
+  } else {
+    sincosf(x, &s, &c);
+  }
 }
 __device__ __forceinline__ float rsqrt_(float x) {
   if constexpr (EXACT) return 1.0f / sqrtf(x);
@@ -289,8 +340,10 @@ __device__ __forceinline__ void cam_rays(const Params& p, uint32_t pix,
     uniform2(p.seed, pix, sample, CAMERA_BOUNCE, DIM_LENS, lu, lv);
     const float rr = sqrtf(lu);
     const float phi = TWO_PI * lv;
-    const float rdx = c.lens_radius * (rr * cos_(phi));
-    const float rdy = c.lens_radius * (rr * sin_(phi));
+    float sp, cp;
+    sincos_(phi, sp, cp);
+    const float rdx = c.lens_radius * (rr * cp);
+    const float rdy = c.lens_radius * (rr * sp);
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
       const float offs = c.u[k] * rdx + c.w[k] * rdy;
@@ -317,6 +370,20 @@ __device__ __forceinline__ float dot3(const float a[3], const float b[3]) {
   return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
 }
 
+// Products and sums rounded one at a time (__fmul_rn, __fadd_rn), which
+// nvcc may not contract into FMA.  K3's walk (its sphere tests, the winner's normal and |d|^2) uses
+// them in every build: FMA contraction there moved the forward build beyond
+// the test_mega bar on a dense grid of touching spheres on the radius-1000
+// ground (on its surface |o - c|^2 - r^2 cancels ~6 digits, and where it
+// rounds decides whether a scattered ray hits its own sphere again), while
+// the record build, which contracts nothing, matched its plain version.
+// a.b in the plain version's order, ((ax bx + ay by) + az bz).
+__device__ __forceinline__ float dot3_rn(float ax, float ay, float az,
+                                         float bx, float by, float bz) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(ax, bx), __fmul_rn(ay, by)),
+                   __fmul_rn(az, bz));
+}
+
 // Table reads of the accel walk: shared memory, or device memory through
 // the read-only cache.
 template <bool SHARED>
@@ -335,26 +402,41 @@ __device__ __forceinline__ float safe_inv(float c) {
   return 1.0f / (fabsf(c) < 1e-20f ? tiny : c);
 }
 
-// Sweep mode: every row of the shared-memory table, spheres then rects.
-// Returns the winner's row (-1 on a miss), its t in best_t and its normal.
+// The moving sphere's centre at time tm from its compact rows (c0.xyz, r |
+// c1 - c0, t0 | 1/dt, ...).
+__device__ __forceinline__ void sphere_center(const float4& g0,
+                                              const float4& g1, float inv_dt,
+                                              float tm, float c[3]) {
+  const float frac = (tm - g1.w) * inv_dt;
+  c[0] = g0.x + frac * g1.x;
+  c[1] = g0.y + frac * g1.y;
+  c[2] = g0.z + frac * g1.z;
+}
+
+// Sweep mode: every row of the shared-memory tables (pack_sweep_tables),
+// spheres then rects, each read with 16-byte broadcast loads.  Returns the
+// winner's row (-1 on a miss), its t in best_t and its normal, computed
+// once for the winner.
 __device__ __forceinline__ int sweep_hit(const Params& p,
-                                         const float* __restrict__ rows,
+                                         const float4* __restrict__ tab,
                                          const float o[3], const float d[3],
                                          float tm, float a_len, float& best_t,
-                                         float bn[3]) {
-  const int n_rows = p.n_spheres + p.n_rects;
+                                         float bn[3], Tally& tl) {
   int best = -1;
+  if constexpr (COUNT) {
+    tl.spheres += p.n_spheres;
+    tl.rects += p.n_rects;
+  }
   if (p.n_spheres) {
     const float inv_a = 1.0f / (a_len > 0.0f ? a_len : 1.0f);
     for (int j = 0; j < p.n_spheres; ++j) {
-      const float* r = rows + j * ROW_W;
-      const float frac = (tm - r[7]) * r[8];
-      const float cx = r[1] + frac * r[4];
-      const float cy = r[2] + frac * r[5];
-      const float cz = r[3] + frac * r[6];
-      const float ocx = o[0] - cx, ocy = o[1] - cy, ocz = o[2] - cz;
+      const float4* s = tab + SPHERE_F4 * j;
+      const float4 g0 = s[0], g1 = s[1];
+      float c3[3];
+      sphere_center(g0, g1, s[2].x, tm, c3);
+      const float ocx = o[0] - c3[0], ocy = o[1] - c3[1], ocz = o[2] - c3[2];
       const float half_b = ocx * d[0] + ocy * d[1] + ocz * d[2];
-      const float c = ocx * ocx + ocy * ocy + ocz * ocz - r[9] * r[9];
+      const float c = ocx * ocx + ocy * ocy + ocz * ocz - g0.w * g0.w;
       const float disc = half_b * half_b - a_len * c;
       if (!(disc > 0.0f)) continue;
       const float sq = sqrtf(disc);
@@ -364,45 +446,81 @@ __device__ __forceinline__ int sweep_hit(const Params& p,
       if (t > p.t_min && t < best_t) {
         best_t = t;
         best = j;
-        const float inv_r = 1.0f / r[9];
-        bn[0] = (o[0] + t * d[0] - cx) * inv_r;
-        bn[1] = (o[1] + t * d[1] - cy) * inv_r;
-        bn[2] = (o[2] + t * d[2] - cz) * inv_r;
       }
     }
   }
-  for (int j = p.n_spheres; j < n_rows; ++j) {
-    // World parallelogram == aarect.cpp plane + inclusive bounds.
-    const float* r = rows + j * ROW_W;
-    const float ndotd = r[10] * d[0] + r[11] * d[1] + r[12] * d[2];
+  const float4* rects = tab + SPHERE_F4 * p.n_spheres;
+  for (int j = 0; j < p.n_rects; ++j) {
+    // World parallelogram == aarect.cpp plane + inclusive bounds:
+    // (n.xyz, n.q0 | q0.xyz, |eu|^2 | eu.xyz, |ev|^2 | ev.xyz, 0).
+    const float4* q = rects + RECT_F4 * j;
+    const float4 g0 = q[0];
+    const float ndotd = g0.x * d[0] + g0.y * d[1] + g0.z * d[2];
     if (ndotd == 0.0f) continue;
-    const float ndoto = r[10] * o[0] + r[11] * o[1] + r[12] * o[2];
-    const float t = (r[13] - ndoto) / ndotd;
-    const float rx = o[0] + t * d[0] - r[1];
-    const float ry = o[1] + t * d[1] - r[2];
-    const float rz = o[2] + t * d[2] - r[3];
-    const float a = rx * r[4] + ry * r[5] + rz * r[6];
-    const float b = rx * r[7] + ry * r[8] + rz * r[9];
-    if (a >= 0.0f && a <= r[14] && b >= 0.0f && b <= r[15] &&
+    const float ndoto = g0.x * o[0] + g0.y * o[1] + g0.z * o[2];
+    const float t = (g0.w - ndoto) / ndotd;
+    const float4 g1 = q[1], g2 = q[2], g3 = q[3];
+    const float rx = o[0] + t * d[0] - g1.x;
+    const float ry = o[1] + t * d[1] - g1.y;
+    const float rz = o[2] + t * d[2] - g1.z;
+    const float a = rx * g2.x + ry * g2.y + rz * g2.z;
+    const float b = rx * g3.x + ry * g3.y + rz * g3.z;
+    if (a >= 0.0f && a <= g1.w && b >= 0.0f && b <= g2.w &&
         t > p.t_min && t < best_t) {
       best_t = t;
-      best = j;
-      bn[0] = r[10];
-      bn[1] = r[11];
-      bn[2] = r[12];
+      best = p.n_spheres + j;
     }
+  }
+  if (best >= p.n_spheres) {
+    const float4 g0 = rects[RECT_F4 * (best - p.n_spheres)];
+    bn[0] = g0.x;
+    bn[1] = g0.y;
+    bn[2] = g0.z;
+  } else if (best >= 0) {
+    // Sphere winner: (o + t d - c) / r.
+    const float4* s = tab + SPHERE_F4 * best;
+    const float4 g0 = s[0];
+    float c3[3];
+    sphere_center(g0, s[1], s[2].x, tm, c3);
+    const float inv_r = 1.0f / g0.w;
+    bn[0] = (o[0] + best_t * d[0] - c3[0]) * inv_r;
+    bn[1] = (o[1] + best_t * d[1] - c3[1]) * inv_r;
+    bn[2] = (o[2] + best_t * d[2] - c3[2]) * inv_r;
   }
   return best;
 }
 
-// The lowest active lane tallies one warp step of `active` lanes.
-__device__ __forceinline__ void warp_step(unsigned long long& steps,
+// The lowest active lane tallies one warp step of `active` lanes; returns
+// whether this thread tallied it.
+__device__ __forceinline__ bool warp_step(unsigned long long& steps,
                                           unsigned long long& active) {
   const unsigned m = __activemask();
   if ((int)(threadIdx.x & 31) == __ffs(m) - 1) {
     ++steps;
     active += __popc(m);
+    return true;
   }
+  return false;
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Lane fetch: the next lane of the launch's counter for each thread that
+// calls it, one atomicAdd per group of threads that call it together (the
+// group's base index shared by __shfl_sync, each thread's offset its rank in
+// the group).
+__device__ __forceinline__ int fetch_lane(int* next) {
+  const unsigned m = __activemask();
+  const int me = threadIdx.x & 31;
+  const int leader = __ffs(m) - 1;
+  int base = 0;
+  if (me == leader) base = atomicAdd(next, __popc(m));
+  base = __shfl_sync(m, base, leader);
+  return base + __popc(m & ((1u << me) - 1u));
 }
 
 // Slab test of a node (a: lo.xyz, escape | b: hi.xyz, meta) from
@@ -448,13 +566,15 @@ __device__ __forceinline__ void leaf_test(const Params& p,
     const float4* s = geo + SPHERE_F4 * row;
     const float4 g0 = ld4<SHARED>(s), g1 = ld4<SHARED>(s + 1);
     const float frac = (tm - g1.w) * ld1<SHARED>(s + 2);
-    const float ocx = o[0] - (g0.x + frac * g1.x);
-    const float ocy = o[1] - (g0.y + frac * g1.y);
-    const float ocz = o[2] - (g0.z + frac * g1.z);
+    const float ocx = o[0] - __fadd_rn(g0.x, __fmul_rn(frac, g1.x));
+    const float ocy = o[1] - __fadd_rn(g0.y, __fmul_rn(frac, g1.y));
+    const float ocz = o[2] - __fadd_rn(g0.z, __fmul_rn(frac, g1.z));
     const float rad = g0.w;
-    const float half_b = ocx * d[0] + ocy * d[1] + ocz * d[2];
-    const float c = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
-    const float disc = half_b * half_b - a_len * c;
+    const float half_b = dot3_rn(ocx, ocy, ocz, d[0], d[1], d[2]);
+    const float c = __fsub_rn(dot3_rn(ocx, ocy, ocz, ocx, ocy, ocz),
+                              __fmul_rn(rad, rad));
+    const float disc =
+        __fsub_rn(__fmul_rn(half_b, half_b), __fmul_rn(a_len, c));
     if (!(disc > 0.0f)) continue;
     const float sq = sqrtf(disc);
     const float root1 = (-half_b - sq) * inv_a;
@@ -523,25 +643,20 @@ __device__ __forceinline__ int accel_hit(const Params& p,
     const float4 g0 = ld4<SH>(s), g1 = ld4<SH>(s + 1);
     const float frac = (tm - g1.w) * ld1<SH>(s + 2);
     const float inv_r = 1.0f / (g0.w != 0.0f ? g0.w : 1.0f);
-    bn[0] = (o[0] + best_t * d[0] - (g0.x + frac * g1.x)) * inv_r;
-    bn[1] = (o[1] + best_t * d[1] - (g0.y + frac * g1.y)) * inv_r;
-    bn[2] = (o[2] + best_t * d[2] - (g0.z + frac * g1.z)) * inv_r;
+    const float c[3] = {__fadd_rn(g0.x, __fmul_rn(frac, g1.x)),
+                        __fadd_rn(g0.y, __fmul_rn(frac, g1.y)),
+                        __fadd_rn(g0.z, __fmul_rn(frac, g1.z))};
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      bn[k] = (__fadd_rn(o[k], __fmul_rn(best_t, d[k])) - c[k]) * inv_r;
+    }
   }
   return best;
 }
 
-// The winner's material columns: in the sweep, reads of the shared-memory
-// row; in accel mode its columns 16-27 of the widened rows, read from
-// device memory once as 3 float4.  Indexed by compile-time column numbers.
-template <bool ACCEL>
+// The winner's material columns 16-27 of the widened rows, read from device
+// memory once as 3 float4.  Indexed by compile-time column numbers.
 struct Mat {
-  const float* r;
-  __device__ __forceinline__ Mat(const float* rows, int best)
-      : r(rows + (size_t)best * ROW_W) {}
-  __device__ __forceinline__ float operator[](int c) const { return r[c]; }
-};
-template <>
-struct Mat<true> {
   float4 q[3];
   __device__ __forceinline__ Mat(const float* rows, int best) {
     const float4* r =
@@ -572,244 +687,302 @@ __global__ void mega_forward_kernel(const float* __restrict__ rows_g,
                                     int* __restrict__ out_seg,
                                     const Record rec, const Tallies tly) {
   constexpr bool ACCEL = WALK != SWEEP;
-  // sweep: the shared-memory table; accel: rows_g (the material columns)
-  const float* rows;
-  const float4* tab = nullptr;  // accel: the compact tables
-  if constexpr (ACCEL) {
-    rows = rows_g;
-    if constexpr (WALK == ACCEL_SHARED) {
-      extern __shared__ float4 tab_s[];
-      const int n4 = NODE_F4 * p.n_nodes + SPHERE_F4 * p.n_spheres;
-      for (int k = threadIdx.x; k < n4; k += blockDim.x) tab_s[k] = p.tab[k];
-      __syncthreads();
-      tab = tab_s;
-    } else {
-      tab = p.tab;
-    }
+  // Lane fetch: only the sweep's forward and counting instances take it.
+  constexpr bool CAN_FETCH = WALK == SWEEP && !RECORD;
+  // The compact tables, copied into shared memory (the sweep and
+  // ACCEL_SHARED) or read from device memory (ACCEL_GLOBAL); rows_g holds
+  // the widened rows' material columns.
+  const float4* tab;
+  if constexpr (WALK == ACCEL_SHARED) {
+    extern __shared__ float4 tab_s[];
+    const int n4 = NODE_F4 * p.n_nodes + SPHERE_F4 * p.n_spheres;
+    for (int k = threadIdx.x; k < n4; k += blockDim.x) tab_s[k] = p.tab[k];
+    tab = tab_s;
+  } else if constexpr (WALK == SWEEP) {
+    __shared__ float4 sweep_s[MAX_ROWS * RECT_F4];
+    const int n4 = SPHERE_F4 * p.n_spheres + RECT_F4 * p.n_rects;
+    for (int k = threadIdx.x; k < n4; k += blockDim.x) sweep_s[k] = p.tab[k];
+    tab = sweep_s;
   } else {
-    __shared__ float rows_s[MAX_ROWS * ROW_W];
-    const int n_rows = p.n_spheres + p.n_rects;
-    for (int k = threadIdx.x; k < n_rows * ROW_W; k += blockDim.x) {
-      rows_s[k] = rows_g[k];
-    }
-    __syncthreads();
-    rows = rows_s;
+    tab = p.tab;
   }
+  // Counting instance: each warp's loop steps and the block's start time.
+  __shared__ unsigned long long warp_loops[COUNT ? 32 : 1];
+  unsigned long long t_start = 0;
+  if constexpr (COUNT) {
+    if (threadIdx.x < 32) warp_loops[threadIdx.x] = 0;
+    t_start = global_ns();
+  }
+  if constexpr (WALK != ACCEL_GLOBAL || COUNT) __syncthreads();
   Tally tl{};
-
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= p.n) return;
 
   const bool has_metal = p.flags & HAS_METAL;
   const bool has_diel = p.flags & HAS_DIEL;
   const bool has_light = p.flags & HAS_LIGHT;
   const bool has_checker = p.flags & HAS_CHECKER;
   const bool need_b_draw = has_metal || has_diel;
+  const bool fetch = CAN_FETCH && p.next != nullptr;
 
-  const uint32_t pix = pixel_ids[lane];
-  uint32_t sample = sample_ids0[lane];
-  const float fi = (float)(pix % (uint32_t)p.width);
-  const float fj = (float)(pix / (uint32_t)p.width);
-
-  float o[3], d[3], tm;
-  cam_rays(p, pix, sample, fi, fj, o, d, tm);
-  bool alive = sample < p.limit;
-  float tp[3] = {1.0f, 1.0f, 1.0f};
-  float path[3] = {0.0f, 0.0f, 0.0f};
-  float acc[3] = {0.0f, 0.0f, 0.0f};
-  uint32_t bounce = 0;
-  int seg = alive ? 1 : 0;
-  int it = 0;  // this lane's loop iteration (record row)
-
-  while (alive) {
-    const float a_len = dot3(d, d);
-    // Record instance only: entry throughput and the row's code parts.
-    float tp_entry[3];
-    int ev = 0, tid = 0;
-    bool odd = false;
-    if constexpr (RECORD) {
-      tp_entry[0] = tp[0];
-      tp_entry[1] = tp[1];
-      tp_entry[2] = tp[2];
+  // The next fetched lane whose first sample is alive; lanes born dead on
+  // the way get their outputs (zeros) here.
+  auto next_live_lane = [&]() {
+    int l = fetch_lane(p.next);
+    while (l < p.n && !(sample_ids0[l] < p.limit)) {
+      out_x[l] = out_y[l] = out_z[l] = 0.0f;
+      out_seg[l] = 0;
+      l = fetch_lane(p.next);
     }
+    return l;
+  };
+  int lane = fetch ? next_live_lane() : blockIdx.x * blockDim.x + threadIdx.x;
 
-    // ---- closest hit (strict improvement keeps the earlier row on ties)
-    float best_t = BIG;
-    float bn[3] = {0.0f, 0.0f, 0.0f};
-    int best;
-    if constexpr (ACCEL) {
-      best = accel_hit<WALK>(p, tab, o, d, tm, a_len, best_t, bn, tl,
-                             tly.ground_node);
-    } else {
-      best = sweep_hit(p, rows, o, d, tm, a_len, best_t, bn);
-    }
-
-    bool scattered = false;
-    if (best < 0) {
-      // Miss: the background, weighted by the throughput.
-#pragma unroll
-      for (int k = 0; k < 3; ++k) path[k] = path[k] + tp[k] * p.cam.bg[k];
-      if constexpr (RECORD) ev = 3;
-    } else {
-      // ---- shade + scatter (shade.emit_and_scatter) ----------------------
-      const Mat<ACCEL> r(rows, best);
-      const bool front = dot3(bn, d) < 0.0f;
-      float n[3], hp[3];
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        n[k] = front ? bn[k] : -bn[k];
-        hp[k] = o[k] + best_t * d[k];
-      }
-      const float mk = r[C_MKIND];
-      float alb[3] = {r[C_CA], r[C_CA + 1], r[C_CA + 2]};
-      if constexpr (RECORD) tid = (int)r[C_TID];
-      if (has_checker && r[C_TKIND] == TEX_CHECKER) {
-        const float sines = sin_(10.0f * hp[0]) * sin_(10.0f * hp[1]) *
-                            sin_(10.0f * hp[2]);
-        if (sines < 0.0f) {
-          alb[0] = r[C_CB];
-          alb[1] = r[C_CB + 1];
-          alb[2] = r[C_CB + 2];
-          if constexpr (RECORD) odd = true;
-        }
-      }
-
-      if (has_light && mk == MAT_DIFFUSE_LIGHT) {
-        // Emits and absorbs: the path ends here.
-#pragma unroll
-        for (int k = 0; k < 3; ++k) path[k] = path[k] + tp[k] * alb[k];
-        if constexpr (RECORD) ev = 2;
-      } else {
-        float u1, u2, u3 = 0.0f, u4 = 0.0f;
-        uniform2(p.seed, pix, sample, bounce, DIM_SCATTER_A, u1, u2);
-        if (need_b_draw) uniform2(p.seed, pix, sample, bounce, DIM_SCATTER_B, u3, u4);
-        const float zz = 1.0f - 2.0f * u1;
-        const float rr = sqrtf(fmaxf(0.0f, 1.0f - zz * zz));
-        const float phi = TWO_PI * u2;
-        const float ru[3] = {rr * cos_(phi), rr * sin_(phi), zz};
-
-        float new_d[3];
-        float att[3] = {alb[0], alb[1], alb[2]};
-        bool ok = true;
-        if (has_metal && mk == MAT_METAL) {
-          // material.h:49-56 with a fuzzed mirror direction.
-          const float inv_len = rsqrt_(a_len > 0.0f ? a_len : 1.0f);
-          const float ud[3] = {d[0] * inv_len, d[1] * inv_len, d[2] * inv_len};
-          const float cr = u3 > 0.0f
-              ? expf(logf(fmaxf(u3, 1e-38f)) * (1.0f / 3.0f)) : 0.0f;
-          const float fuzz = r[C_FUZZ];
-          const float uddn = dot3(ud, n);
-#pragma unroll
-          for (int k = 0; k < 3; ++k)
-            new_d[k] = ud[k] - n[k] * (2.0f * uddn) + (ru[k] * cr) * fuzz;
-          ok = dot3(new_d, n) > 0.0f;
-        } else if (has_diel && mk == MAT_DIELECTRIC) {
-          // material.h:66-90: refract or reflect (Schlick), vec3.refract
-          // with the 1e-12 floors.
-          const float inv_len = rsqrt_(a_len > 0.0f ? a_len : 1.0f);
-          const float ud[3] = {d[0] * inv_len, d[1] * inv_len, d[2] * inv_len};
-          const float ir = r[C_IR];
-          const float ratio = front ? 1.0f / ir : ir;
-          const float uddn = dot3(ud, n);
-          const float cos_t = fminf(-uddn, 1.0f);
-          const float sin_t = sqrtf(fmaxf(1e-12f, 1.0f - cos_t * cos_t));
-          const bool cannot = ratio * sin_t > 1.0f;
-          float r0 = (1.0f - ratio) / (1.0f + ratio);
-          r0 = r0 * r0;
-          const float x = 1.0f - cos_t;
-          const float refl = r0 + (1.0f - r0) * (x * ((x * x) * (x * x)));
-          if (cannot || refl > u4) {
-#pragma unroll
-            for (int k = 0; k < 3; ++k) new_d[k] = ud[k] - n[k] * (2.0f * uddn);
-          } else {
-            float perp[3];
-#pragma unroll
-            for (int k = 0; k < 3; ++k) perp[k] = (ud[k] + n[k] * cos_t) * ratio;
-            const float p2 = dot3(perp, perp);
-            const float par = -sqrtf(fmaxf(fabsf(1.0f - p2), 1e-12f));
-#pragma unroll
-            for (int k = 0; k < 3; ++k) new_d[k] = perp[k] + n[k] * par;
-          }
-          att[0] = att[1] = att[2] = 1.0f;
-          // Attenuation 1: the sentinel id routes no albedo gradient.
-          if constexpr (RECORD) tid = rec.n_textures;
-        } else {
-          // lambertian (material.h:29-36)
-          const float lam[3] = {n[0] + ru[0], n[1] + ru[1], n[2] + ru[2]};
-          const bool degenerate = fabsf(lam[0]) < NEAR_ZERO_EPS &&
-                                  fabsf(lam[1]) < NEAR_ZERO_EPS &&
-                                  fabsf(lam[2]) < NEAR_ZERO_EPS;
-#pragma unroll
-          for (int k = 0; k < 3; ++k) new_d[k] = degenerate ? n[k] : lam[k];
-        }
-        if (ok) {
-          scattered = true;
-          if constexpr (RECORD) ev = 1;
-#pragma unroll
-          for (int k = 0; k < 3; ++k) {
-            tp[k] = tp[k] * att[k];
-            o[k] = hp[k];
-            d[k] = new_d[k];
-          }
-        }
-      }
-    }
-
-    // ---- carry update + regeneration (integrator._advance + regen body)
-    bounce += 1u;
-    seg += scattered ? 1 : 0;
-    const bool ended = !(scattered && bounce < (uint32_t)p.max_depth);
-    if constexpr (RECORD) {
-      if (it < rec.iters) {
-        const size_t row = (size_t)it * p.n + lane;
-        rec.codes[row] = (ev > 0 ? tid * 16 : 0) + (odd ? 8 : 0) +
-                         (ended ? 4 : 0) + ev;
-        const size_t plane = (size_t)rec.iters * p.n;
-        rec.tprev[row] = tp_entry[0];
-        rec.tprev[plane + row] = tp_entry[1];
-        rec.tprev[2 * plane + row] = tp_entry[2];
-      }
-      ++it;
-    }
-    if (ended) {
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        acc[k] = acc[k] + path[k];
-        path[k] = 0.0f;
-      }
-      sample += p.stride;
+  if (lane < p.n) {
+    uint32_t pix, sample;
+    float fi, fj, o[3], d[3], tm, tp[3], path[3], acc[3];
+    uint32_t bounce;
+    int seg, it;  // it: this lane's loop iteration (record row)
+    bool alive;
+    // A lane's first camera ray and carry.
+    auto start = [&](int l) {
+      pix = pixel_ids[l];
+      sample = sample_ids0[l];
+      fi = (float)(pix % (uint32_t)p.width);
+      fj = (float)(pix / (uint32_t)p.width);
+      cam_rays(p, pix, sample, fi, fj, o, d, tm);
       alive = sample < p.limit;
-      if (alive) {
-        cam_rays(p, pix, sample, fi, fj, o, d, tm);
-        tp[0] = tp[1] = tp[2] = 1.0f;
-        bounce = 0;
-        seg += 1;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        tp[k] = 1.0f;
+        path[k] = acc[k] = 0.0f;
+      }
+      bounce = 0;
+      seg = alive ? 1 : 0;
+      it = 0;
+    };
+    // A lane's outputs once its samples are spent.
+    auto finish = [&](int l) {
+      out_x[l] = acc[0];
+      out_y[l] = acc[1];
+      out_z[l] = acc[2];
+      out_seg[l] = seg;
+      if constexpr (RECORD) {
+        // Rows past this lane's end are zero (idle rows: the replay skips
+        // them).
+        const size_t plane = (size_t)rec.iters * p.n;
+        for (; it < rec.iters; ++it) {
+          const size_t row = (size_t)it * p.n + l;
+          rec.codes[row] = 0;
+          rec.tprev[row] = 0.0f;
+          rec.tprev[plane + row] = 0.0f;
+          rec.tprev[2 * plane + row] = 0.0f;
+        }
+      }
+    };
+    start(lane);
+
+    while (alive) {
+      if constexpr (COUNT) {
+        if (warp_step(tl.loop_steps, tl.loop_active)) {
+          atomicAdd(&warp_loops[threadIdx.x >> 5], 1ull);
+        }
+      }
+      // K3's walk rounds like the plain version in every build (see
+      // dot3_rn); the sweep's forward build may contract FMA.
+      const float a_len = ACCEL ? dot3_rn(d[0], d[1], d[2], d[0], d[1], d[2])
+                                : dot3(d, d);
+      // Record instance only: entry throughput and the row's code parts.
+      float tp_entry[3];
+      int ev = 0, tid = 0;
+      bool odd = false;
+      if constexpr (RECORD) {
+        tp_entry[0] = tp[0];
+        tp_entry[1] = tp[1];
+        tp_entry[2] = tp[2];
+      }
+
+      // ---- closest hit (strict improvement keeps the earlier row on ties)
+      float best_t = BIG;
+      float bn[3] = {0.0f, 0.0f, 0.0f};
+      int best;
+      if constexpr (ACCEL) {
+        best = accel_hit<WALK>(p, tab, o, d, tm, a_len, best_t, bn, tl,
+                               tly.ground_node);
+      } else {
+        best = sweep_hit(p, tab, o, d, tm, a_len, best_t, bn, tl);
+      }
+
+      bool scattered = false;
+      if (best < 0) {
+        // Miss: the background, weighted by the throughput.
+#pragma unroll
+        for (int k = 0; k < 3; ++k) path[k] = path[k] + tp[k] * p.cam.bg[k];
+        if constexpr (RECORD) ev = 3;
+      } else {
+        // ---- shade + scatter (shade.emit_and_scatter) ----------------------
+        const Mat r(rows_g, best);
+        const bool front = dot3(bn, d) < 0.0f;
+        float n[3], hp[3];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          n[k] = front ? bn[k] : -bn[k];
+          hp[k] = o[k] + best_t * d[k];
+        }
+        const float mk = r[C_MKIND];
+        float alb[3] = {r[C_CA], r[C_CA + 1], r[C_CA + 2]};
+        if constexpr (RECORD) tid = (int)r[C_TID];
+        if (has_checker && r[C_TKIND] == TEX_CHECKER) {
+          const float sines = sin_(10.0f * hp[0]) * sin_(10.0f * hp[1]) *
+                              sin_(10.0f * hp[2]);
+          if (sines < 0.0f) {
+            alb[0] = r[C_CB];
+            alb[1] = r[C_CB + 1];
+            alb[2] = r[C_CB + 2];
+            if constexpr (RECORD) odd = true;
+          }
+        }
+
+        if (has_light && mk == MAT_DIFFUSE_LIGHT) {
+          // Emits and absorbs: the path ends here.
+#pragma unroll
+          for (int k = 0; k < 3; ++k) path[k] = path[k] + tp[k] * alb[k];
+          if constexpr (RECORD) ev = 2;
+        } else {
+          float u1, u2, u3 = 0.0f, u4 = 0.0f;
+          uniform2(p.seed, pix, sample, bounce, DIM_SCATTER_A, u1, u2);
+          if (need_b_draw) uniform2(p.seed, pix, sample, bounce, DIM_SCATTER_B, u3, u4);
+          const float zz = 1.0f - 2.0f * u1;
+          const float rr = sqrtf(fmaxf(0.0f, 1.0f - zz * zz));
+          const float phi = TWO_PI * u2;
+          float sp, cp;
+          sincos_(phi, sp, cp);
+          const float ru[3] = {rr * cp, rr * sp, zz};
+
+          float new_d[3];
+          float att[3] = {alb[0], alb[1], alb[2]};
+          bool ok = true;
+          if (has_metal && mk == MAT_METAL) {
+            // material.h:49-56 with a fuzzed mirror direction.
+            const float inv_len = rsqrt_(a_len > 0.0f ? a_len : 1.0f);
+            const float ud[3] = {d[0] * inv_len, d[1] * inv_len, d[2] * inv_len};
+            const float cr = u3 > 0.0f
+                ? expf(logf(fmaxf(u3, 1e-38f)) * (1.0f / 3.0f)) : 0.0f;
+            const float fuzz = r[C_FUZZ];
+            const float uddn = dot3(ud, n);
+#pragma unroll
+            for (int k = 0; k < 3; ++k)
+              new_d[k] = ud[k] - n[k] * (2.0f * uddn) + (ru[k] * cr) * fuzz;
+            ok = dot3(new_d, n) > 0.0f;
+          } else if (has_diel && mk == MAT_DIELECTRIC) {
+            // material.h:66-90: refract or reflect (Schlick), vec3.refract
+            // with the 1e-12 floors.
+            const float inv_len = rsqrt_(a_len > 0.0f ? a_len : 1.0f);
+            const float ud[3] = {d[0] * inv_len, d[1] * inv_len, d[2] * inv_len};
+            const float ir = r[C_IR];
+            const float ratio = front ? 1.0f / ir : ir;
+            const float uddn = dot3(ud, n);
+            const float cos_t = fminf(-uddn, 1.0f);
+            const float sin_t = sqrtf(fmaxf(1e-12f, 1.0f - cos_t * cos_t));
+            const bool cannot = ratio * sin_t > 1.0f;
+            float r0 = (1.0f - ratio) / (1.0f + ratio);
+            r0 = r0 * r0;
+            const float x = 1.0f - cos_t;
+            const float refl = r0 + (1.0f - r0) * (x * ((x * x) * (x * x)));
+            if (cannot || refl > u4) {
+#pragma unroll
+              for (int k = 0; k < 3; ++k) new_d[k] = ud[k] - n[k] * (2.0f * uddn);
+            } else {
+              float perp[3];
+#pragma unroll
+              for (int k = 0; k < 3; ++k) perp[k] = (ud[k] + n[k] * cos_t) * ratio;
+              const float p2 = dot3(perp, perp);
+              const float par = -sqrtf(fmaxf(fabsf(1.0f - p2), 1e-12f));
+#pragma unroll
+              for (int k = 0; k < 3; ++k) new_d[k] = perp[k] + n[k] * par;
+            }
+            att[0] = att[1] = att[2] = 1.0f;
+            // Attenuation 1: the sentinel id routes no albedo gradient.
+            if constexpr (RECORD) tid = rec.n_textures;
+          } else {
+            // lambertian (material.h:29-36)
+            const float lam[3] = {n[0] + ru[0], n[1] + ru[1], n[2] + ru[2]};
+            const bool degenerate = fabsf(lam[0]) < NEAR_ZERO_EPS &&
+                                    fabsf(lam[1]) < NEAR_ZERO_EPS &&
+                                    fabsf(lam[2]) < NEAR_ZERO_EPS;
+#pragma unroll
+            for (int k = 0; k < 3; ++k) new_d[k] = degenerate ? n[k] : lam[k];
+          }
+          if (ok) {
+            scattered = true;
+            if constexpr (RECORD) ev = 1;
+#pragma unroll
+            for (int k = 0; k < 3; ++k) {
+              tp[k] = tp[k] * att[k];
+              o[k] = hp[k];
+              d[k] = new_d[k];
+            }
+          }
+        }
+      }
+
+      // ---- carry update + regeneration (integrator._advance + regen body)
+      bounce += 1u;
+      seg += scattered ? 1 : 0;
+      const bool ended = !(scattered && bounce < (uint32_t)p.max_depth);
+      if constexpr (RECORD) {
+        if (it < rec.iters) {
+          const size_t row = (size_t)it * p.n + lane;
+          rec.codes[row] = (ev > 0 ? tid * 16 : 0) + (odd ? 8 : 0) +
+                           (ended ? 4 : 0) + ev;
+          const size_t plane = (size_t)rec.iters * p.n;
+          rec.tprev[row] = tp_entry[0];
+          rec.tprev[plane + row] = tp_entry[1];
+          rec.tprev[2 * plane + row] = tp_entry[2];
+        }
+        ++it;
+      }
+      if (ended) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          acc[k] = acc[k] + path[k];
+          path[k] = 0.0f;
+        }
+        sample += p.stride;
+        alive = sample < p.limit;
+        if (alive) {
+          cam_rays(p, pix, sample, fi, fj, o, d, tm);
+          tp[0] = tp[1] = tp[2] = 1.0f;
+          bounce = 0;
+          seg += 1;
+        } else if (fetch) {
+          // Lane fetch: this thread's lane is spent; it takes the next one in
+          // this same loop step, so it never waits for its warp's other
+          // lanes.
+          finish(lane);
+          lane = next_live_lane();
+          if (lane < p.n) start(lane);
+        }
       }
     }
+    // Without lane fetch the loop ends with the lane; with it, only when no
+    // lane is left (each spent lane was finished above).
+    if (lane < p.n) finish(lane);
   }
 
-  out_x[lane] = acc[0];
-  out_y[lane] = acc[1];
-  out_z[lane] = acc[2];
-  out_seg[lane] = seg;
-  if constexpr (RECORD) {
-    // Rows past this lane's end are zero (idle rows: the replay skips them).
-    const size_t plane = (size_t)rec.iters * p.n;
-    for (; it < rec.iters; ++it) {
-      const size_t row = (size_t)it * p.n + lane;
-      rec.codes[row] = 0;
-      rec.tprev[row] = 0.0f;
-      rec.tprev[plane + row] = 0.0f;
-      rec.tprev[2 * plane + row] = 0.0f;
-    }
-  }
   if constexpr (COUNT) {
     const unsigned long long v[TALLIES] = {
         tl.slabs, tl.spheres, tl.slab_steps, tl.slab_active, tl.leaf_steps,
-        tl.leaf_active, tl.ground};
+        tl.leaf_active, tl.ground, tl.rects, tl.loop_steps, tl.loop_active};
 #pragma unroll
     for (int k = 0; k < TALLIES; ++k) {
       if (v[k]) atomicAdd(tly.out + k, v[k]);
+    }
+    __syncthreads();
+    if (threadIdx.x < (blockDim.x + 31) / 32) {
+      atomicMax(tly.out + TALLY_WARP_MAX, warp_loops[threadIdx.x]);
+    }
+    if (threadIdx.x == 0 && tly.times != nullptr) {
+      tly.times[2 * blockIdx.x] = t_start;
+      tly.times[2 * blockIdx.x + 1] = global_ns();
     }
   }
 }
@@ -836,21 +1009,22 @@ __global__ void threefry_words_kernel(uint32_t seed, uint32_t key1,
 // `tab` the compact tables of n_nodes nodes and n_spheres leaf-order spheres,
 // n_spheres widened rows, no rect rows, and smem_bytes either 0 (the walk
 // reads device memory) or the tables' size (each block copies them into
-// shared memory).
+// shared memory).  Sweep mode: `tab` the sweep's tables, smem_bytes 0 and
+// `next` the lane counter of lane fetch (or null).
 cudaError_t make_params(int n_spheres, int n_rects, const float* tab,
                         int n_nodes, int leaf_size, int smem_bytes,
                         const float* camc, int n, uint32_t seed,
                         uint32_t limit, uint32_t stride, int width, int height,
                         int max_depth, float t_min, int flags, int block,
-                        Params& p) {
+                        int* next, Params& p) {
   if (n_spheres < 0 || n_rects < 0 || n_nodes < 0 || n < 0 || width < 2 ||
-      height < 2 || stride == 0 || block <= 0) {
+      height < 2 || stride == 0 || block <= 0 || tab == nullptr) {
     return cudaErrorInvalidValue;
   }
   const long long tab_bytes =
       16LL * (NODE_F4 * (long long)n_nodes + SPHERE_F4 * (long long)n_spheres);
-  if (n_nodes > 0 ? (tab == nullptr || n_rects != 0 || n_spheres < 1 ||
-                     leaf_size < 1 || leaf_size >= META_SCALE ||
+  if (n_nodes > 0 ? (n_rects != 0 || n_spheres < 1 || leaf_size < 1 ||
+                     leaf_size >= META_SCALE || next != nullptr ||
                      (smem_bytes != 0 && (smem_bytes != tab_bytes ||
                                           smem_bytes > MAX_SMEM)))
                   : (n_spheres + n_rects > MAX_ROWS ||
@@ -876,6 +1050,27 @@ cudaError_t make_params(int n_spheres, int n_rects, const float* tab,
   p.n_nodes = n_nodes;
   p.leaf_size = leaf_size;
   p.smem_bytes = smem_bytes;
+  p.next = next;
+  return cudaSuccess;
+}
+
+// Blocks of a lane-fetch launch: as many as the card holds at once (the
+// occupancy of the sweep instance at `block` x the SM count), at most one
+// per `block` lanes.
+cudaError_t fetch_grid(int block, int n, int& grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, mega_forward_kernel<SWEEP>, block, 0);
+  }
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int need = (n + block - 1) / block;
+  grid = need < per_sm * sms ? need : per_sm * sms;
   return cudaSuccess;
 }
 
@@ -892,7 +1087,14 @@ cudaError_t launch_walk(const float* rows, const uint32_t* pixel_ids,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  mega_forward_kernel<WALK><<<(p.n + block - 1) / block, block, smem, s>>>(
+  int grid = (p.n + block - 1) / block;
+  if (WALK == SWEEP && p.next != nullptr) {
+    // Lane fetch: a persistent grid, and the counter from lane 0.
+    cudaError_t e = fetch_grid(block, p.n, grid);
+    if (e == cudaSuccess) e = cudaMemsetAsync(p.next, 0, sizeof(int), s);
+    if (e != cudaSuccess) return e;
+  }
+  mega_forward_kernel<WALK><<<grid, block, smem, s>>>(
       rows, pixel_ids, sample_ids0, p, out_x, out_y, out_z, out_seg, rec, tly);
   return cudaGetLastError();
 }
@@ -908,11 +1110,7 @@ cudaError_t launch(const float* rows, const uint32_t* pixel_ids,
 #define ART_LAUNCH(WALK)                                                    \
   launch_walk<WALK>(rows, pixel_ids, sample_ids0, p, block, out_x, out_y,    \
                     out_z, out_seg, rec, tly, s)
-#ifdef ART_COUNT
-  if (p.n_nodes == 0) return cudaErrorInvalidValue;
-#else
   if (p.n_nodes == 0) return ART_LAUNCH(SWEEP);
-#endif
   return p.smem_bytes ? ART_LAUNCH(ACCEL_SHARED) : ART_LAUNCH(ACCEL_GLOBAL);
 #undef ART_LAUNCH
 }
@@ -921,19 +1119,22 @@ cudaError_t launch(const float* rows, const uint32_t* pixel_ids,
 
 // The launch arguments of every build: the rows (sweep: n_spheres sphere
 // rows then n_rects rect rows, at most 64; accel: n_spheres widened leaf
-// rows [N+pad][32] and n_rects 0), the accel walk's compact tables, node
-// count and leaf size (accel mode when n_nodes > 0; tab may be null in sweep
-// mode) and the shared-memory bytes of its tables (0: device memory), then
-// the camera, the lanes and the render constants.  `camc` is a HOST array of
-// 24 floats (copied into the kernel's arguments); every other pointer is
-// device memory.
+// rows [N+pad][32] and n_rects 0; both read for the winner's material
+// columns), the compact tables (sweep: pack_sweep_tables; accel: the walk's
+// nodes and spheres), node count and leaf size (accel mode when n_nodes >
+// 0) and the shared-memory bytes of the accel tables (0: device memory),
+// then the camera, the lanes and the render constants.  `camc` is a HOST
+// array of 24 floats (copied into the kernel's arguments); every other
+// pointer is device memory.  `lane_counter` (forward and counting builds):
+// one int of device memory, zeroed by the launch, that selects lane fetch
+// in sweep mode (null: one lane per thread).
 
 #if defined(ART_RECORD)
 // Launches the record instance (K2, or K3's in accel mode) on `stream`:
-// art_mega_forward's arguments plus the residual outputs codes
-// [record_iters][n] int32 and tprev [3][record_iters][n] f32 (device memory,
-// every element written) and the texture count (the dielectric sentinel
-// id).  Returns cudaGetLastError() (0 on success).
+// art_mega_forward's arguments (without the lane counter) plus the residual
+// outputs codes [record_iters][n] int32 and tprev [3][record_iters][n] f32
+// (device memory, every element written) and the texture count (the
+// dielectric sentinel id).  Returns cudaGetLastError() (0 on success).
 extern "C" int art_mega_record(const float* rows, int n_spheres, int n_rects,
                                const float* tab, int n_nodes, int leaf_size,
                                int smem_bytes, const float* camc,
@@ -948,7 +1149,8 @@ extern "C" int art_mega_record(const float* rows, int n_spheres, int n_rects,
   Params p;
   const cudaError_t bad = make_params(
       n_spheres, n_rects, tab, n_nodes, leaf_size, smem_bytes, camc, n, seed,
-      limit, stride, width, height, max_depth, t_min, flags, block, p);
+      limit, stride, width, height, max_depth, t_min, flags, block, nullptr,
+      p);
   if (bad != cudaSuccess) return (int)bad;
   if (record_iters < 1 || codes == nullptr || tprev == nullptr) {
     return (int)cudaErrorInvalidValue;
@@ -956,15 +1158,16 @@ extern "C" int art_mega_record(const float* rows, int n_spheres, int n_rects,
   return (int)launch(rows, pixel_ids, sample_ids0, p, block, out_x, out_y,
                      out_z, out_seg,
                      Record{codes, tprev, record_iters, n_textures},
-                     Tallies{nullptr, -1}, stream);
+                     Tallies{nullptr, -1, nullptr}, stream);
 }
 #elif defined(ART_COUNT)
-// Launches K3's counting instance on `stream`: art_mega_forward's arguments
-// (accel mode only) plus the node of the leaf tallied apart, and `tallies`,
-// TALLIES u64 totals in device memory that the launch adds to: slab tests, sphere
-// tests, slab warp steps, their active lanes, leaf warp steps, their active
-// lanes, sphere tests in the ground node's leaf.  Returns
-// cudaGetLastError() (0 on success).
+// Launches the counting instance on `stream` (the sweep, with or without
+// lane fetch, or K3's walk): art_mega_forward's arguments plus the node of
+// the leaf tallied apart (accel mode), `tallies`, TALLIES + 1 u64 totals in
+// device memory that the launch adds to (Tally's fields in order, then the
+// largest loop-step count of one warp, kept by atomicMax), and `times`
+// (null, or 2 u64 per block of the grid: the block's start and end
+// %globaltimer in ns).  Returns cudaGetLastError() (0 on success).
 extern "C" int art_mega_count(const float* rows, int n_spheres, int n_rects,
                               const float* tab, int n_nodes, int leaf_size,
                               int smem_bytes, const float* camc,
@@ -974,17 +1177,19 @@ extern "C" int art_mega_count(const float* rows, int n_spheres, int n_rects,
                               int width, int height, int max_depth,
                               float t_min, int flags, int block, float* out_x,
                               float* out_y, float* out_z, int* out_seg,
-                              int ground_node, unsigned long long* tallies,
-                              void* stream) {
+                              int* lane_counter, int ground_node,
+                              unsigned long long* tallies,
+                              unsigned long long* times, void* stream) {
   Params p;
   const cudaError_t bad = make_params(
       n_spheres, n_rects, tab, n_nodes, leaf_size, smem_bytes, camc, n, seed,
-      limit, stride, width, height, max_depth, t_min, flags, block, p);
+      limit, stride, width, height, max_depth, t_min, flags, block,
+      lane_counter, p);
   if (bad != cudaSuccess) return (int)bad;
   if (tallies == nullptr) return (int)cudaErrorInvalidValue;
   return (int)launch(rows, pixel_ids, sample_ids0, p, block, out_x, out_y,
-                     out_z, out_seg, Record{}, Tallies{tallies, ground_node},
-                     stream);
+                     out_z, out_seg, Record{},
+                     Tallies{tallies, ground_node, times}, stream);
 }
 #else
 // Launches the forward instance (K1, or K3's in accel mode) on `stream`.
@@ -998,14 +1203,17 @@ extern "C" int art_mega_forward(const float* rows, int n_spheres, int n_rects,
                                 int width, int height, int max_depth,
                                 float t_min, int flags, int block,
                                 float* out_x, float* out_y, float* out_z,
-                                int* out_seg, void* stream) {
+                                int* out_seg, int* lane_counter,
+                                void* stream) {
   Params p;
   const cudaError_t bad = make_params(
       n_spheres, n_rects, tab, n_nodes, leaf_size, smem_bytes, camc, n, seed,
-      limit, stride, width, height, max_depth, t_min, flags, block, p);
+      limit, stride, width, height, max_depth, t_min, flags, block,
+      lane_counter, p);
   if (bad != cudaSuccess) return (int)bad;
   return (int)launch(rows, pixel_ids, sample_ids0, p, block, out_x, out_y,
-                     out_z, out_seg, Record{}, Tallies{nullptr, -1}, stream);
+                     out_z, out_seg, Record{}, Tallies{nullptr, -1, nullptr},
+                     stream);
 }
 
 // threefry-2x32 (13 rounds) words and their uniforms for key (seed, key1) and

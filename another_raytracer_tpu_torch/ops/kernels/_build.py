@@ -27,8 +27,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # target -> (source in csrc/, extra nvcc flags).  The megakernel source is
 # built three times: its forward instances (K1, K3) as is, its record
 # instances (K2, K3's) without FMA contraction (csrc/mega_kernel.cu says
-# why), and K3's counting instance with the record build's arithmetic (a
-# measurement; the port's paths never launch it).  The BVH (K5) and Perlin
+# why), and its counting instances (the sweep's and K3's walk's) with the
+# record build's arithmetic (a measurement; the port's paths never launch
+# them).  The BVH (K5) and Perlin
 # (K4) kernels contract no FMA either, so they equal their plain versions
 # bit for bit.
 TARGETS = {

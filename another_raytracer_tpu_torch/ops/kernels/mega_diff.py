@@ -168,19 +168,18 @@ def _lib():
 _MAX_SMEM = 232448
 
 
-def replay_smem_bytes(T: int, block: int, shared_table: bool) -> int:
+def replay_smem_bytes(T: int, block: int, warp_tables: bool) -> int:
     """Shared-memory bytes of one replay block (``smem_bytes`` in
     csrc/mega_replay.cu): the albedo table, then the gradient columns, one
-    per thread or one for the block."""
+    per thread or one table per warp."""
     tab = 6 * (T + 1)
-    return 4 * (tab + (tab + 3) * (1 if shared_table else block))
+    return 4 * (tab + (tab + 3) * (block // 32 if warp_tables else block))
 
 
 def replay_instance(T: int):
-    """(shared_table, block) of the replay launch for T textures: the
-    deterministic per-lane columns while they fit at 32 threads or more
-    (T <= 292), else the block-wide table with atomics (csrc/mega_replay.cu
-    says why)."""
+    """(warp_tables, block) of the replay launch for T textures: the
+    per-lane columns while they fit at 32 threads or more (T <= 292), else
+    one table per warp (csrc/mega_replay.cu); both are deterministic."""
     # The per-thread columns: halve the block until they fit the default
     # 48 KB, and above that use the opt-in shared memory at 32 threads.
     block = DEFAULT_REPLAY_BLOCK
@@ -188,10 +187,14 @@ def replay_instance(T: int):
         block //= 2
     if replay_smem_bytes(T, block, False) <= _MAX_SMEM:
         return False, block
-    if replay_smem_bytes(T, DEFAULT_REPLAY_BLOCK, True) > _MAX_SMEM:
+    # The per-warp tables: halve the block (fewer tables) until they fit.
+    block = DEFAULT_REPLAY_BLOCK
+    while block > 32 and replay_smem_bytes(T, block, True) > _MAX_SMEM:
+        block //= 2
+    if replay_smem_bytes(T, block, True) > _MAX_SMEM:
         raise ValueError(f"{T} textures exceed the replay kernel's shared "
                          "memory")
-    return True, DEFAULT_REPLAY_BLOCK
+    return True, block
 
 
 def prepare_replay(codes, tprev, ghat, ca, cb, bg, flags):
@@ -202,7 +205,7 @@ def prepare_replay(codes, tprev, ghat, ca, cb, bg, flags):
     iters, B = codes.shape
     T = ca.shape[0]
     lib = _lib()
-    shared_table, block = replay_instance(T)
+    warp_tables, block = replay_instance(T)
     f32 = dict(dtype=torch.float32, device=dev)
     ins = (codes.contiguous(),
            torch.stack(tuple(tprev)).to(**f32).contiguous(),
@@ -216,7 +219,7 @@ def prepare_replay(codes, tprev, ghat, ca, cb, bg, flags):
 
     def run(_inputs=ins):  # the default keeps the tensors behind ptrs alive
         return lib.art_mega_replay(*ptrs, iters, B, T, int(flags), block,
-                                   int(shared_table), partial.data_ptr(),
+                                   int(warp_tables), partial.data_ptr(),
                                    stream)
 
     return run, partial

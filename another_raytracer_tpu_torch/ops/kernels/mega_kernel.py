@@ -57,16 +57,23 @@ spent.  The closest hit is, per mode:
   replay ignores idle rows, and so do the comparisons.
 * ``MEGA_FORWARD`` and ``enabled`` decide whether a forward render takes
   the megakernel (``ops/render.py``).
-* ``walk_tallies`` launches K3's counting instance (CUDA only, a
-  measurement): the walk's slab and sphere tests, which equal the plain
-  version's ``work`` totals, and the active-lane share of its warp steps.
+* ``walk_tallies`` and ``sweep_tallies`` launch the counting instances of
+  K3's walk and of the sweep (CUDA only, measurements): the closest hit's
+  tests, which equal the plain version's ``work`` totals, the active-lane
+  share of the warp steps and the share of the launch spent in its tail.
+* K1 takes its lanes by lane fetch (csrc/mega_kernel.cu): a persistent grid
+  whose threads take the next lane as soon as theirs is spent; the outputs
+  are those of one lane per thread (``prepare_launch(lane_fetch=False)``,
+  the mapping of the other instances), bit for bit.
 
 Geometry is pre-baked into world space per primitive row (``pack_rows``):
 spheres as (c0, c1-c0, t0, 1/dt, r), rects as world parallelograms
 (q0, eu, ev, n, d0 = n.q0, |eu|^2, |ev|^2), then shared material / texture
-columns 16-26.  Accel rows (``pack_accel_rows``) are the sphere tree's
-16-column leaf rows (c0, c1-c0, t0, 1/dt, r, code) widened by the same
-material columns.
+columns 16-26.  The sweep reads the geometry regrouped into 16-byte rows
+(``pack_sweep_tables``), the material columns from the rows.  Accel rows
+(``pack_accel_rows``) are the sphere tree's 16-column leaf rows (c0, c1-c0,
+t0, 1/dt, r, code) widened by the same material columns, and the walk reads
+``pack_accel_tables``.
 """
 
 from __future__ import annotations
@@ -91,10 +98,13 @@ _C_CA, _C_CB = 20, 23
 _C_TID = 26  # texture id (exact in f32)
 # Rows the kernel keeps in shared memory (64 x 32 f32 = 8 KB).
 MAX_ROWS = 64
-# Threads per CUDA block (one thread per lane).  Measured for the accel
-# instances too (chip_smoke.py times K3 at 64-512, PERF.md): 128 beat 64,
-# 256, 384 and 512 on the scene-1 README render and at the bench size.
+# Threads per CUDA block, by instance, as measured (chip_smoke.py times K1
+# and K3 at 64-512, PERF.md).  K3 and its record instance: 128 beat 64, 256,
+# 384 and 512 on the scene-1 README render and at the bench size, and the
+# record instances keep it.  K1 with lane fetch: 384 (two blocks of 62
+# registers per SM) beat 64-256 and 512 on the Cornell README render.
 DEFAULT_BLOCK = 128
+K1_BLOCK = 384
 
 # Bits of the kernel's ``flags`` argument (csrc/mega_kernel.cu, enum Flags).
 _HAS_LENS, _HAS_TIME, _HAS_METAL, _HAS_DIEL, _HAS_LIGHT, _HAS_CHECKER = (
@@ -265,6 +275,27 @@ def pack_rows(scene):
     return torch.cat(parts, dim=0).reshape(-1).contiguous()
 
 
+def pack_sweep_tables(scene, rows=None):
+    """The sweep's compact tables as one [3 Ns + 4 Nr, 4] f32 tensor (float4
+    rows, 16-byte aligned): per sphere row of ``pack_rows`` (c0.xyz, r) |
+    (c1 - c0, t0) | (1/dt, 0, 0, 0), then per rect row (n.xyz, n.q0) |
+    (q0.xyz, |eu|^2) | (eu.xyz, |ev|^2) | (ev.xyz, 0).  The same values as
+    the rows' geometry columns, regrouped; ``rows`` is ``pack_rows(scene)``
+    where the caller has it."""
+    if rows is None:
+        rows = pack_rows(scene)
+    rows = rows.reshape(-1, ROW_W)
+    ns = scene.n_spheres
+    s, q = rows[:ns], rows[ns:]
+    zero = torch.zeros_like(rows[:, :3])
+    sph4 = torch.stack([s[:, [1, 2, 3, 9]], s[:, [4, 5, 6, 7]],
+                        torch.cat([s[:, 8:9], zero[:ns]], 1)], 1)
+    rect4 = torch.stack([q[:, [10, 11, 12, 13]], q[:, [1, 2, 3, 14]],
+                         q[:, [4, 5, 6, 15]],
+                         torch.cat([q[:, 7:10], zero[ns:, :1]], 1)], 1)
+    return torch.cat([sph4.reshape(-1, 4), rect4.reshape(-1, 4)]).contiguous()
+
+
 def pack_accel_rows(scene):
     """[N+pad, ROW_W] f32 rows of the accel mode (mega_kernel.py:786-790):
     the sphere tree's 16-column leaf rows widened with the material columns
@@ -335,7 +366,7 @@ def _check_lanes(pixel_ids, sample_ids0, scene=None):
 def trace_regenerative_mega(scene, cam, pixel_ids, sample_ids0, seed, *,
                             width: int, height: int, sample_stride: int,
                             sample_end, spp_cap, max_depth: int, t_min: float,
-                            block: int = DEFAULT_BLOCK, record_iters: int = 0):
+                            block: int | None = None, record_iters: int = 0):
     """Drop-in counterpart of the JAX ``trace_regenerative_mega`` (same
     arguments and return contract) for scenes where ``supports()`` or
     ``supports_accel()`` holds; a scene with a sphere tree runs the accel
@@ -343,7 +374,8 @@ def trace_regenerative_mega(scene, cam, pixel_ids, sample_ids0, seed, *,
 
     ``pixel_ids`` / ``sample_ids0`` are int64 [B] tensors of uint32 values;
     lanes whose first sample is >= min(sample_end, spp_cap) (for example
-    0xFFFFFFFF) are born dead.  ``block`` is the CUDA block size (threads).
+    0xFFFFFFFF) are born dead.  ``block`` is the CUDA block size (threads;
+    default ``K1_BLOCK`` for K1, else ``DEFAULT_BLOCK``).
     Returns (radiance V3 of [B] per-lane sums, segments as an int64 scalar
     tensor); with ``record_iters`` > 0 also (codes int32 [record_iters, B],
     tprev V3 of [record_iters, B]) — see the module docstring.
@@ -403,8 +435,8 @@ def _u32_bits(x):
 
 def _lib(build="forward"):
     """The forward build (K1 and K3's forward instance, threefry check), the
-    record build (K2 and K3's record instance) or the counting build (K3's
-    counting instance)."""
+    record build (K2 and K3's record instance) or the counting build (the
+    counting instances of the sweep and of K3's walk)."""
     from another_raytracer_tpu_torch.ops.kernels import _build
 
     P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
@@ -417,20 +449,25 @@ def _lib(build="forward"):
         return lib
     if build == "count":
         lib = _build.load("mega_kernel_count")
-        lib.art_mega_count.argtypes = args + [I, P, P]
+        lib.art_mega_count.argtypes = args + [P, I, P, P, P]
         lib.art_mega_count.restype = I
         return lib
     lib = _build.load("mega_kernel")
-    lib.art_mega_forward.argtypes = args + [P]
+    lib.art_mega_forward.argtypes = args + [P, P]
     lib.art_mega_forward.restype = I
     lib.art_threefry_words.argtypes = [U, U, P, P, I, P, P, P, P, P]
     lib.art_threefry_words.restype = I
     return lib
 
 
-# The counting instance's totals, in the order csrc/mega_kernel.cu adds them.
+# The counting instance's totals, in the order csrc/mega_kernel.cu adds
+# them: K3's walk (slab tests, sphere tests, the active lanes of its slab and
+# leaf warp steps, sphere tests in the ground's leaf), the sweep's rect row
+# tests (its sphere row tests are ``sphere_tests``), the warp steps of the
+# lane loop and their active lanes, and the most loop steps of one warp.
 TALLIES = ("slab_tests", "sphere_tests", "slab_steps", "slab_active",
-           "leaf_steps", "leaf_active", "ground_tests")
+           "leaf_steps", "leaf_active", "ground_tests", "rect_tests",
+           "loop_steps", "loop_active", "warp_loop_steps_max")
 
 
 def _ground_node(scene) -> int:
@@ -443,24 +480,42 @@ def _ground_node(scene) -> int:
     return int(leaf[0, 0])
 
 
+def launch_shape(scene, record_iters=0, lane_fetch=True, block=None):
+    """(block size, lane fetch) of a launch: lane fetch only in the sweep's
+    forward and counting instances (K1 runs a persistent grid whose threads
+    take the next lane as soon as theirs is spent, csrc/mega_kernel.cu), and
+    the block ``K1_BLOCK`` with lane fetch, else ``DEFAULT_BLOCK``, unless
+    ``block`` is given."""
+    fetch = bool(lane_fetch) and scene.n_sph_bvh_nodes == 0 and not record_iters
+    if block is None:
+        block = K1_BLOCK if fetch else DEFAULT_BLOCK
+    return int(block), fetch
+
+
 def prepare_launch(scene, cam, pixel_ids, sample_ids0, seed, *, width,
                    height, sample_stride, sample_end, spp_cap, max_depth,
-                   t_min, block=DEFAULT_BLOCK, record_iters=0, tally=False):
+                   t_min, block=None, record_iters=0, tally=False,
+                   lane_fetch=True):
     """Everything one CUDA launch needs, built on the lanes' device: returns
     (run, output tensors).  ``run()`` is the bare launch (it returns the
     CUDA error code); the wrapper adds the checks, the launch count and the
-    segment sum.  ``tally`` (accel mode only) selects the counting instance,
-    whose outputs end in the u64 totals of ``TALLIES`` (as int64)."""
+    segment sum.  ``tally`` selects the counting instance, whose outputs end
+    in the u64 totals of ``TALLIES`` (as int64) and each block's start and
+    end time ([blocks, 2] int64 ns, zero for blocks the grid did not hold).
+    ``lane_fetch`` applies to the sweep's forward and counting instances: a
+    persistent grid with lane fetch, or one lane per thread (as the other
+    instances run); each lane's outputs are the same bits either way.  ``block``
+    defaults to ``K1_BLOCK`` with lane fetch, else ``DEFAULT_BLOCK``."""
     dev = pixel_ids.device
     if sample_stride < 1:
         raise ValueError("sample_stride must be >= 1")
     _check_record_iters(record_iters, sample_end=sample_end, spp_cap=spp_cap,
                         sample_stride=sample_stride, max_depth=max_depth)
-    accel = scene.n_sph_bvh_nodes > 0
-    if tally and (record_iters or not accel):
-        raise ValueError("tally counts the accel mode's walk, without "
-                         "record_iters")
+    if tally and record_iters:
+        raise ValueError("tally counts a forward launch, without record_iters")
     lib = _lib("count" if tally else "record" if record_iters else "forward")
+    accel = scene.n_sph_bvh_nodes > 0
+    block, fetch = launch_shape(scene, record_iters, lane_fetch, block)
     if accel:
         # K3: the widened leaf rows (all of them, pad rows included: the
         # material columns) and the walk's compact tables, copied into each
@@ -471,8 +526,11 @@ def prepare_launch(scene, cam, pixel_ids, sample_ids0, seed, *, width,
         geometry = (rows, rows.shape[0], 0, tab, scene.n_sph_bvh_nodes,
                     scene.bvh_leaf_size, smem)
     else:
+        # The sweep: its compact tables (copied into each block's shared
+        # memory) and the rows, read for the winner's material columns.
         rows = pack_rows(scene)
-        geometry = (rows, scene.n_spheres, scene.n_rects, None, 0, 0, 0)
+        geometry = (rows, scene.n_spheres, scene.n_rects,
+                    pack_sweep_tables(scene, rows), 0, 0, 0)
     camc = pack_camera(scene, cam)
     limit = min(int(sample_end), int(spp_cap), rng.MASK32)
     pix = _u32_bits(pixel_ids)
@@ -486,6 +544,9 @@ def prepare_launch(scene, cam, pixel_ids, sample_ids0, seed, *, width,
             int(seed) & rng.MASK32, limit, int(sample_stride), int(width),
             int(height), int(max_depth), float(t_min), _flags(scene, cam),
             int(block), *out, seg)
+    # The launch zeroes the counter itself.
+    counter = (torch.empty(1, dtype=torch.int32, device=dev) if fetch
+               else None)
     if record_iters:
         # The kernel writes every residual element (rows past a lane's end
         # as zeros), so the buffers need no clearing.
@@ -497,11 +558,14 @@ def prepare_launch(scene, cam, pixel_ids, sample_ids0, seed, *, width,
         outputs = (out, seg, codes, tprev)
     elif tally:
         totals = torch.zeros(len(TALLIES), dtype=torch.int64, device=dev)
+        times = torch.zeros((-(-B // int(block)), 2), dtype=torch.int64,
+                            device=dev)
         entry = lib.art_mega_count
-        args += (_ground_node(scene), totals)
-        outputs = (out, seg, totals)
+        args += (counter, _ground_node(scene) if accel else -1, totals, times)
+        outputs = (out, seg, totals, times)
     else:
         entry = lib.art_mega_forward
+        args += (counter,)
         outputs = (out, seg)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -538,38 +602,96 @@ def _launch(scene, cam, pixel_ids, sample_ids0, seed, *, block, record_iters,
     return total, segments
 
 
-def walk_tallies(scene, cam, pixel_ids, sample_ids0, seed, *, width, height,
-                 sample_stride, sample_end, spp_cap, max_depth, t_min,
-                 block=DEFAULT_BLOCK):
-    """K3's counting instance on CUDA lanes (a measurement; the render paths
-    never launch it): the forward render with the record build's arithmetic,
-    so its paths, radiance and walk are the plain version's.  Returns
-    (radiance V3, segments, {tally: int}) with the ``TALLIES`` and the
-    active-lane shares ``slab_simt`` and ``leaf_simt`` (active lanes / (32 x
-    warp steps)) and ``ground_share`` (the ground leaf's share of the sphere
-    tests)."""
+def tail_share(times):
+    """The share of the SM-slot time a launch spent in its tail, from each
+    block's start and end (``prepare_launch``'s ``times``, ns): a block that
+    ends after the last block started is the last on its slot, so its slot
+    is idle from its end to the launch's end.  Returns (tail share, slots,
+    launch ms on the device clock) with tail share = sum of those idle
+    times / (slots x launch time)."""
+    t = times[times[:, 0] > 0].to(torch.float64)
+    start, end = t[:, 0], t[:, 1]
+    t0, t1 = float(start.min()), float(end.max())
+    last = end >= float(start.max())
+    idle = float((t1 - end[last]).sum())
+    slots = int(last.sum())
+    return idle / max(slots * (t1 - t0), 1.0), slots, (t1 - t0) / 1e6
+
+
+def _tallies(scene, cam, pixel_ids, sample_ids0, seed, *, block, lane_fetch,
+             **kw):
+    """One counting launch: (radiance V3, segments, {tally: int}) with the
+    ``TALLIES``, the loop's active-lane share ``loop_simt`` (active lanes /
+    (32 x warp steps)), the ``blocks`` that ran and the launch's
+    ``tail_share``, ``slots`` and ``launch_ms`` (``tail_share``)."""
     if pixel_ids.device.type != "cuda":
-        raise ValueError("walk_tallies needs CUDA tensors")
-    if not supports_accel(scene, cam):
-        raise ValueError("walk_tallies counts the accel mode's walk")
+        raise ValueError("the counting instance needs CUDA tensors")
     _check_lanes(pixel_ids, sample_ids0, scene)
-    run, (out, seg, totals) = prepare_launch(
-        scene, cam, pixel_ids, sample_ids0, seed, width=width, height=height,
-        sample_stride=sample_stride, sample_end=sample_end, spp_cap=spp_cap,
-        max_depth=max_depth, t_min=t_min, block=block, tally=True)
+    run, (out, seg, totals, times) = prepare_launch(
+        scene, cam, pixel_ids, sample_ids0, seed, block=block, tally=True,
+        lane_fetch=lane_fetch, **kw)
     with torch.cuda.device(pixel_ids.device):
         err = run()
     if err != 0:
         raise RuntimeError(f"mega_kernel count launch failed: CUDA error {err}")
-    walk_tallies.launches += 1
     t = dict(zip(TALLIES, totals.tolist()))
-    t.update(slab_simt=t["slab_active"] / max(32 * t["slab_steps"], 1),
-             leaf_simt=t["leaf_active"] / max(32 * t["leaf_steps"], 1),
-             ground_share=t["ground_tests"] / max(t["sphere_tests"], 1))
+    t["block"] = launch_shape(scene, 0, lane_fetch, block)[0]
+    t["loop_simt"] = t["loop_active"] / max(32 * t["loop_steps"], 1)
+    times = times.cpu()
+    t["blocks"] = int((times[:, 0] > 0).sum())
+    t["tail_share"], t["slots"], t["launch_ms"] = tail_share(times)
     return V3(*out), seg.sum(dtype=torch.int64), t
 
 
+def walk_tallies(scene, cam, pixel_ids, sample_ids0, seed, *, width, height,
+                 sample_stride, sample_end, spp_cap, max_depth, t_min,
+                 block=None):
+    """K3's counting instance on CUDA lanes (a measurement; the render paths
+    never launch it): the forward render with the record build's arithmetic,
+    so its paths, radiance and walk are the plain version's.  Returns
+    (radiance V3, segments, {tally: value}) with ``_tallies``' entries and
+    the walk's active-lane shares ``slab_simt`` and ``leaf_simt`` (active
+    lanes / (32 x warp steps)) and ``ground_share`` (the ground leaf's share
+    of the sphere tests)."""
+    if not supports_accel(scene, cam):
+        raise ValueError("walk_tallies counts the accel mode's walk")
+    rad, segs, t = _tallies(
+        scene, cam, pixel_ids, sample_ids0, seed, width=width, height=height,
+        sample_stride=sample_stride, sample_end=sample_end, spp_cap=spp_cap,
+        max_depth=max_depth, t_min=t_min, block=block, lane_fetch=False)
+    walk_tallies.launches += 1
+    t.update(slab_simt=t["slab_active"] / max(32 * t["slab_steps"], 1),
+             leaf_simt=t["leaf_active"] / max(32 * t["leaf_steps"], 1),
+             ground_share=t["ground_tests"] / max(t["sphere_tests"], 1))
+    return rad, segs, t
+
+
 walk_tallies.launches = 0
+
+
+def sweep_tallies(scene, cam, pixel_ids, sample_ids0, seed, *, width, height,
+                  sample_stride, sample_end, spp_cap, max_depth, t_min,
+                  block=None, lane_fetch=True):
+    """The sweep's counting instance on CUDA lanes (a measurement; the render
+    paths never launch it): K1's launch (``lane_fetch`` as in
+    ``prepare_launch``; without it, K2's lane mapping) with the record
+    build's arithmetic, so its paths and radiance are the plain version's,
+    and its sphere and rect row tests equal the plain version's ``work``.
+    Returns (radiance V3, segments, {tally: value}) with ``_tallies``'
+    entries and ``rows_per_segment``."""
+    if not supports(scene, cam):
+        raise ValueError("sweep_tallies counts the sweep")
+    rad, segs, t = _tallies(
+        scene, cam, pixel_ids, sample_ids0, seed, width=width, height=height,
+        sample_stride=sample_stride, sample_end=sample_end, spp_cap=spp_cap,
+        max_depth=max_depth, t_min=t_min, block=block, lane_fetch=lane_fetch)
+    sweep_tallies.launches += 1
+    t["rows_per_segment"] = ((t["sphere_tests"] + t["rect_tests"])
+                             / max(int(segs), 1))
+    return rad, segs, t
+
+
+sweep_tallies.launches = 0
 
 
 def threefry_words_cuda(seed: int, key1: int, pixel, sample):
@@ -612,9 +734,11 @@ def trace_regenerative_mega_reference(scene, cam, pixel_ids, sample_ids0, seed,
     alive; a dead lane changes nothing, so each lane's result equals the
     kernel's own per-lane loop, and loop iteration ``it`` is every alive
     lane's own ``it``-th iteration (the record row).  Same return contract
-    as the wrapper; with ``work`` (accel mode) the result also ends in the
-    walk's totals (slab tests, sphere tests), the work K3 does on these
-    inputs, which its counting instance (``walk_tallies``) must equal."""
+    as the wrapper; with ``work`` the result also ends in the closest hit's
+    totals, the work the kernel does on these inputs, which its counting
+    instance must equal: in accel mode the walk's (slab tests, sphere tests)
+    (``walk_tallies``), in sweep mode the (sphere row tests, rect row tests)
+    of every alive lane's every loop iteration (``sweep_tallies``)."""
     _check_lanes(pixel_ids, sample_ids0, scene)
     _check_record_iters(record_iters, sample_end=sample_end, spp_cap=spp_cap,
                         sample_stride=sample_stride, max_depth=max_depth)
@@ -622,8 +746,6 @@ def trace_regenerative_mega_reference(scene, cam, pixel_ids, sample_ids0, seed,
         raise ValueError("trace_regenerative_mega_reference: scene not "
                          "supported (see supports() and supports_accel())")
     accel = scene.n_sph_bvh_nodes > 0
-    if work and not accel:
-        raise ValueError("work counts the accel mode's walk")
     f32 = np.float32
     if accel:
         rows = pack_accel_rows(scene)
@@ -636,7 +758,9 @@ def trace_regenerative_mega_reference(scene, cam, pixel_ids, sample_ids0, seed,
         row_of[rows[:scene.n_spheres, 9].to(torch.int64) // 4] = torch.arange(
             scene.n_spheres, device=rows.device)
     else:
-        rows = pack_rows(scene).reshape(-1, ROW_W)
+        rows = pack_rows(scene)
+        tab = pack_sweep_tables(scene, rows)
+        rows = rows.reshape(-1, ROW_W)
     ns = scene.n_spheres
     camc = [float(v) for v in pack_camera(scene, cam).tolist()]
     cam_o, cam_base, cam_h, cam_v, cam_u, cam_w = (
@@ -709,7 +833,12 @@ def trace_regenerative_mega_reference(scene, cam, pixel_ids, sample_ids0, seed,
             best_t, r, b_n = _accel_hit(scene, rows, walk_rows, row_of, o, d,
                                         tm, alive, t_min, walked)
         else:
-            best_t, r, b_n = _sweep(rows, ns, o, d, tm, a_len, t_min)
+            best_t, best, b_n = _sweep(tab, ns, o, d, tm, a_len, t_min)
+            r = rows[best]
+            if work:
+                n_alive = int(alive.sum())
+                walked[0] += ns * n_alive
+                walked[1] += scene.n_rects * n_alive
         hit = alive & (best_t < BIG)
         miss_now = alive & ~hit
         tp_entry = tp
@@ -864,25 +993,28 @@ def _accel_hit(scene, rows, walk_rows, row_of, o: V3, d: V3, tm, alive,
     return best_t, r, b_n
 
 
-def _sweep(rows, ns, o: V3, d: V3, tm, a_len, t_min):
-    """Closest hit over all rows as [B, N] tensor ops.  Each row's candidate
-    t is the kernel's; the winner is the first row attaining the minimum,
-    which is what the kernel's sequential strict-`<` fold keeps.  Returns
-    (best_t [B] with BIG on a miss, the winner's row [B, ROW_W] (row 0 on a
-    miss: read only where there is a hit), hit normal V3)."""
+def _sweep(tab, ns, o: V3, d: V3, tm, a_len, t_min):
+    """Closest hit over all rows of the sweep's tables (``pack_sweep_tables``)
+    as [B, N] tensor ops.  Each row's candidate t is the kernel's; the
+    winner is the first row attaining the minimum, which is what the
+    kernel's sequential strict-`<` fold keeps.  Returns (best_t [B] with BIG
+    on a miss, the winner's row index [B] (row 0 on a miss: read only where
+    there is a hit), hit normal V3)."""
     cands = []
     inf = float("inf")
+    s = tab[:3 * ns].reshape(ns, 3, 4)
+    q = tab[3 * ns:].reshape(-1, 4, 4)
     if ns:
-        s = rows[:ns]
         inv_a = (1.0 / torch.where(a_len > 0.0, a_len,
                                    torch.ones_like(a_len)))[:, None]
-        frac = (tm[:, None] - s[:, 7]) * s[:, 8]
-        cx = s[:, 1] + frac * s[:, 4]
-        cy = s[:, 2] + frac * s[:, 5]
-        cz = s[:, 3] + frac * s[:, 6]
+        c0, dc, rad = s[:, 0, :3], s[:, 1, :3], s[:, 0, 3]
+        frac = (tm[:, None] - s[:, 1, 3]) * s[:, 2, 0]
+        cx = c0[:, 0] + frac * dc[:, 0]
+        cy = c0[:, 1] + frac * dc[:, 1]
+        cz = c0[:, 2] + frac * dc[:, 2]
         ocx, ocy, ocz = o.x[:, None] - cx, o.y[:, None] - cy, o.z[:, None] - cz
         half_b = ocx * d.x[:, None] + ocy * d.y[:, None] + ocz * d.z[:, None]
-        c = ocx * ocx + ocy * ocy + ocz * ocz - s[:, 9] * s[:, 9]
+        c = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad
         disc = half_b * half_b - a_len[:, None] * c
         ok = disc > 0.0
         sq = vec3.sqrt(torch.where(ok, disc, torch.zeros_like(disc)))
@@ -890,32 +1022,36 @@ def _sweep(rows, ns, o: V3, d: V3, tm, a_len, t_min):
         t = torch.where(root1 > t_min, root1, (-half_b + sq) * inv_a)
         valid = ok & (t > t_min) & (t < BIG)
         cands.append(torch.where(valid, t, inf))
-    if rows.shape[0] > ns:
-        q = rows[ns:]
-        ndotd = d.x[:, None] * q[:, 10] + d.y[:, None] * q[:, 11] + d.z[:, None] * q[:, 12]
-        ndoto = o.x[:, None] * q[:, 10] + o.y[:, None] * q[:, 11] + o.z[:, None] * q[:, 12]
+    if q.shape[0]:
+        nrm, q0, eu, ev = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
+        ndotd = d.x[:, None] * nrm[:, 0] + d.y[:, None] * nrm[:, 1] + d.z[:, None] * nrm[:, 2]
+        ndoto = o.x[:, None] * nrm[:, 0] + o.y[:, None] * nrm[:, 1] + o.z[:, None] * nrm[:, 2]
         ok = ndotd != 0.0
-        t = (q[:, 13] - ndoto) / torch.where(ok, ndotd, torch.ones_like(ndotd))
-        rx = o.x[:, None] + t * d.x[:, None] - q[:, 1]
-        ry = o.y[:, None] + t * d.y[:, None] - q[:, 2]
-        rz = o.z[:, None] + t * d.z[:, None] - q[:, 3]
-        a = rx * q[:, 4] + ry * q[:, 5] + rz * q[:, 6]
-        b = rx * q[:, 7] + ry * q[:, 8] + rz * q[:, 9]
-        inside = (a >= 0.0) & (a <= q[:, 14]) & (b >= 0.0) & (b <= q[:, 15])
+        t = (nrm[:, 3] - ndoto) / torch.where(ok, ndotd, torch.ones_like(ndotd))
+        rx = o.x[:, None] + t * d.x[:, None] - q0[:, 0]
+        ry = o.y[:, None] + t * d.y[:, None] - q0[:, 1]
+        rz = o.z[:, None] + t * d.z[:, None] - q0[:, 2]
+        a = rx * eu[:, 0] + ry * eu[:, 1] + rz * eu[:, 2]
+        b = rx * ev[:, 0] + ry * ev[:, 1] + rz * ev[:, 2]
+        inside = (a >= 0.0) & (a <= q0[:, 3]) & (b >= 0.0) & (b <= eu[:, 3])
         valid = ok & inside & (t > t_min) & (t < BIG)
         cands.append(torch.where(valid, t, inf))
     t_all = torch.cat(cands, dim=1)
     best_t, best = torch.min(t_all, dim=1)
     best_t = torch.where(best_t < BIG, best_t, torch.full_like(best_t, BIG))
 
-    r = rows[best]
-    b_n = V3.from_array(r[:, 10:13])
+    # The winner's normal: a rect's n; a sphere's (o + t d - c) / r from its
+    # centre at tm.
+    is_sph = best < ns
+    rq = q[torch.clamp(best - ns, min=0)] if q.shape[0] else None
+    b_n = (V3.from_array(rq[:, 0, :3]) if rq is not None
+           else V3(*(torch.zeros_like(best_t) for _ in range(3))))
     if ns:
-        # Sphere winner: outward normal from the winning row's center at tm.
-        frac = (tm - r[:, 7]) * r[:, 8]
-        center = V3(r[:, 1] + frac * r[:, 4], r[:, 2] + frac * r[:, 5],
-                    r[:, 3] + frac * r[:, 6])
-        inv_r = 1.0 / r[:, 9]
+        w = s[torch.clamp(best, max=ns - 1)]
+        frac = (tm - w[:, 1, 3]) * w[:, 2, 0]
+        center = V3(w[:, 0, 0] + frac * w[:, 1, 0], w[:, 0, 1] + frac * w[:, 1, 1],
+                    w[:, 0, 2] + frac * w[:, 1, 2])
+        inv_r = 1.0 / w[:, 0, 3]
         n_sph = ((o + d * best_t) - center) * inv_r
-        b_n = vec3.where(best < ns, n_sph, b_n)
-    return best_t, r, b_n
+        b_n = vec3.where(is_sph, n_sph, b_n)
+    return best_t, best, b_n

@@ -148,7 +148,13 @@ def _radiance_batch_diff(scene, cam, pixel_ids, seed, *, width, height,
 
 
 # Leaf-name prefixes that reach the noise argument (the hit point) or the
-# Perlin tables (render.py:153 there).
+# Perlin tables: JAX's list (render.py:153 there) plus "xf_", a deliberate
+# deviation.  Instance transforms move hit points, so a trainable xf_ leaf
+# needs the noise's gradient in the point; JAX's list leaves it out, which
+# its CPU renders never show (there the noise is always differentiated:
+# ops/pallas/perlin_kernel.py:63-66 refuses the CPU backend).
+# tests/test_torch_textures.py trains xf_trans on an instanced noise scene
+# against jax.value_and_grad.
 _ARG_LEAVES = ("sph_", "rect_", "tri_", "med_", "per_", "xf_")
 
 

@@ -1,26 +1,39 @@
 #!/usr/bin/env python3
-"""A/B of the megakernel's accel mode (K3) between two checkouts on one GPU.
+"""A/B of the megakernel (K1, K2 and K3) between two checkouts on one GPU.
 
     python3 chip_ab.py OTHER_CHECKOUT [--runs 5]
 
 Runs a worker process for each side in turns: OTHER_CHECKOUT, this
 checkout, this checkout, OTHER_CHECKOUT.  Each worker imports the
 ``another_raytracer_tpu_torch`` package of its own checkout (which builds its
-kernels into that checkout's ``_build/``), and times on the scene-1 README
-render's inputs:
+kernels into that checkout's ``_build/``) and times, with that package's
+defaults (block size, lane mapping):
 
-* ``k3_ms``: K3's forward instance alone (bare launch) on 720x540, spp 100,
-  depth 50, Morton-ordered lanes (as ``render`` traces them);
-* ``k3_record_ms``: K3's record instance alone at the bench size (360x270,
-  spp 16, depth 8);
+* ``k1_ms``: K1 alone (bare launch) on the Cornell README render's inputs
+  (720x540, spp 100, depth 50);
+* ``k2_ms``: K2 alone at the bench size (Cornell 360x270, spp 16, depth 8);
+* ``replay_ms`` and ``replay_large_ms``: the replay alone on K2's residuals
+  (4 textures: per-lane columns) and on K3's record instance's at the same
+  size on scene 1 (485 textures: the large-T instance), a cotangent of
+  0.5 per channel;
+* ``cornell_single_ms``: ``render.render`` of the Cornell README render in
+  single mode (host clock around a render that ends in the copy to the
+  host);
+* ``step_ms``: one fused fwd+bwd step at the bench size
+  (``diff.render_value_and_grad`` of the shading parameters, CUDA events);
+* ``k3_ms``: K3's forward instance alone on the scene-1 README render,
+  Morton-ordered lanes (as ``render`` traces them);
+* ``k3_record_ms``: K3's record instance alone at the bench size;
 * ``adaptive_ms`` and ``single_ms``: ``render.render`` of scene 1 at the
-  README size in adaptive and in single mode (host clock around a render
-  that ends in the copy to the host);
+  README size in adaptive and in single mode;
 
 each the median of ``--runs`` after a warm-up (kernels: CUDA events after a
-synchronise).  Prints one JSON line per worker, then the card's name and
-power limit and a JSON summary (median over each side's turns).  Exits non-zero without a result when no CUDA device is
-visible.  Imports no JAX.
+synchronise), with the segments of K1 and K3's launches, and the registers
+and static instruction census (``chip_smoke.sass_census`` of this
+checkout) of every megakernel instance the side built.  Prints one JSON
+line per worker, then the card's name and power limit and a JSON summary
+(median over each side's turns of the numbers).  Exits non-zero without a
+result when no CUDA device is visible.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -34,7 +47,7 @@ import time
 
 import numpy as np
 
-W, H, SPP, DEPTH = 720, 540, 100, 50  # the README render, scene 1
+W, H, SPP, DEPTH = 720, 540, 100, 50  # the README render (Cornell, scene 1)
 BW, BH, BSPP, BDEPTH = 360, 270, 16, 8  # the bench size
 
 
@@ -70,13 +83,14 @@ def measure(runs):
     import torch
 
     from another_raytracer_tpu_torch.config import RenderConfig, RenderMode
+    from another_raytracer_tpu_torch.grad import diff
     from another_raytracer_tpu_torch.models import library
     from another_raytracer_tpu_torch.ops import camera as camera_lib
     from another_raytracer_tpu_torch.ops import render as render_lib
-    from another_raytracer_tpu_torch.ops.kernels import mega_kernel
+    from another_raytracer_tpu_torch.ops.kernels import mega_diff, mega_kernel
+    from another_raytracer_tpu_torch.ops.vec3 import V3
 
     dev = torch.device("cuda", 0)
-    scene, cp = library.random_scene(device=dev)
 
     def bare(run):
         def go():
@@ -84,30 +98,97 @@ def measure(runs):
                 raise RuntimeError("launch failed")
         return go
 
+    kw = dict(width=W, height=H, sample_stride=1, sample_end=SPP, spp_cap=SPP,
+              max_depth=DEPTH, t_min=1e-3)
+    bkw = dict(width=BW, height=BH, sample_stride=1, sample_end=BSPP,
+               spp_cap=BSPP, max_depth=BDEPTH, t_min=1e-3)
+    bpix = torch.arange(BW * BH, dtype=torch.int64, device=dev)
+    res = {}
+
+    def replay_ms(scene, bcam):
+        """The replay alone on the record instance's own residuals."""
+        _, _, codes, tprev = mega_kernel.trace_regenerative_mega(
+            scene, bcam, bpix, torch.zeros_like(bpix), 0,
+            record_iters=BSPP * BDEPTH, **bkw)
+        ghat = V3(*(torch.full((BW * BH,), 0.5, device=dev)
+                    for _ in range(3)))
+        run, _ = mega_diff.prepare_replay(
+            codes, tprev, ghat, scene.tex_ca, scene.tex_cb, scene.background,
+            mega_diff._flags(scene))
+        return cuda_ms(bare(run), runs)
+
+    # The Cornell box: K1, K2, its render and its training step.
+    cornell, cp = library.cornell_box(device=dev)
+    cam = camera_lib.make_camera(aspect_ratio=W / H, device=dev, **cp)
+    pix = torch.arange(W * H, dtype=torch.int64, device=dev)
+    run, (_, seg) = mega_kernel.prepare_launch(cornell, cam, pix,
+                                               torch.zeros_like(pix), 0, **kw)
+    res["k1_ms"] = cuda_ms(bare(run), runs)
+    res["k1_segments"] = int(seg.sum())
+    bcam = camera_lib.make_camera(aspect_ratio=BW / BH, device=dev, **cp)
+    run, _ = mega_kernel.prepare_launch(
+        cornell, bcam, bpix, torch.zeros_like(bpix), 0,
+        record_iters=BSPP * BDEPTH, **bkw)
+    res["k2_ms"] = cuda_ms(bare(run), runs)
+    res["replay_ms"] = replay_ms(cornell, bcam)
+    cfg = RenderConfig(width=W, height=H, samples_per_pixel=SPP,
+                       max_depth=DEPTH, mode=RenderMode("single"))
+    res["cornell_single_ms"] = host_ms(
+        lambda: render_lib.render(cornell, cam, cfg), runs)
+    params, _ = diff.split_params(cornell)
+    target = torch.zeros((BW * BH, 3), device=dev)
+    res["step_ms"] = cuda_ms(lambda: diff.render_value_and_grad(
+        params, cornell, bcam, target, 0, width=BW, height=BH, spp=BSPP,
+        samples_per_pass=1, max_depth=BDEPTH, t_min=1e-3), runs)
+
+    # Scene 1: K3, its record instance and its renders.
+    scene, cp = library.random_scene(device=dev)
     cam = camera_lib.make_camera(aspect_ratio=W / H, device=dev, **cp)
     order, _ = render_lib.morton_order(W, H)
     pix = torch.from_numpy(order.astype(np.int64)).to(dev)
-    samp = torch.zeros_like(pix)
-    kw = dict(width=W, height=H, sample_stride=1, sample_end=SPP, spp_cap=SPP,
-              max_depth=DEPTH, t_min=1e-3)
-    run, (_, seg) = mega_kernel.prepare_launch(scene, cam, pix, samp, 0, **kw)
-    res = dict(k3_ms=cuda_ms(bare(run), runs))
+    run, (_, seg) = mega_kernel.prepare_launch(scene, cam, pix,
+                                               torch.zeros_like(pix), 0, **kw)
+    res["k3_ms"] = cuda_ms(bare(run), runs)
     res["k3_segments"] = int(seg.sum())
-
     bcam = camera_lib.make_camera(aspect_ratio=BW / BH, device=dev, **cp)
-    bpix = torch.arange(BW * BH, dtype=torch.int64, device=dev)
     run, _ = mega_kernel.prepare_launch(
-        scene, bcam, bpix, torch.zeros_like(bpix), 0, width=BW, height=BH,
-        sample_stride=1, sample_end=BSPP, spp_cap=BSPP, max_depth=BDEPTH,
-        t_min=1e-3, record_iters=BSPP * BDEPTH)
+        scene, bcam, bpix, torch.zeros_like(bpix), 0,
+        record_iters=BSPP * BDEPTH, **bkw)
     res["k3_record_ms"] = cuda_ms(bare(run), runs)
-
+    res["replay_large_ms"] = replay_ms(scene, bcam)
     for mode in ("adaptive", "single"):
         cfg = RenderConfig(width=W, height=H, samples_per_pixel=SPP,
                            max_depth=DEPTH, mode=RenderMode(mode))
         res[f"{mode}_ms"] = host_ms(
             lambda: render_lib.render(scene, cam, cfg), runs)
+    res["census"] = census()
     return res
+
+
+def census():
+    """{build: {instance: counts}} of the side's built megakernel libraries:
+    registers, spilled bytes and the SASS census, with this checkout's
+    chip_smoke.py (the side's package builds and locates the libraries)."""
+    import importlib.util
+
+    from another_raytracer_tpu_torch.ops.kernels import _build
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                   "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    out = {}
+    for build in ("mega_kernel", "mega_kernel_record"):
+        path, _ = _build.build(build)
+        log = _build.build_log(build)
+        out[build] = {}
+        for walk, counts in smoke.sass_census(path).items():
+            tag = [t for t, w in smoke.WALK_NAMES.items() if w == walk][0]
+            regs, spilled = smoke.kernel_usage(
+                log, f"mega_forward_kernelILi{tag}EE")
+            out[build][walk] = dict(counts, registers=regs, spilled=spilled)
+    return out
 
 
 def run_side(checkout, runs):
@@ -154,7 +235,8 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()
     print(smi[0])
-    summary = {side: {k: float(np.median([r[k] for r in rs])) for k in rs[0]}
+    summary = {side: {k: float(np.median([r[k] for r in rs])) for k in rs[0]
+                      if isinstance(rs[0][k], (int, float))}
                for side, rs in results.items()}
     summary["this_over_other"] = {
         k: summary["this"][k] / summary["other"][k]

@@ -4,18 +4,24 @@
     python3 chip_smoke.py
 
 Builds the port's kernels from ``another_raytracer_tpu_torch/csrc`` (one
-nvcc per target, in parallel), then drives the main paths of the port and
-holds every kernel against its plain PyTorch version:
+nvcc per target, in parallel), prints the registers and a static
+instruction census (``cuobjdump -sass``) of every megakernel instance, then
+drives the main paths of the port and holds every kernel against its plain
+PyTorch version:
 
 * serving: threefry words bit for bit, the forward megakernel (K1) against
   its plain version on three scenes, the README render (Cornell 720x540,
-  spp 100, depth 50) through the CLI, and K1's time;
-* training: the record-mode megakernel (K2) and the replay backward against
-  their plain versions at the bench size (Cornell 360x270, spp 16, depth 8),
-  the fused gradients against the lockstep autograd path, 24 adam steps of
-  the inverse-rendering demo's protocol, and the times of K2, the replay,
-  one fwd+bwd step through the kernels, through the plain versions and
-  through the lockstep path, and ``python -m another_raytracer_tpu_torch.bench``;
+  spp 100, depth 50) through the CLI, and K1's time (lane fetch, against
+  the per-block mapping's bit-equal outputs and time, and at each block
+  size of ``BLOCKS``);
+* training: the record-mode megakernel (K2, bit-equal) and the replay
+  backward against their plain versions at the bench size (Cornell 360x270,
+  spp 16, depth 8), the sweep's counting instance (K1's and K2's row tests,
+  active-lane shares and tails; K2's equal to the plain version's), the
+  fused gradients against the lockstep autograd path, 24 adam steps of the
+  inverse-rendering demo's protocol, and the times of K2, the replay, one
+  fwd+bwd step through the kernels, through the plain versions and through
+  the lockstep path, and ``python -m another_raytracer_tpu_torch.bench``;
 * the wavefront of BVH and texture scenes: the BVH closest-hit kernel (K5)
   against its plain version on ~400k rays over the random scene's sphere
   tree, 10,240 triangles and 128 rects (every fold variant), the Perlin
@@ -25,10 +31,11 @@ holds every kernel against its plain PyTorch version:
   the render's time goes), the CLI on scenes 3, 4 and 5 (spp 16), and the
   two kernels' times beside their bounds;
 * the megakernel's accel mode (K3): its forward instance against its plain
-  version on scene 1 and an 81-sphere tree, its record instance bit-equal
-  to its plain version at the bench size through both walks (scene 1's
-  tables in shared memory, a 6,000-sphere tree's in device memory), the
-  replay at scene 1's 485 textures against its plain version, the scene-1
+  version on scene 1, an 81-sphere tree and a dense 6,000-sphere grid, its
+  record instance bit-equal to its plain version at the bench size through
+  both walks (scene 1's tables in shared memory, a 6,000-sphere tree's in
+  device memory), the replay at scene 1's 485 textures against its plain
+  version and bit for bit against itself, the scene-1
   README render through the CLI in single and adaptive mode, fused against
   lockstep gradients on scene 1 at the bench size, the two gate
   measurements (the scene-1 render through K3 and through the wavefront +
@@ -37,7 +44,7 @@ holds every kernel against its plain PyTorch version:
   instance's walk totals (equal to the plain version's at the bench size;
   at the README size the work of K3's bound) and the active-lane shares of
   its walk, and the times of K3's two instances (at each block size of
-  ``K3_BLOCKS``) and the large-T replay beside their bounds.
+  ``BLOCKS``) and the large-T replay beside their bounds.
 
 The wavefront phases run with ``mega_kernel.MEGA_FORWARD = False``, which
 sends scene 1 to the wavefront + K5 (its auto route is K3).  Every phase
@@ -74,8 +81,12 @@ BW, BH, BSPP, BDEPTH = 360, 270, 16, 8  # bench.py (training)
 TW, TH, TSPP, TDEPTH = 180, 135, 8, 6  # scripts/train_demo.py, chip size
 TRAIN_STEPS = 24
 K3_PLAIN_SPP = 4  # K3's plain version at the README width
-K3_BLOCKS = (64, 128, 256, 384, 512)  # block sizes K3 is timed at
-K1_PR1_MS = 18.596  # K1 alone, README render (PERF.md, H100 80GB HBM3, 700 W)
+BLOCKS = (64, 128, 256, 384, 512)  # block sizes K1 and K3 are timed at
+# Earlier times (PERF.md, H100 80GB HBM3, 700 W): K1 alone on the README
+# render as first ported and on the 32-float rows with one lane per thread
+# just before the 16-byte tables, and K2 alone at the bench size on those
+# rows.
+K1_FIRST_MS, K1_ROWS_MS, K2_ROWS_MS = 18.596, 17.395, 0.960
 SRC = "another_raytracer_tpu_torch/csrc/"
 JAX_PALLAS = "another_raytracer_tpu/ops/pallas/"
 
@@ -219,6 +230,31 @@ def many_spheres_scene(device, n=6000):
     for i in range(n - kept):
         b.sphere((0.5 * (i % 80) - 20, -1500.0 + 0.5 * (i // 6400),
                   0.5 * ((i // 80) % 80) - 20), 0.2, buried)
+    cam = dict(lookfrom=(13, 2, 3), lookat=(0, 0, 0), vfov=20.0,
+               aperture=0.1, focus_dist=10.0, time0=0.0, time1=1.0)
+    return b.build(device=device, bvh_leaf_size=32), cam
+
+
+def dense_spheres_scene(device, n=6000):
+    """A dense tree that K3 walks from device memory: scene 1's checker
+    ground and n - 1 touching spheres of radius 0.25 in a 77-wide grid on
+    it (eight shared materials: lambertian, metal, dielectric), under
+    scene 1's camera.  Crowds of silhouettes and the radius-1000 ground are
+    where FMA contraction in K3's forward build flips paths."""
+    from another_raytracer_tpu_torch.models import library
+    from another_raytracer_tpu_torch.models.scene import SceneBuilder
+
+    rnd = np.random.default_rng(6)
+    b = SceneBuilder(background=library.SKY, seed=1234)
+    b.sphere((0, -1000, 0), 1000, b.lambertian(
+        texture=b.checker_texture((0.2, 0.3, 0.1), (0.9, 0.9, 0.9))))
+    mats = [b.lambertian(color=tuple(rnd.uniform(0.1, 0.9, 3)))
+            for _ in range(4)]
+    mats += [b.metal(tuple(rnd.uniform(0.5, 1.0, 3)), f) for f in (0.0, 0.3)]
+    mats += [b.dielectric(1.5)] * 2
+    for i in range(n - 1):
+        b.sphere((0.5 * (i % 77) - 19.0, 0.25, 0.5 * (i // 77) - 19.0), 0.25,
+                 mats[i % len(mats)])
     cam = dict(lookfrom=(13, 2, 3), lookat=(0, 0, 0), vfov=20.0,
                aperture=0.1, focus_dist=10.0, time0=0.0, time1=1.0)
     return b.build(device=device, bvh_leaf_size=32), cam
@@ -465,6 +501,52 @@ def kernel_usage(log, name):
     if regs is None:
         raise AssertionError(f"no kernel {name} in the build report")
     return regs, spilled
+
+
+# The megakernel's template instances <WALK> (mangled ILi<WALK>EE).
+WALK_NAMES = {0: "sweep", 1: "shared", 2: "global"}
+
+
+def _census_group(op):
+    """The census's group of a SASS opcode, or None."""
+    base = op.split(".")[0]
+    if base == "LDS":
+        return "LDS.128" if ".128" in op else "LDS"
+    if base in ("BRA", "BRX", "JMP", "JMX"):
+        return "branch"
+    if base in ("LDC", "ULDC", "MUFU", "FFMA", "FMUL", "FADD", "DFMA", "DMUL",
+                "DADD", "LDG", "CALL"):
+        return base
+    return None
+
+
+def sass_census(lib_path):
+    """Static instruction counts of each megakernel instance in a built
+    library, from ``cuobjdump -sass``: {walk: {group: count}} with the
+    groups of ``_census_group`` and ``all`` (every instruction)."""
+    from another_raytracer_tpu_torch.ops.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], check=True,
+                          capture_output=True, text=True).stdout
+    census, current = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            w = re.search(r"mega_forward_kernelILi(\d)EE", m.group(1))
+            current = (census.setdefault(WALK_NAMES[int(w.group(1))], {})
+                       if w else None)
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)", ln)
+        if current is None or m is None:
+            continue
+        for group in ("all", _census_group(m.group(1))):
+            if group:
+                current[group] = current.get(group, 0) + 1
+    if not census:
+        raise AssertionError(f"no megakernel instance in {lib_path}")
+    return census
 
 
 def bare(run):
@@ -808,14 +890,14 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln]
         phase("build", f"{path.name} in {secs:.1f} s: " + " | ".join(usage))
     phase("build", f"all targets in {time.perf_counter() - t0:.1f} s")
-    # The template instances <walk>: the sweep (ILi0EE: K1, K2) and K3's
-    # walk on tables in shared (ILi1EE) or device memory (ILi2EE).
-    regs = {}
-    for build in ("mega_kernel", "mega_kernel_record"):
-        for walk, tag in (("sweep", 0), ("shared", 1), ("global", 2)):
-            regs[build, walk] = kernel_usage(
-                _build.build_log(build), f"mega_forward_kernelILi{tag}EE")
-    if any(regs["mega_kernel", w][1] for w in ("sweep", "shared", "global")):
+    # The template instances <walk> of each megakernel build: the sweep
+    # (ILi0EE: K1, K2, the sweep's counting instance) and K3's walk on
+    # tables in shared (ILi1EE) or device memory (ILi2EE).
+    mega_builds = ("mega_kernel", "mega_kernel_record", "mega_kernel_count")
+    regs = {(build, walk): kernel_usage(_build.build_log(build),
+                                        f"mega_forward_kernelILi{tag}EE")
+            for build in mega_builds for tag, walk in WALK_NAMES.items()}
+    if any(regs["mega_kernel", w][1] for w in WALK_NAMES.values()):
         raise AssertionError("a forward instance of the megakernel spills "
                              "registers")
     k1_regs, k2_regs = regs["mega_kernel", "sweep"][0], regs[
@@ -823,8 +905,15 @@ def main() -> int:
     k3_regs = {w: regs["mega_kernel", w][0] for w in ("shared", "global")}
     k3r_regs = {w: regs["mega_kernel_record", w][0]
                 for w in ("shared", "global")}
-    phase("build", f"megakernel registers: K1 {k1_regs}, K2 {k2_regs}, K3 "
-          f"forward {k3_regs}, K3 record {k3r_regs}")
+    phase("build", "megakernel registers (spilled bytes) per build and "
+          "instance: " + "; ".join(
+              f"{build} {walk} {r} ({sp})" for (build, walk), (r, sp)
+              in regs.items()))
+    # The instruction census of each instance (static SASS counts).
+    census = {build: sass_census(built[build][0]) for build in mega_builds}
+    for build, per_walk in census.items():
+        for walk, ops in per_walk.items():
+            phase("census", f"{build} {walk}: {json.dumps(ops)}")
     for target in ("bvh_kernel", "perlin_kernel"):
         entries = kernel_entries(_build.build_log(target))
         if not entries:
@@ -887,17 +976,32 @@ def main() -> int:
           f"launches {k1_launches}; PNG {img.shape} mean {img.mean():.2f}")
 
     # 5. K1 timing at the README size: alone (bare launch) and through its
-    # wrapper, median of 5 each; the plain version once.
+    # wrapper, median of 5 each; the plain version once.  K1 takes lanes by
+    # lane fetch (a persistent grid); the per-block mapping (one lane per
+    # thread) on the same inputs must give the same bits.
     cam = camera_lib.make_camera(aspect_ratio=W / H, device=dev, **cornell_cam)
     pix, samp = lanes(W, H, dev)
     kw = dict(width=W, height=H, sample_stride=1, sample_end=SPP, spp_cap=SPP,
               max_depth=DEPTH, t_min=1e-3)
-    run, _ = mega_kernel.prepare_launch(cornell, cam, pix, samp, 0, **kw)
+    run, (k1_out, k1_seg) = mega_kernel.prepare_launch(cornell, cam, pix, samp,
+                                                       0, **kw)
     k1_ms, k1_runs = cuda_ms(bare(run), dev, 5)
+    run, (pb_out, pb_seg) = mega_kernel.prepare_launch(
+        cornell, cam, pix, samp, 0, lane_fetch=False, **kw)
+    k1_pb_ms, k1_pb_runs = cuda_ms(bare(run), dev, 5)
+    if not all(torch.equal(a, b) for a, b in zip((*k1_out, k1_seg),
+                                                 (*pb_out, pb_seg))):
+        raise AssertionError("K1 with lane fetch differs from the per-block "
+                             "mapping")
+    # The block size: K1 alone at each candidate.
+    k1_block_ms = {}
+    for blk in BLOCKS:
+        run_b, _ = mega_kernel.prepare_launch(cornell, cam, pix, samp, 0,
+                                              block=blk, **kw)
+        k1_block_ms[blk] = cuda_ms(bare(run_b), dev, 3)[0]
     k1_wrap_ms, _ = cuda_ms(lambda: mega_kernel.trace_regenerative_mega(
         cornell, cam, pix, samp, 0, **kw), dev, 5)
-    _, segs_k = mega_kernel.trace_regenerative_mega(cornell, cam, pix, samp, 0, **kw)
-    segs_k = int(segs_k)
+    segs_k = int(k1_seg.sum())
     t = time.perf_counter()
     torch.cuda.synchronize(dev)
     _, segs_p = mega_kernel.trace_regenerative_mega_reference(
@@ -905,9 +1009,15 @@ def main() -> int:
     torch.cuda.synchronize(dev)
     k1_plain_ms = (time.perf_counter() - t) * 1e3
     phase("timing_k1", f"cornell {W}x{H} spp{SPP} depth{DEPTH}: K1 alone "
-          f"{k1_ms:.3f} ms (runs {k1_runs}; {100 * (k1_ms / K1_PR1_MS - 1):+.1f}% "
-          f"vs {K1_PR1_MS} ms), {k1_regs} registers, no spills; through its "
-          f"wrapper {k1_wrap_ms:.3f} ms; {segs_k} segments, "
+          f"{k1_ms:.3f} ms (runs {k1_runs}; {100 * (k1_ms / K1_ROWS_MS - 1):+.1f}% "
+          f"vs {K1_ROWS_MS} ms on the 32-float rows, "
+          f"{100 * (k1_ms / K1_FIRST_MS - 1):+.1f}% vs {K1_FIRST_MS} ms as "
+          f"first ported), lane fetch, block "
+          f"{mega_kernel.K1_BLOCK}, {k1_regs} registers, no spills; one lane "
+          f"per thread (block {mega_kernel.DEFAULT_BLOCK}) {k1_pb_ms:.3f} ms "
+          f"(runs {k1_pb_runs}), outputs bit-equal; "
+          f"by block {json.dumps(k1_block_ms)} ms; through its wrapper "
+          f"{k1_wrap_ms:.3f} ms; {segs_k} segments, "
           f"{segs_k / k1_ms / 1e3:.1f} Mrays/s; plain {k1_plain_ms:.1f} ms, "
           f"{int(segs_p)} segments")
 
@@ -920,6 +1030,9 @@ def main() -> int:
         rec[name] = (st, got, bcam, scene)
         phase("compare_k2", f"{name} {BW}x{BH} spp{BSPP} depth{BDEPTH}: "
               f"{json.dumps(st)}")
+        # Built without FMA contraction, K2 is its plain version bit for bit.
+        if not (st["bit_equal"] and st["segments"] == st["segments_plain"]):
+            raise AssertionError(f"K2 differs from its plain version on {name}")
 
     # 7. The replay vs its plain version on K2's own residuals.
     replay_stats, (replay_args, _) = compare_replay(cornell, rec["cornell"][1], dev)
@@ -995,9 +1108,46 @@ def main() -> int:
     replay_plain_ms, _ = cuda_ms(
         lambda: mega_diff.replay_backward_reference(*replay_args), dev, 3)
     phase("timing_kernels", f"cornell {BW}x{BH} spp{BSPP} depth{BDEPTH}: K2 "
-          f"alone {k2_ms:.3f} ms vs plain {k2_plain_ms:.1f} ms ({k2_regs} "
+          f"alone {k2_ms:.3f} ms ({100 * (k2_ms / K2_ROWS_MS - 1):+.1f}% vs "
+          f"{K2_ROWS_MS} ms on the 32-float rows) vs plain {k2_plain_ms:.1f} "
+          f"ms ({k2_regs} "
           f"registers); replay alone "
           f"{replay_ms:.3f} ms vs plain {replay_plain_ms:.1f} ms")
+
+    # Inside the sweep (its counting instance: the record build's arithmetic,
+    # the same lanes): K1's launch at the README size with lane fetch and
+    # with the per-block mapping, and K2's at the bench size, whose row tests,
+    # segments and radiance must equal the plain version's.
+    sweep_tal = {
+        "K1": mega_kernel.sweep_tallies(cornell, cam, *lanes(W, H, dev), 0,
+                                        **kw)[2],
+        "K1 per-block mapping": mega_kernel.sweep_tallies(
+            cornell, cam, *lanes(W, H, dev), 0, lane_fetch=False, **kw)[2]}
+    fkw = {k: v for k, v in bkw.items() if k != "record_iters"}
+    rad_c, segs_c, sweep_tal["K2"] = mega_kernel.sweep_tallies(
+        cornell, bcam, pix, samp, 0, lane_fetch=False, **fkw)
+    ref_c = mega_kernel.trace_regenerative_mega_reference(
+        cornell, bcam, pix, samp, 0, work=True, **fkw)
+    tal_k2 = sweep_tal["K2"]
+    if ((tal_k2["sphere_tests"], tal_k2["rect_tests"]) != tuple(ref_c[-1])
+            or int(segs_c) != int(ref_c[1])
+            or not all(torch.equal(a, b) for a, b in zip(rad_c, ref_c[0]))):
+        raise AssertionError(f"the sweep's counting instance differs from the "
+                             f"plain version: {tal_k2} vs {ref_c[-1]}")
+    for name, t in sweep_tal.items():
+        warps = t["blocks"] * -(-t["block"] // 32)
+        phase("sweep_tallies", f"{name}: {t['sphere_tests']} sphere and "
+              f"{t['rect_tests']} rect row tests "
+              f"({t['rows_per_segment']:.2f} rows per segment); loop "
+              f"active-lane share {t['loop_simt']:.4f}; warp loop steps "
+              f"mean {t['loop_steps'] / warps:.1f}, max "
+              f"{t['warp_loop_steps_max']}; tail share {t['tail_share']:.4f} "
+              f"over {t['slots']} slots, {t['blocks']} blocks of "
+              f"{t['block']}, "
+              f"{t['launch_ms']:.3f} ms on the device clock")
+    phase("sweep_tallies", f"K2's row tests ({tal_k2['sphere_tests']}, "
+          f"{tal_k2['rect_tests']}), segments and radiance equal the plain "
+          f"version's")
 
     params, _ = diff.split_params(cornell)
     bench_target = torch.zeros((BW * BH, 3), device=dev)
@@ -1236,11 +1386,14 @@ def main() -> int:
     # 16. The megakernel's accel mode (K3).  Its forward instance against
     # its plain version on scene 1 and the 81-sphere tree.
     k3_cmp = {}
-    for name, (sc, cp) in [("scene 1 (random)", (scene1, cam1)),
-                           ("81-sphere tree", bvh_sphere_scene(dev))]:
+    for name, (sc, cp), counter in [
+            ("scene 1 (random)", (scene1, cam1), "K3"),
+            ("81-sphere tree", bvh_sphere_scene(dev), "K3"),
+            ("dense 6,000-sphere grid (device-memory walk)",
+             dense_spheres_scene(dev), "K3_global")]:
         reset_counts()
-        st = compare(sc, cp, CW, CH, CSPP, DEPTH, dev, what="K3")
-        if counts()["K3"] != 1:
+        st = compare(sc, cp, CW, CH, CSPP, DEPTH, dev, what=f"K3 on {name}")
+        if counts()[counter] != 1:
             raise AssertionError(f"{name}: the comparison skipped K3 {counts()}")
         k3_cmp[name] = st
         phase("compare_k3", f"{name} {CW}x{CH} spp{CSPP} depth{DEPTH}: "
@@ -1269,9 +1422,17 @@ def main() -> int:
         raise AssertionError(f"the record comparisons skipped a walk {walked}")
     rp485, (rp485_args, _) = compare_replay(scene1, got_k3r, dev)
     if not mega_diff.replay_instance(rp485["textures"])[0]:
-        raise AssertionError("scene 1's replay did not take the block-wide table")
-    phase("compare_replay", f"scene 1, {rp485['textures']} textures (block-wide "
-          f"table, atomics): {json.dumps(rp485)}")
+        raise AssertionError("scene 1's replay did not take the per-warp tables")
+    # The per-warp tables are deterministic: repeated runs, the same bits.
+    first = mega_diff.replay_backward(*rp485_args)
+    rp485["bit_deterministic"] = all(
+        torch.equal(a, b) for _ in range(3)
+        for a, b in zip(first, mega_diff.replay_backward(*rp485_args)))
+    if not rp485["bit_deterministic"]:
+        raise AssertionError("the large-T replay changed bits between runs")
+    phase("compare_replay", f"scene 1, {rp485['textures']} textures (per-warp "
+          f"tables, block {mega_diff.replay_instance(rp485['textures'])[1]}): "
+          f"{json.dumps(rp485)}")
 
     # The accel main path: the scene-1 README render through the CLI, in
     # single and in adaptive mode.
@@ -1342,7 +1503,7 @@ def main() -> int:
     k3_ms, k3_runs = cuda_ms(bare(run), dev, 5)
     # The block size: K3 alone at each candidate (DEFAULT_BLOCK's evidence).
     k3_block_ms = {}
-    for blk in K3_BLOCKS:
+    for blk in BLOCKS:
         run_b, _ = mega_kernel.prepare_launch(scene1, cam, pix_m, samp_m, 0,
                                               block=blk, **kw)
         k3_block_ms[blk] = cuda_ms(bare(run_b), dev, 3)[0]
@@ -1439,7 +1600,7 @@ def main() -> int:
     run, _ = mega_kernel.prepare_launch(scene1, bcam1, pixb, sampb, 0, **rkw)
     k3r_ms, _ = cuda_ms(bare(run), dev, 5)
     k3r_block_ms = {}
-    for blk in K3_BLOCKS:
+    for blk in BLOCKS:
         run_b, _ = mega_kernel.prepare_launch(scene1, bcam1, pixb, sampb, 0,
                                               block=blk, **rkw)
         k3r_block_ms[blk] = cuda_ms(bare(run_b), dev, 3)[0]
@@ -1514,6 +1675,12 @@ def main() -> int:
          "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound_ms, "bound_by": k1_bound_by, "library_ms": None,
          "wrapper_ms": k1_wrap_ms, "registers": k1_regs,
+         "lane_fetch": True, "per_block_mapping_ms": k1_pb_ms,
+         "block": mega_kernel.K1_BLOCK, "block_ms": k1_block_ms,
+         "loop_simt": sweep_tal["K1"]["loop_simt"],
+         "tail_share": sweep_tal["K1"]["tail_share"],
+         "tail_share_per_block_mapping":
+             sweep_tal["K1 per-block mapping"]["tail_share"],
          "segments": segs_k, "mrays_per_s": segs_k / k1_ms / 1e3},
         {"name": "mega_kernel record instance (K2, fused differentiable primal)",
          "route": "cuda", "source": SRC + "mega_kernel.cu",
@@ -1523,7 +1690,9 @@ def main() -> int:
          "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound_ms, "bound_by": k2_bound_by, "library_ms": None,
          "registers": k2_regs,
-         "lanes_codes_equal": st_c["lanes_codes_equal"]},
+         "loop_simt": tal_k2["loop_simt"], "tail_share": tal_k2["tail_share"],
+         "lanes_codes_equal": st_c["lanes_codes_equal"],
+         "bit_equal": st_c["bit_equal"]},
         {"name": "mega_kernel accel forward instance (K3, megakernel with "
                  "the sphere-BVH walk)",
          "route": "cuda", "source": SRC + "mega_kernel.cu",
@@ -1566,7 +1735,8 @@ def main() -> int:
          "bound_ms": rp_bound_ms, "bound_by": rp_bound_by, "library_ms": None,
          "textures": replay_stats["textures"],
          "large_t": {"textures": rp485["textures"],
-                     "instance": "block-wide table",
+                     "instance": "per-warp tables",
+                     "bit_deterministic": rp485["bit_deterministic"],
                      "launches": train_launched["replay"],
                      "max_abs_err": rp485["max_abs_err"],
                      "ms": rp485_ms, "plain_ms": rp485_plain_ms,

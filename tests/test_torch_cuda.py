@@ -96,6 +96,62 @@ def test_kernel_matches_plain(name, dev):
     assert np.median(diff) < 1e-5
 
 
+def _sweep_lanes(dev, n, dead_every=7):
+    """n lanes, every ``dead_every``-th born dead (first sample 2**32 - 1)."""
+    pix = torch.arange(n, device=dev)
+    samp = torch.where(pix % dead_every == 3, 0xFFFFFFFF, 0)
+    return pix, samp
+
+
+@pytest.mark.parametrize("name", list(SCENES))
+def test_k1_lane_fetch_equals_the_per_block_mapping(name, dev):
+    # Lane fetch changes which thread runs a lane, never the lane: every
+    # output is the same bits.  388,800 lanes outnumber the persistent
+    # grid's threads, so threads take many lanes each; some are born dead.
+    w, h = 720, 540
+    scene, params = SCENES[name](device=dev)
+    cam = camera.make_camera(aspect_ratio=w / h, device=dev, **params)
+    pix, samp = _sweep_lanes(dev, w * h)
+    kw = dict(width=w, height=h, sample_stride=1, sample_end=2, spp_cap=2,
+              max_depth=50, t_min=1e-3)
+    outs = []
+    for fetch in (False, True):
+        run, out = mega_kernel.prepare_launch(scene, cam, pix, samp, 3,
+                                              lane_fetch=fetch, **kw)
+        assert run() == 0
+        outs.append([*out[0], out[1]])
+    torch.cuda.synchronize(dev)
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert int(outs[1][3].sum()) > w * h and not bool(outs[1][3][3::7].any())
+
+
+@pytest.mark.parametrize("fetch", [False, True])
+@pytest.mark.parametrize("name", list(SCENES))
+def test_sweep_tallies_equal_plain_row_tests(name, fetch, dev):
+    # The sweep's counting instance (the record build's arithmetic) tests
+    # exactly the plain version's rows, with or without lane fetch, and
+    # renders its radiance bit for bit.
+    scene, params = SCENES[name](device=dev)
+    cam = camera.make_camera(aspect_ratio=W / H, device=dev, **params)
+    pix, samp = _sweep_lanes(dev, W * H)
+    kw = dict(width=W, height=H, sample_stride=1, sample_end=4, spp_cap=4,
+              max_depth=8, t_min=1e-3)
+    before = mega_kernel.sweep_tallies.launches
+    rad, segs, t = mega_kernel.sweep_tallies(scene, cam, pix, samp, 3,
+                                             lane_fetch=fetch, **kw)
+    assert mega_kernel.sweep_tallies.launches == before + 1
+    want = mega_kernel.trace_regenerative_mega_reference(scene, cam, pix, samp,
+                                                         3, work=True, **kw)
+    assert (t["sphere_tests"], t["rect_tests"]) == tuple(want[-1])
+    assert int(segs) == int(want[1])
+    for a, b in zip(rad, want[0]):
+        assert torch.equal(a, b)
+    assert 0 < t["loop_simt"] <= 1 and 0 <= t["tail_share"] < 1
+    assert t["loop_steps"] <= t["loop_active"] <= 32 * t["loop_steps"]
+    assert 0 < t["warp_loop_steps_max"] <= t["loop_steps"]
+
+
 def test_cli_renders_through_the_kernel(dev, tmp_path):
     out = tmp_path / "cornell.png"
     before = mega_kernel.trace_regenerative_mega.launches
@@ -287,14 +343,17 @@ def test_cli_renders_bvh_and_noise_scenes_through_the_kernels(dev, tmp_path):
 # --------------------------------------------------------------------------
 
 
+# The dense grid holds K3's forward (FMA) build to the test_mega bar where
+# crowds of silhouettes and the radius-1000 ground meet.
 ACCEL_SCENES = {"random_scene": library.random_scene,
                 "bvh_sphere_scene": chip_smoke.bvh_sphere_scene,
-                "many_spheres_scene": chip_smoke.many_spheres_scene}
+                "many_spheres_scene": chip_smoke.many_spheres_scene,
+                "dense_spheres_scene": chip_smoke.dense_spheres_scene}
 
 
 # Where each accel scene's walk reads its tables.
 WALKS = {"random_scene": "shared", "bvh_sphere_scene": "shared",
-         "many_spheres_scene": "global"}
+         "many_spheres_scene": "global", "dense_spheres_scene": "global"}
 
 
 def _accel(name, dev, record_iters=0, spp=4, depth=50):
@@ -368,17 +427,21 @@ def test_walk_tallies_equal_plain_work(name, dev):
     assert 0 < t["ground_tests"] <= t["sphere_tests"]
 
 
-def test_replay_kernel_large_t_matches_plain(dev):
-    # The random scene's 485 textures take the block-wide table with
-    # atomics: not bit-deterministic, equal to float rounding.
+def _large_t_replay_args(dev):
     scene, got, _ = _accel("random_scene", dev, record_iters=4 * 8, depth=8)
     T = scene.tex_ca.shape[0]
     assert T == 485 and mega_diff.replay_instance(T)[0]
     gen = torch.Generator(device=dev).manual_seed(5)
     ghat = vec3.V3(*(torch.rand(W * H, generator=gen, device=dev) + 0.2
                      for _ in range(3)))
-    args = (got[2], got[3], ghat, scene.tex_ca, scene.tex_cb,
+    return (got[2], got[3], ghat, scene.tex_ca, scene.tex_cb,
             scene.background, mega_diff._flags(scene))
+
+
+def test_replay_kernel_large_t_matches_plain(dev):
+    # The random scene's 485 textures take the per-warp tables; equal to
+    # the plain version to float rounding (another order of the sums).
+    args = _large_t_replay_args(dev)
     before = mega_diff.replay_backward.launches
     kern = mega_diff.replay_backward(*args)
     assert mega_diff.replay_backward.launches == before + 1
@@ -386,6 +449,20 @@ def test_replay_kernel_large_t_matches_plain(dev):
     for a, b in zip(kern, plain):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * float(b.abs().max()))
     assert float(kern[0].abs().max()) > 0 and float(kern[1].abs().max()) > 0
+
+
+def test_replay_kernel_large_t_is_bit_deterministic(dev):
+    # The per-warp tables add in an order fixed by the data: two runs give
+    # the same bits (and stay within rtol 1e-5 of the plain version).
+    args = _large_t_replay_args(dev)
+    first = mega_diff.replay_backward(*args)
+    plain = mega_diff.replay_backward_reference(*args)
+    for _ in range(3):
+        again = mega_diff.replay_backward(*args)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+    for a, b in zip(first, plain):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * float(b.abs().max()))
 
 
 def test_fused_grads_on_the_random_scene(dev):

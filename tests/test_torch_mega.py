@@ -134,3 +134,44 @@ def test_supports_matches_reference():
             tscene.scene_from_reference(cases[2][0], device="cpu"), cam,
             *_lanes(), 0, **KW)
 
+
+
+@pytest.mark.parametrize("name", list(SCENES))
+def test_pack_sweep_tables_holds_the_rows_geometry(name):
+    # The sweep's 16-byte tables hold exactly pack_rows' geometry values:
+    # spheres (c0, r | c1 - c0, t0 | 1/dt, 0, 0, 0), rects (n, n.q0 | q0,
+    # |eu|^2 | eu, |ev|^2 | ev, 0).  The plain version sweeps these tables
+    # (test_plain_kernel_matches_reference holds it against JAX).
+    _, (port, _) = _both(name)
+    rows = tmk.pack_rows(port).reshape(-1, tmk.ROW_W)
+    tab = tmk.pack_sweep_tables(port)
+    ns, nr = port.n_spheres, port.n_rects
+    assert tab.shape == (3 * ns + 4 * nr, 4) and tab.is_contiguous()
+    sph, rect = rows[:ns], rows[ns:]
+    s = tab[:3 * ns].reshape(ns, 3, 4)
+    q = tab[3 * ns:].reshape(nr, 4, 4)
+    for got, cols in ((s[:, 0], [1, 2, 3, 9]), (s[:, 1], [4, 5, 6, 7]),
+                      (s[:, 2, :1], [8])):
+        assert torch.equal(got, sph[:, cols])
+    for got, cols in ((q[:, 0], [10, 11, 12, 13]), (q[:, 1], [1, 2, 3, 14]),
+                      (q[:, 2], [4, 5, 6, 15]), (q[:, 3, :3], [7, 8, 9])):
+        assert torch.equal(got, rect[:, cols])
+    assert not s[:, 2, 1:].any() and not q[:, 3, 3].any()
+    if name == "lens_motion_metal_dielectric_checker":
+        # The moving sphere: a centre offset and 1/dt.
+        assert s[:, 1, :3].any() and s[:, 2, 0].any()
+
+
+@pytest.mark.parametrize("name", list(SCENES))
+def test_plain_sweep_counts_its_row_tests(name):
+    # With work=True the plain version returns the sweep's sphere and rect
+    # row tests (what the counting instance tallies on the card): every row
+    # for each loop iteration of each alive lane.  A record row is nonzero
+    # exactly on those iterations.
+    _, (port, cam) = _both(name)
+    kw = dict(KW, record_iters=SPP * DEPTH)
+    _, _, codes, _, (spheres, rects) = tmk.trace_regenerative_mega_reference(
+        port, cam, *_lanes(), 3, work=True, **kw)
+    steps = int((codes != 0).sum())
+    assert steps > W * H
+    assert (spheres, rects) == (port.n_spheres * steps, port.n_rects * steps)

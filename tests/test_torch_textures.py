@@ -1,7 +1,8 @@
 """Port vs JAX: Perlin noise and turbulence, the noise / image / barycentric
 branches of ``texture_value``, the Perlin kernel K4's wrapper and its
 zero-gradient Function, and the value-only noise rule of differentiable
-renders (ROADMAP F4).
+renders (ROADMAP F4), with the port's deviation for instance transforms
+(F9).
 
 The plain Perlin version is held against the JAX package's ``perlin_noise``
 and the Pallas kernel in interpret mode to atol 1e-6 (XLA contracts a*b+c
@@ -236,3 +237,57 @@ def test_noise_value_only_rule_matches_jax_gradients(name, train, route,
                                    err_msg=k)
     if train != "mat_fuzz" or name == "noise_metal":
         assert max(np.abs(g).max() for g in grads_w.values()) > 0
+
+
+def _instanced_noise_builder(cls):
+    # An instanced noise sphere (rotated and moved by its transform) on a
+    # noise rect ground: xf_trans moves the sphere's hit points, where the
+    # noise is evaluated.
+    b = cls(background=(0.7, 0.8, 1.0), seed=11)
+    pertext = b.noise_texture(4.0)
+    b.xz_rect(-100, 100, -100, 100, 0, b.lambertian(texture=pertext))
+    xf = b.transform(rotate_y_deg=30.0, translate=(0.5, 0.0, -0.5))
+    b.sphere((0, 2, 0), 2, b.lambertian(texture=pertext), xform=xf)
+    return b
+
+
+@functools.lru_cache(maxsize=None)
+def _instanced_noise_case():
+    """Camera, target, render settings, seed, and JAX's loss and xf_trans
+    gradient (jax.value_and_grad of render_loss)."""
+    ref = _instanced_noise_builder(JBuilder).build()
+    params = dict(lookfrom=(5, 3, 3), lookat=(0, 1, 0), vfov=60.0)
+    ref_cam = jcam.make_camera(aspect_ratio=W / H, **params)
+    target = np.random.default_rng(2).uniform(0, 0.5, (W * H, 3)).astype(np.float32)
+    kw = dict(width=W, height=H, spp=1, samples_per_pass=1, max_depth=DEPTH,
+              t_min=1e-3)
+    seed = 1
+    loss, grads = jax.value_and_grad(jdiff.render_loss)(
+        {"xf_trans": ref.xf_trans}, ref, ref_cam, jnp.asarray(target),
+        jnp.uint32(seed), **kw)
+    return params, target, kw, seed, float(loss), np.asarray(grads["xf_trans"])
+
+
+@pytest.mark.parametrize("route", ["rule", "value_only"])
+def test_noise_rule_trains_instance_transforms_like_jax(route, monkeypatch):
+    """The port lists ``xf_`` among the leaves that reach the noise point
+    (a deliberate deviation from JAX's list, ops/render.py): trained
+    ``xf_trans`` gradients through the rule's route match
+    jax.value_and_grad, which differentiates through the noise; forced onto
+    the value-only noise they would not."""
+    params, target, kw, seed, loss_w, want = _instanced_noise_case()
+    assert np.abs(want[1:]).max() > 0
+
+    port = _instanced_noise_builder(tscene.SceneBuilder).build(device="cpu")
+    cam = tcam.make_camera(aspect_ratio=W / H, device="cpu", **params)
+    assert not trender.noise_value_only(port, ("xf_trans",))
+    if route == "value_only":
+        monkeypatch.setattr(trender, "noise_value_only", lambda *a: True)
+    loss_g, grads_g = diff.render_value_and_grad(
+        {"xf_trans": port.xf_trans}, port, cam, torch.from_numpy(target), seed,
+        **kw)
+    np.testing.assert_allclose(float(loss_g), loss_w, rtol=1e-5)
+    got = grads_g["xf_trans"].numpy()
+    scale = np.abs(want).max()
+    close = np.allclose(got, want, atol=2e-4 * scale, rtol=2e-4)
+    assert close == (route == "rule"), (got, want)
