@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from another_raytracer_tpu_torch.models import bvh as bvh_lib
-from another_raytracer_tpu_torch.ops.kernels import bvh_kernel
+from another_raytracer_tpu_torch.ops.kernels import bvh_kernel, perlin_kernel
 
 # --- kind constants --------------------------------------------------------
 
@@ -192,8 +192,39 @@ class SceneData:
 
     def replace(self, **fields) -> "SceneData":
         """A copy with ``fields`` swapped in (the JAX SceneData.replace that
-        grad/diff.merge_params uses); tensors keep their autograd history."""
-        return dataclasses.replace(self, **fields)
+        grad/diff.merge_params uses); tensors keep their autograd history.
+        The copy keeps the packed kernel tables whose sources it keeps."""
+        new = dataclasses.replace(self, **fields)
+        new.__dict__["_packed"] = dict(self.__dict__.get("_packed", {}))
+        return new
+
+    # Kernel tables packed once per scene, at their first use: K5's compact
+    # BVH tables and K4's Perlin tables.  They are no dataclass fields (the
+    # fields are the JAX package's); each is kept with the tensors it was
+    # packed from and packed again only where those are no longer the
+    # scene's.
+    def _packed_table(self, key, sources, pack):
+        cache = self.__dict__.setdefault("_packed", {})
+        hit = cache.get(key)
+        if hit is None or any(a is not b for a, b in zip(hit[0], sources)):
+            hit = cache[key] = (sources, pack(*sources))
+        return hit[1]
+
+    def k5_tables(self, tree: str, precomp: bool = False):
+        """``bvh_kernel.pack_tables`` of the scene's ``tree`` ('planar',
+        'rect' or 'sphere'; planar with or without the precomputed
+        geometry)."""
+        sources = {"planar": (self.bvh_packed_nodes, self.bvh_packed_tris),
+                   "rect": (self.rect_bvh_nodes, self.rect_bvh_rows),
+                   "sphere": (self.sph_bvh_nodes, self.sph_bvh_rows)}[tree]
+        return self._packed_table(
+            ("k5", tree, precomp), sources,
+            lambda n, r: bvh_kernel.pack_tables(n, r, tree, precomp))
+
+    def perlin_tables(self):
+        """``perlin_kernel.pack_tables`` of the scene's Perlin tables."""
+        return self._packed_table(("k4",), (self.per_perm, self.per_ranvec),
+                                  perlin_kernel.pack_tables)
 
 
 def scene_from_reference(obj, device="cuda") -> SceneData:

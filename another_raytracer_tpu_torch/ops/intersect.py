@@ -295,7 +295,8 @@ def _fold_bvh(scene, best, nodes, rows, o, d, time, t_min, prim,
     out = bvh_kernel.bvh_closest_hit(
         nodes, rows, o, d, bt, bi.to(torch.int32), t_min=float(t_min),
         leaf_size=scene.bvh_leaf_size, prim=prim, time=time,
-        fold_record=want_aux, fold_full=full, precomp=pre)
+        fold_record=want_aux, fold_full=full, precomp=pre,
+        tables=scene.k5_tables(prim, pre))
     t, code, improved = out[:3]
     code = code.long()
     kind = torch.where(improved, code % 4, bk)

@@ -38,6 +38,7 @@ TARGETS = {
     "mega_kernel_count": ("mega_kernel.cu", ("-DART_COUNT", "-fmad=false")),
     "mega_replay": ("mega_replay.cu", ()),
     "bvh_kernel": ("bvh_kernel.cu", ("-fmad=false",)),
+    "bvh_kernel_count": ("bvh_kernel.cu", ("-DART_COUNT", "-fmad=false")),
     "perlin_kernel": ("perlin_kernel.cu", ("-fmad=false",)),
     # Measurement only: K5 with FMA contraction, for chip_smoke.py's cost of
     # -fmad=false.  The port never loads it.

@@ -7,6 +7,10 @@ flat BVH and its primitive rows, and the wrapper ``bvh_closest_hit``.
   tensors it runs the plain version, ``ops.bvh.traverse_packed``.
 * The packers are numpy copies of the JAX package's, so the rows equal its
   rows array for array.
+* ``pack_tables`` regroups a packed tree's wide (nodes, rows) into the
+  kernel's compact 16-byte tables (``TABLE_COLUMNS``), once per tree: the
+  scene keeps them (``SceneData.k5_tables``).  ``table_route`` picks where
+  the kernel reads them, by size: a block's shared memory, or device memory.
 
 Row formats (one row per primitive, reordered into leaf order, so a leaf is
 a contiguous run of rows; ``code`` = within-kind id * 4 + primitive kind,
@@ -46,8 +50,12 @@ META_SCALE = bvh_ops.META_SCALE
 PRIM_SPHERE = 0  # models/scene.py kind constant (the sphere rows' codes)
 # Primitive kinds of the kernel's ``prim`` argument (csrc/bvh_kernel.cu).
 PRIMS = {"planar": 0, "sphere": 1, "rect": 2}
-# Threads per CUDA block (one thread per ray).
-BLOCK = 128
+# Threads per CUDA block, one ray per thread (measured on an H100: PERF.md,
+# K5's launch shape).
+BLOCK = 384
+# Shared memory one block may take on sm_90 after opting in: larger tables
+# are read from device memory.
+MAX_SMEM = 232448
 
 
 # --------------------------------------------------------------------------
@@ -169,6 +177,48 @@ def pack_spheres(tree: FlatBVH, c0_w, c1_w, t0, t1, r, mats=None,
     return pack_nodes(tree), rows
 
 
+# The compact tables (csrc/bvh_kernel.cu): per node two float4 of wide
+# node columns, per leaf row the float4s of its layout, by (prim, precomp);
+# None is a zero.  The same floats as the wide rows, regrouped.
+NODE_COLUMNS = ((0, 1, 2, 6), (3, 4, 5, 7))
+TABLE_COLUMNS = {
+    # (v0, -), (v1, -), (v2, -)
+    ("planar", False): ((0, 1, 2, None), (3, 4, 5, None), (6, 7, 8, None)),
+    # (n, n.v0), (m0, c0), (m1, c1), (m2, c2)
+    ("planar", True): ((17, 18, 19, 20), (21, 22, 23, 30), (24, 25, 26, 31),
+                       (27, 28, 29, 32)),
+    # (c0, r), (c1 - c0, t0), (1/dt, -, -, -): K3's sphere layout too
+    ("sphere", False): ((0, 1, 2, 8), (3, 4, 5, 6), (7, None, None, None)),
+    # (axis, k, lo_u, lo_v), (hi_u, hi_v, -, -)
+    ("rect", False): ((0, 1, 2, 3), (4, 5, None, None)),
+}
+
+
+def _regroup(a, groups):
+    """[R, C] -> [R * len(groups), 4]: each row's columns ``groups``."""
+    zero = torch.zeros_like(a[:, :1])
+    f4 = [torch.cat([a[:, c:c + 1] if c is not None else zero for c in g], 1)
+          for g in groups]
+    return torch.stack(f4, 1).reshape(-1, 4)
+
+
+def pack_tables(nodes, rows, prim: str, precomp: bool = False):
+    """The compact tables of a packed tree, [2M + S N, 4] f32 on the tree's
+    device (float4 rows, 16-byte aligned): per node (lo.xyz, escape) |
+    (hi.xyz, meta), then per leaf-order row the S float4s of
+    ``TABLE_COLUMNS[prim, precomp]``, pad rows included."""
+    nodes, rows = nodes.to(torch.float32), rows.to(torch.float32)
+    return torch.cat([_regroup(nodes, NODE_COLUMNS),
+                      _regroup(rows, TABLE_COLUMNS[prim, precomp])]
+                     ).contiguous()
+
+
+def table_route(tables) -> str:
+    """"shared" where the compact tables fit a block's shared memory (each
+    block copies them there once), else "global" (device memory)."""
+    return "shared" if tables.numel() * 4 <= MAX_SMEM else "global"
+
+
 # --------------------------------------------------------------------------
 # Wrapper
 # --------------------------------------------------------------------------
@@ -177,7 +227,8 @@ def pack_spheres(tree: FlatBVH, c0_w, c1_w, t0, t1, r, mats=None,
 def bvh_closest_hit(nodes, rows, o: V3, d: V3, init_t, init_idx, *,
                     leaf_size: int, t_min: float = 1e-3, prim: str = "planar",
                     time=None, fold_record: bool = False,
-                    fold_full: bool = False, precomp: bool = False):
+                    fold_full: bool = False, precomp: bool = False,
+                    tables=None):
     """Closest hit over a packed BVH (the JAX ``bvh_closest_hit``'s
     arguments and return contract, less its TPU block and interpret knobs).
 
@@ -190,6 +241,8 @@ def bvh_closest_hit(nodes, rows, o: V3, d: V3, init_t, init_idx, *,
         through where the tree does not improve it).
       leaf_size: the build's leaf size (a leaf's count above it is cut).
       t_min: a Python float, fixed per call as the TPU kernel bakes it in.
+      tables: ``pack_tables(nodes, rows, prim, precomp)`` where the caller
+        keeps them (the scene does); packed here when None.
     Returns (t [B], code [B] int32, improved [B] bool), then the fold
     outputs of ``fold_record`` (planar: unit normal V3, u, v, and with
     ``fold_full`` tu, tv, mat as f32; sphere: outward normal V3, mat,
@@ -211,7 +264,7 @@ def bvh_closest_hit(nodes, rows, o: V3, d: V3, init_t, init_idx, *,
     run, outputs = prepare_launch(
         nodes, rows, o, d, init_t, init_idx, leaf_size=leaf_size,
         t_min=t_min, prim=prim, time=time, fold_record=fold_record,
-        fold_full=fold_full, precomp=precomp)
+        fold_full=fold_full, precomp=precomp, tables=tables)
     with torch.cuda.device(dev):
         err = run()
     if err != 0:
@@ -231,15 +284,55 @@ bvh_closest_hit.launches = 0
 
 def _lib(target="bvh_kernel"):
     """The built kernel library (``target``: a ``_build.TARGETS`` build of
-    ``csrc/bvh_kernel.cu``)."""
+    ``csrc/bvh_kernel.cu``); the counting build exports ``art_bvh_count``."""
     from another_raytracer_tpu_torch.ops.kernels import _build
 
     lib = _build.load(target)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.art_bvh_closest_hit.argtypes = (
-        [P, I, P, I, I] + [P] * 9 + [I, I, F, I, I, I, I, I, P, P, P, P, P])
-    lib.art_bvh_closest_hit.restype = I
+    args = ([P, I, P, I, I, I] + [P] * 9
+            + [I, I, F, I, I, I, I, I, P, P, P, P])
+    if target == "bvh_kernel_count":
+        lib.art_bvh_count.argtypes = args + [P, P, P]
+        lib.art_bvh_count.restype = I
+    else:
+        lib.art_bvh_closest_hit.argtypes = args + [P]
+        lib.art_bvh_closest_hit.restype = I
     return lib
+
+
+# The counting build's totals, in the order csrc/bvh_kernel.cu adds them:
+# slab tests, the warp steps of the slab loop and their active lanes, leaf
+# row tests, the warp steps of the leaf-row loop and their active lanes.
+TALLIES = ("slab_tests", "slab_steps", "slab_active", "leaf_tests",
+           "leaf_steps", "leaf_active")
+
+
+def tallies(nodes, rows, o: V3, d: V3, init_t, init_idx, **kw):
+    """K5's counting instance on CUDA rays (a measurement; the port's paths
+    never launch it): the same walk and outputs as ``bvh_closest_hit``, with
+    the arguments of ``prepare_launch``, and per launch the ``TALLIES``,
+    the active-lane shares ``slab_simt`` and ``leaf_simt`` (active lanes /
+    (32 x warp steps)), the ``blocks`` that ran and the launch's
+    ``tail_share``, ``slots`` and ``launch_ms`` (``mega_kernel.tail_share``
+    of per-block ``%globaltimer`` stamps).  Returns (t, code, improved,
+    {tally: value})."""
+    from another_raytracer_tpu_torch.ops.kernels.mega_kernel import tail_share
+
+    if o.x.device.type != "cuda":
+        raise ValueError("the counting instance needs CUDA tensors")
+    run, (t, code, hit, _aux, totals, times) = prepare_launch(
+        nodes, rows, o, d, init_t, init_idx, tally=True, **kw)
+    with torch.cuda.device(o.x.device):
+        err = run()
+    if err != 0:
+        raise RuntimeError(f"bvh_kernel count launch failed: CUDA error {err}")
+    tl = dict(zip(TALLIES, totals.tolist()))
+    tl["slab_simt"] = tl["slab_active"] / max(32 * tl["slab_steps"], 1)
+    tl["leaf_simt"] = tl["leaf_active"] / max(32 * tl["leaf_steps"], 1)
+    times = times.cpu()
+    tl["blocks"] = int((times[:, 0] > 0).sum())
+    tl["tail_share"], tl["slots"], tl["launch_ms"] = tail_share(times)
+    return t, code, hit, tl
 
 
 def _f32(x, n, dev, what):
@@ -250,9 +343,16 @@ def _f32(x, n, dev, what):
 
 def prepare_launch(nodes, rows, o: V3, d: V3, init_t, init_idx, *,
                    leaf_size, t_min, prim, time=None, fold_record=False,
-                   fold_full=False, precomp=False):
+                   fold_full=False, precomp=False, tables=None, route=None,
+                   block=BLOCK, tally=False):
     """Everything one CUDA launch needs: returns (run, (t, code, hit, aux)).
-    ``run()`` is the bare launch and returns the CUDA error code."""
+    ``run()`` is the bare launch and returns the CUDA error code.
+    ``tables``: as ``bvh_closest_hit``'s.  ``route`` ("shared" / "global")
+    overrides ``table_route``'s choice (a small tree can take the
+    device-memory walk); ``block`` is the launch's threads per block (each
+    ray's outputs are the same bits at any).  ``tally`` launches the
+    counting build, whose outputs add the u64 totals of ``TALLIES`` (as
+    int64) and each block's start and end time ([blocks, 2] int64 ns)."""
     bvh_ops.check_variant(rows, prim, fold_record, fold_full, precomp)
     dev = o.x.device
     n = o.x.shape[0]
@@ -262,6 +362,19 @@ def prepare_launch(nodes, rows, o: V3, d: V3, init_t, init_idx, *,
         raise ValueError("nodes, rows and rays must be on one device")
     if not 0 < leaf_size < META_SCALE:
         raise ValueError(f"leaf_size must be in [1, {META_SCALE - 1}]")
+    if tables is None:
+        tables = pack_tables(nodes, rows, prim, precomp)
+    per_row = len(TABLE_COLUMNS[prim, precomp])
+    if (tables.shape != (2 * nodes.shape[0] + per_row * rows.shape[0], 4)
+            or tables.dtype != torch.float32 or tables.device != dev
+            or not tables.is_contiguous()):
+        raise ValueError("tables must be pack_tables(nodes, rows, prim, "
+                         "precomp)")
+    route = table_route(tables) if route is None else route
+    if route not in ("shared", "global") or (
+            route == "shared" and table_route(tables) != "shared"):
+        raise ValueError(f"no {route!r} route for {tables.numel() * 4} B of "
+                         f"tables")
     ins = [_f32(c, n, dev, "ray components") for c in (*o, *d)]
     ins.append(_f32(torch.zeros_like(o.x) if time is None else time, n, dev,
                     "time"))
@@ -269,24 +382,32 @@ def prepare_launch(nodes, rows, o: V3, d: V3, init_t, init_idx, *,
     if init_idx.shape != (n,) or init_idx.device != dev:
         raise ValueError(f"init_idx must be a [{n}] tensor on {dev}")
     ins.append(init_idx.to(torch.int32).contiguous())
-    nodes_c = nodes.to(torch.float32).contiguous()
     rows_c = rows.to(torch.float32).contiguous()
     t = torch.empty(n, dtype=torch.float32, device=dev)
     code = torch.empty(n, dtype=torch.int32, device=dev)
     hit = torch.empty(n, dtype=torch.bool, device=dev)
     aux = torch.empty((bvh_ops.n_aux(fold_record, fold_full), n),
                       dtype=torch.float32, device=dev)
-    lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-    args = (nodes_c, nodes_c.shape[0], rows_c, rows_c.shape[0],
-            rows_c.shape[1], *ins, n, int(leaf_size), float(t_min),
-            PRIMS[prim], int(fold_record), int(fold_full), int(precomp),
-            BLOCK, t, code, hit, aux)
+    args = (tables, int(route == "shared"), rows_c, nodes.shape[0],
+            rows_c.shape[0], rows_c.shape[1], *ins, n, int(leaf_size),
+            float(t_min), PRIMS[prim], int(fold_record), int(fold_full),
+            int(precomp), int(block), t, code, hit, aux)
+    outputs = (t, code, hit, aux)
+    if tally:
+        entry = _lib("bvh_kernel_count").art_bvh_count
+        totals = torch.zeros(len(TALLIES), dtype=torch.int64, device=dev)
+        times = torch.zeros((max(-(-n // int(block)), 1), 2),
+                            dtype=torch.int64, device=dev)
+        args += (totals, times)
+        outputs += (totals, times)
+    else:
+        entry = _lib().art_bvh_closest_hit
     ptrs = tuple(a.data_ptr() if isinstance(a, torch.Tensor) else a
                  for a in args) + (stream,)
 
     def run(_inputs=args):  # the default keeps the tensors behind ptrs alive
-        return lib.art_bvh_closest_hit(*ptrs)
+        return entry(*ptrs)
 
-    return run, (t, code, hit, aux)
+    return run, outputs

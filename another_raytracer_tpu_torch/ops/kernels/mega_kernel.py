@@ -86,6 +86,7 @@ import torch
 from another_raytracer_tpu_torch.models import scene as scene_lib
 from another_raytracer_tpu_torch.ops import bvh as bvh_ops
 from another_raytracer_tpu_torch.ops import rng, vec3
+from another_raytracer_tpu_torch.ops.kernels import bvh_kernel
 from another_raytracer_tpu_torch.ops.vec3 import V3
 
 BIG = 3e37
@@ -313,14 +314,10 @@ def pack_accel_tables(scene):
     rows, 16-byte aligned): per node of ``scene.sph_bvh_nodes`` (lo.xyz,
     escape) | (hi.xyz, meta), then per leaf-order sphere row of
     ``scene.sph_bvh_rows`` (c0.xyz, r) | (c1 - c0, t0) | (1/dt, 0, 0, 0).
-    The same values as the nodes and rows, regrouped."""
-    nodes = scene.sph_bvh_nodes.to(torch.float32)
-    rows = scene.sph_bvh_rows.to(torch.float32)
-    zero = torch.zeros_like(rows[:, :3])
-    node4 = torch.stack([nodes[:, [0, 1, 2, 6]], nodes[:, [3, 4, 5, 7]]], 1)
-    sph4 = torch.stack([rows[:, [0, 1, 2, 8]], rows[:, [3, 4, 5, 6]],
-                        torch.cat([rows[:, 7:8], zero], 1)], 1)
-    return torch.cat([node4.reshape(-1, 4), sph4.reshape(-1, 4)]).contiguous()
+    The same values as the nodes and rows, regrouped: K5's sphere tables
+    (``bvh_kernel.pack_tables``)."""
+    return bvh_kernel.pack_tables(scene.sph_bvh_nodes, scene.sph_bvh_rows,
+                                  "sphere")
 
 
 def pack_camera(scene, cam):

@@ -10,8 +10,11 @@
   cannot reach the noise argument (``render.radiance_batch``'s value-only
   rule), where the zero is the true gradient.
 
+* ``pack_tables`` packs a scene's Perlin tables for the kernel, once per
+  scene (``SceneData.perlin_tables``).
+
 The TPU kernel serves one table set (Q == 1); this one takes a table id per
-point, so every noise texture of a scene runs it.
+point where a scene has several, so every noise texture of a scene runs it.
 """
 
 from __future__ import annotations
@@ -22,8 +25,27 @@ import torch
 
 from another_raytracer_tpu_torch.ops.vec3 import V3
 
-# Table sets that fit in one block's shared memory (6 KB each).
-MAX_TABLES = 37
+PERLIN_N = 256
+# Bytes of one packed table set, and the sets that fit in one block's
+# shared memory (232,448 bytes on sm_90).
+TABLE_BYTES = PERLIN_N * 16 + 3 * PERLIN_N * 2
+MAX_TABLES = 232448 // TABLE_BYTES
+
+
+def pack_tables(per_perm, per_ranvec):
+    """The kernel's tables, [Q, TABLE_BYTES] uint8 on the tables' device:
+    per table set the 256 ranvec gradients as float4 (x, y, z, 0), then per
+    axis a the 256 16-bit little-endian words ``perm[a][i] | perm[a][(i + 1)
+    & 255] << 8`` (the entries at a lattice index and the next; every entry
+    is below 256)."""
+    q = per_perm.shape[0]
+    ran4 = torch.cat([per_ranvec.detach().to(torch.float32),
+                      torch.zeros_like(per_ranvec[..., :1],
+                                       dtype=torch.float32)], -1)
+    perm = per_perm.to(torch.uint8)
+    words = torch.stack([perm, torch.roll(perm, -1, dims=-1)], -1)
+    return torch.cat([ran4.contiguous().view(torch.uint8).reshape(q, -1),
+                      words.reshape(q, -1)], 1).contiguous()
 
 
 def perlin_noise(scene, perlin_ids, p: V3):
@@ -45,11 +67,14 @@ def perlin_noise(scene, perlin_ids, p: V3):
         raise RuntimeError(f"perlin_kernel launch failed: CUDA error {err}")
     if p.x.shape[0]:
         perlin_noise.launches += 1
+        perlin_noise.points += p.x.shape[0]
     return out
 
 
-# Launches of the CUDA kernel, incremented once per launch and nowhere else.
+# Launches of the CUDA kernel, incremented once per launch and nowhere else,
+# and the points those launches took (their mean width).
 perlin_noise.launches = 0
+perlin_noise.points = 0
 
 
 class _NoGrad(torch.autograd.Function):
@@ -75,37 +100,39 @@ def _lib():
 
     lib = _build.load("perlin_kernel")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.art_perlin_noise.argtypes = [P, P, P, P, P, P, I, I, P, P]
+    lib.art_perlin_noise.argtypes = [P, P, P, P, P, I, I, P, P]
     lib.art_perlin_noise.restype = I
     return lib
 
 
 def prepare_launch(scene, perlin_ids, p: V3):
     """Everything one CUDA launch needs: returns (run, out).  ``run()`` is
-    the bare launch and returns the CUDA error code."""
+    the bare launch and returns the CUDA error code.  A scene with one table
+    set passes no table ids."""
     dev = p.x.device
     n = p.x.shape[0]
-    q = scene.per_perm.shape[0]
+    tab = scene.perlin_tables()
+    q = tab.shape[0]
     if q > MAX_TABLES:
         raise ValueError(f"{q} Perlin table sets do not fit in shared memory "
                          f"(at most {MAX_TABLES})")
-    if scene.per_perm.device != dev:
-        raise ValueError(f"scene is on {scene.per_perm.device}, points on {dev}")
+    if tab.device != dev:
+        raise ValueError(f"scene is on {tab.device}, points on {dev}")
     comps = [c.detach().to(torch.float32).contiguous() for c in p]
     if any(c.shape != (n,) for c in comps):
         raise ValueError("p must be a V3 of [B] tensors")
-    pid = torch.as_tensor(perlin_ids, device=dev)
-    pid = pid.expand(n) if pid.dim() == 0 else pid
-    if pid.shape != (n,):
-        raise ValueError(f"perlin_ids must be a scalar or [{n}]")
-    pid = pid.to(torch.int32).contiguous()
-    perm = scene.per_perm.to(torch.int32).contiguous()
-    ran = scene.per_ranvec.detach().to(torch.float32).contiguous()
+    pid = None
+    if q > 1:
+        pid = torch.as_tensor(perlin_ids, device=dev)
+        pid = pid.expand(n) if pid.dim() == 0 else pid
+        if pid.shape != (n,):
+            raise ValueError(f"perlin_ids must be a scalar or [{n}]")
+        pid = pid.to(torch.int32).contiguous()
     out = torch.empty(n, dtype=torch.float32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-    args = (*comps, pid, perm, ran, q, n, out)
+    args = (*comps, pid, tab, q, n, out)
     ptrs = tuple(a.data_ptr() if isinstance(a, torch.Tensor) else a
                  for a in args) + (stream,)
 

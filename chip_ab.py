@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""A/B of the megakernel (K1, K2 and K3) between two checkouts on one GPU.
+"""A/B of the kernels between two checkouts on one GPU: the megakernel
+(K1, K2, K3 and the replay) and the wavefront's two (K5 and K4).
 
-    python3 chip_ab.py OTHER_CHECKOUT [--runs 5]
+    python3 chip_ab.py OTHER_CHECKOUT [--runs 5] [--only megakernel|wavefront]
 
 Runs a worker process for each side in turns: OTHER_CHECKOUT, this
 checkout, this checkout, OTHER_CHECKOUT.  Each worker imports the
@@ -26,11 +27,20 @@ defaults (block size, lane mapping):
 * ``k3_record_ms``: K3's record instance alone at the bench size;
 * ``adaptive_ms`` and ``single_ms``: ``render.render`` of scene 1 at the
   README size in adaptive and in single mode;
+* ``k5_*_ms``: K5 alone with the wavefront's variant of each tree kind on
+  scene 1's first call (388,800 camera rays, sphere fold) and on the three
+  cases of ``chip_smoke.k5_cases`` (the planar one with and without the
+  precomputed geometry), and ``k4_ms`` / ``k4_width_ms``: K4 alone on
+  388,800 points of scene 3's table set and on the main path's mean width
+  (``K4_WIDTH``); these kernels take microseconds to milliseconds, so each
+  is ``chip_smoke.graph_ms``'s device time per launch (launches captured in
+  a CUDA graph, without the host's submission);
 
 each the median of ``--runs`` after a warm-up (kernels: CUDA events after a
 synchronise), with the segments of K1 and K3's launches, and the registers
 and static instruction census (``chip_smoke.sass_census`` of this
-checkout) of every megakernel instance the side built.  Prints one JSON
+checkout) of every megakernel instance the side built, and K5's registers
+per instance.  ``--only`` times one of the two groups.  Prints one JSON
 line per worker, then the card's name and power limit and a JSON summary
 (median over each side's turns of the numbers).  Exits non-zero without a
 result when no CUDA device is visible.  Imports no JAX.
@@ -41,6 +51,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -49,6 +60,10 @@ import numpy as np
 
 W, H, SPP, DEPTH = 720, 540, 100, 50  # the README render (Cornell, scene 1)
 BW, BH, BSPP, BDEPTH = 360, 270, 16, 8  # the bench size
+# K4's mean points per launch in the scene-3 and scene-5 renders at 720x540,
+# spp 16, depth 50 (chip_smoke.py's main_path_textures; the same on both
+# sides, since the wavefront does not depend on the kernel).
+K4_WIDTH = 42052
 
 
 def cuda_ms(fn, runs):
@@ -78,8 +93,8 @@ def host_ms(fn, runs):
     return float(np.median(out))
 
 
-def measure(runs):
-    """The side's timings."""
+def measure(runs, only=None):
+    """The side's timings (``only``: "megakernel" or "wavefront")."""
     import torch
 
     from another_raytracer_tpu_torch.config import RenderConfig, RenderMode
@@ -104,6 +119,10 @@ def measure(runs):
                spp_cap=BSPP, max_depth=BDEPTH, t_min=1e-3)
     bpix = torch.arange(BW * BH, dtype=torch.int64, device=dev)
     res = {}
+    if only != "megakernel":
+        measure_wavefront(runs, dev, res)
+    if only == "wavefront":
+        return res
 
     def replay_ms(scene, bcam):
         """The replay alone on the record instance's own residuals."""
@@ -165,19 +184,73 @@ def measure(runs):
     return res
 
 
-def census():
-    """{build: {instance: counts}} of the side's built megakernel libraries:
-    registers, spilled bytes and the SASS census, with this checkout's
-    chip_smoke.py (the side's package builds and locates the libraries)."""
-    import importlib.util
+def measure_wavefront(runs, dev, res):
+    """K5 and K4 alone (module docstring) into ``res``."""
+    import torch
 
-    from another_raytracer_tpu_torch.ops.kernels import _build
+    from another_raytracer_tpu_torch.models import library
+    from another_raytracer_tpu_torch.ops.kernels import (_build, bvh_kernel,
+                                                         perlin_kernel)
+    from another_raytracer_tpu_torch.ops.vec3 import V3
+
+    smoke = this_smoke()
+    scene1, cam1 = library.random_scene(device=dev)
+    cases = [smoke.k5_first_call(dev, scene1, cam1)]
+    cases += smoke.k5_cases(dev, scene1, cam1)
+    for case, key in zip(cases, ("first_call", "spheres", "triangles",
+                                 "rects")):
+        prim = case[7]
+        fold, full, pre = smoke.K5_MAIN[prim]
+        args, kw = smoke.k5_args(case, dev)
+        for p, tag in ((pre, ""), (False, "_no_precomp")):
+            if tag and prim != "planar":
+                continue
+            # The side's packed tables where it has them (packed here, in
+            # the capture, where not).
+            extra = ({"tables": bvh_kernel.pack_tables(args[0], args[1], prim,
+                                                       p)}
+                     if hasattr(bvh_kernel, "pack_tables") else {})
+            res[f"k5_{key}{tag}_ms"] = smoke.graph_ms(
+                lambda: bvh_kernel.prepare_launch(
+                    *args, t_min=1e-3, fold_record=fold, fold_full=full,
+                    precomp=p, **kw, **extra)[0], dev, 20, runs)[0]
+    res["k5_registers"] = [int(r) for r in re.findall(
+        r"Used (\d+) registers", _build.build_log("bvh_kernel"))]
+    scene3, _ = library.two_perlin_spheres(device=dev)
+    g = np.random.default_rng(2)
+    n = W * H
+    pv = V3(*(torch.from_numpy(g.uniform(-20, 20, n).astype(np.float32)).to(dev)
+              for _ in range(3)))
+    ids = torch.zeros(n, dtype=torch.int64, device=dev)
+    res["k4_ms"] = smoke.graph_ms(
+        lambda: perlin_kernel.prepare_launch(scene3, ids, pv)[0], dev, 100,
+        runs)[0]
+    pw = V3(*(c[:K4_WIDTH] for c in pv))
+    res["k4_width_ms"] = smoke.graph_ms(
+        lambda: perlin_kernel.prepare_launch(scene3, ids[:K4_WIDTH], pw)[0],
+        dev, 100, runs)[0]
+
+
+def this_smoke():
+    """This checkout's chip_smoke.py as a module (the worker's import path
+    holds the other side's package)."""
+    import importlib.util
 
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                    "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    return smoke
+
+
+def census():
+    """{build: {instance: counts}} of the side's built megakernel libraries:
+    registers, spilled bytes and the SASS census, with this checkout's
+    chip_smoke.py (the side's package builds and locates the libraries)."""
+    from another_raytracer_tpu_torch.ops.kernels import _build
+
+    smoke = this_smoke()
     out = {}
     for build in ("mega_kernel", "mega_kernel_record"):
         path, _ = _build.build(build)
@@ -191,10 +264,10 @@ def census():
     return out
 
 
-def run_side(checkout, runs):
+def run_side(checkout, runs, only=None):
     """One worker: this file run with ``--worker`` in ``checkout``."""
     cmd = [sys.executable, os.path.abspath(__file__), "--worker", checkout,
-           "--runs", str(runs)]
+           "--runs", str(runs)] + (["--only", only] if only else [])
     res = subprocess.run(cmd, cwd=checkout, capture_output=True, text=True,
                          timeout=1800)
     if res.returncode != 0:
@@ -207,12 +280,13 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", nargs="?", help="the checkout to compare with")
     ap.add_argument("--runs", type=int, default=5)
+    ap.add_argument("--only", choices=("megakernel", "wavefront"))
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
         # This file lives in one checkout; import the package of the other.
         sys.path[0] = os.path.abspath(args.worker)
-        print(json.dumps(measure(args.runs)))
+        print(json.dumps(measure(args.runs, args.only)))
         return 0
     if args.other is None:
         ap.error("name the checkout to compare with")
@@ -228,7 +302,7 @@ def main():
              ("other", other)]
     results = {"other": [], "this": []}
     for side, path in turns:
-        r = run_side(path, args.runs)
+        r = run_side(path, args.runs, args.only)
         results[side].append(r)
         print(json.dumps({"side": side, "checkout": path, **r}), flush=True)
     smi = subprocess.run(

@@ -24,12 +24,16 @@ PyTorch version:
   the lockstep path, and ``python -m another_raytracer_tpu_torch.bench``;
 * the wavefront of BVH and texture scenes: the BVH closest-hit kernel (K5)
   against its plain version on ~400k rays over the random scene's sphere
-  tree, 10,240 triangles and 128 rects (every fold variant), the Perlin
-  kernel (K4) on 1M points, the wavefront through the kernels against the
-  same through the plain versions on four scenes, the CLI on scene 1
-  (720x540, spp 100, depth 50), a profiler trace of scene 1 at spp 1 (where
-  the render's time goes), the CLI on scenes 3, 4 and 5 (spp 16), and the
-  two kernels' times beside their bounds;
+  tree, 10,240 triangles, 128 rects and the 128-triangle sheet (every fold
+  variant, on both table routes where the tables fit shared memory), the
+  Perlin kernel (K4) on 1M points, the wavefront through the kernels
+  against the same through the plain versions on four scenes, the CLI on
+  scene 1 (720x540, spp 100, depth 50), a profiler trace of scene 1 at spp
+  1 (where the render's time goes, K5's share), the CLI on scenes 3, 4 and
+  5 (spp 16; K4's mean points per launch; the segments of scenes 1, 3 and
+  5 must equal ``WAVEFRONT_SEGMENTS``), and the two kernels' times
+  (``graph_ms``) beside their bounds, with K5's counting build's tallies
+  and its time at each block size of ``BLOCKS``;
 * the megakernel's accel mode (K3): its forward instance against its plain
   version on scene 1, an 81-sphere tree and a dense 6,000-sphere grid, its
   record instance bit-equal to its plain version at the bench size through
@@ -76,6 +80,10 @@ FLIP_ABS, FLIP_BUDGET, MEDIAN_MAX = 2e-2, 0.02, 1e-5
 
 W, H, SPP, DEPTH = 720, 540, 100, 50  # README render (serving), scene 1
 TEX_SPP = 16  # scenes 3, 4 and 5 through the CLI
+# Segments of the CLI renders through the wavefront at W x H, depth DEPTH
+# (scene 1 at SPP with MEGA_FORWARD = False, scenes 3 and 5 at TEX_SPP):
+# K5 and K4 are bit-equal to their plain versions, so these never move.
+WAVEFRONT_SEGMENTS = {1: 120859593, 3: 16145816, 5: 10753141}
 CW, CH, CSPP = 180, 135, 4  # the wavefront comparison
 BW, BH, BSPP, BDEPTH = 360, 270, 16, 8  # bench.py (training)
 TW, TH, TSPP, TDEPTH = 180, 135, 8, 6  # scripts/train_demo.py, chip size
@@ -484,6 +492,37 @@ def cuda_ms(fn, dev, runs):
     return float(np.median(out)), [round(x, 3) for x in out]
 
 
+def graph_ms(prepare, dev, launches=100, runs=5):
+    """The device time of one launch without the host's submission (for
+    kernels of tens of microseconds, where ``cuda_ms`` also times the
+    ctypes call): ``prepare()`` returns a bare launch (``prepare_launch``'s
+    run, which binds the current stream, so it is called inside the
+    capture); ``launches`` of them are captured in one CUDA graph, which is
+    replayed between two events.  Returns (median ms per launch over
+    ``runs`` replays, the runs)."""
+    import torch
+
+    bare(prepare())()  # outside the capture: the build and the module load
+    torch.cuda.synchronize(dev)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        go = bare(prepare())
+        for _ in range(launches):
+            go()
+    graph.replay()
+    out = []
+    for _ in range(runs):
+        a, b = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        torch.cuda.synchronize(dev)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize(dev)
+        out.append(a.elapsed_time(b) / launches)
+    return float(np.median(out)), [round(x, 5) for x in out]
+
+
 def kernel_usage(log, name):
     """(registers, spilled bytes) of the kernel whose mangled name holds
     ``name``, from a ``-Xptxas -v`` build report."""
@@ -656,6 +695,21 @@ def k5_cases(dev, scene1, cam1):
     return cases
 
 
+def k5_sheet_case(dev):
+    """The 128-triangle sheet's planar tree (``sheet_scene``: 35-column
+    rows, tables in shared memory) with rays from a shell around it, in
+    ``k5_cases``' form: the planar variants on K5's shared-memory route."""
+    import torch
+
+    sheet, _ = sheet_scene(dev)
+    o, d = shell_rays(np.random.default_rng(1), W * H, 6.0, 2.5,
+                      center=(0.0, 0.0, -3.0))
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return ("128-triangle sheet", sheet.bvh_packed_nodes, sheet.bvh_packed_tris,
+            [t(c) for c in o], [t(c) for c in d],
+            torch.zeros(W * H, device=dev), sheet.bvh_leaf_size, "planar")
+
+
 # (prim, fold_record, fold_full, precomp) variants per tree kind.
 K5_VARIANTS = {
     "sphere": [(False, False, False), (True, False, False)],
@@ -678,6 +732,74 @@ def k5_args(case, dev):
             dict(leaf_size=leaf, prim=prim, time=tm))
 
 
+# The variant of each tree kind that K5's timings, tallies and bounds use:
+# the wavefront's (intersect.py: the sphere fold, the planar full fold on
+# precomputed geometry; rects take no fold).
+K5_MAIN = {"sphere": (True, False, False), "planar": (True, True, True),
+           "rect": (False, False, False)}
+
+
+def k5_first_call(dev, scene1, cam1):
+    """The case of the scene-1 render's first K5 call through the
+    wavefront: its 388,800 camera rays against the sphere tree (in
+    ``k5_cases``' form)."""
+    from another_raytracer_tpu_torch.ops import camera as camera_lib
+
+    cam = camera_lib.make_camera(aspect_ratio=W / H, device=dev, **cam1)
+    pix, samp = lanes(W, H, dev)
+    o, d, tm = camera_lib.generate_rays(cam, pix, samp, W, H, 0,
+                                        needs_time=scene1.has_motion)
+    return ("scene 1's first call", scene1.sph_bvh_nodes, scene1.sph_bvh_rows,
+            list(o), list(d), tm, scene1.bvh_leaf_size, "sphere")
+
+
+def k5_work(case, fold, full, pre, dev):
+    """K5's plain version on a case, with the work it does counted: (flat
+    outputs, slab tests, leaf row tests, improved rays, the bound's ms and
+    what bounds it).  Operations: ops/bvh.py's per-test counts; bytes: the
+    nodes and rows, each ray's 9 inputs, and its t, code, flag and fold
+    outputs."""
+    from another_raytracer_tpu_torch.ops import bvh as bvh_ops
+
+    args, kw = k5_args(case, dev)
+    tm, prim = kw.pop("time"), kw["prim"]
+    out = bvh_ops.traverse_packed(*args[:4], tm, 1e-3, *args[4:],
+                                  fold_record=fold, fold_full=full,
+                                  precomp=pre, counts=True, **kw)
+    slabs, tests, hits = (int(out[-2].sum()), int(out[-1].sum()),
+                          int(out[2].sum()))
+    ops = (slabs * bvh_ops.OPS_PER_SLAB
+           + tests * bvh_ops.OPS_PER_TEST[prim, pre]
+           + (hits * bvh_ops.OPS_PER_FOLD[prim, pre] if fold else 0))
+    n = args[2].x.shape[0]
+    nbytes = ((args[0].numel() + args[1].numel()) * 4
+              + n * (9 * 4 + 9 + 4 * bvh_ops.n_aux(fold, full)))
+    return (flat_out(out[:-2]), slabs, tests, hits) + bound(ops, nbytes)
+
+
+def k5_tallies(case, fold, full, pre, dev, work=None, **launch):
+    """K5's counting instance on one case (``bvh_kernel.tallies``), held to
+    its plain version (``work``: ``k5_work``'s result, computed when None):
+    the same t, codes and flags, and slab and leaf row totals equal to the
+    plain version's counts.  Returns the tallies."""
+    import torch
+
+    from another_raytracer_tpu_torch.ops.kernels import bvh_kernel
+
+    want, slabs, tests = (work or k5_work(case, fold, full, pre, dev))[:3]
+    args, kw = k5_args(case, dev)
+    t, code, hit, tl = bvh_kernel.tallies(
+        *args, t_min=1e-3, fold_record=fold, fold_full=full, precomp=pre,
+        **kw, **launch)
+    if ((slabs, tests) != (tl["slab_tests"], tl["leaf_tests"])
+            or not all(torch.equal(a, b) for a, b in zip((t, code, hit),
+                                                          want[:3]))):
+        raise AssertionError(f"K5's counting instance on {case[0]} differs "
+                             f"from its plain version: {tl} vs "
+                             f"{(slabs, tests)}")
+    return tl
+
+
 def flat_out(out):
     """A K5 result as a flat list of tensors (V3 components spread)."""
     from another_raytracer_tpu_torch.ops.vec3 import V3
@@ -686,10 +808,12 @@ def flat_out(out):
 
 
 def compare_k5(case, fold, full, pre, dev):
-    """K5 vs its plain version on one case and variant.  Bit-equal is the
-    expectation (both round every operation alike); otherwise the
-    test_mega bar on the lanes (<= 2% of lanes with another winner, median
-    |t| difference < 1e-5).  Fold outputs are compared on hit lanes."""
+    """K5 vs its plain version on one case and variant, through the wrapper
+    (the route ``table_route`` picks; it counts a launch) and, where that
+    is shared memory, on the device-memory route too.  Bit-equal is the
+    expectation (both round every operation alike); otherwise the test_mega
+    bar on the lanes (<= 2% of lanes with another winner, median |t|
+    difference < 1e-5).  Fold outputs are compared on hit lanes."""
     import torch
 
     from another_raytracer_tpu_torch.ops import bvh as bvh_ops
@@ -697,35 +821,60 @@ def compare_k5(case, fold, full, pre, dev):
 
     args, kw = k5_args(case, dev)
     kw.update(fold_record=fold, fold_full=full, precomp=pre)
-    got = bvh_kernel.bvh_closest_hit(*args, **kw)
+    tables = bvh_kernel.pack_tables(args[0], args[1], case[7], pre)
+    runs = {bvh_kernel.table_route(tables): flat_out(
+        bvh_kernel.bvh_closest_hit(*args, tables=tables, **kw))}
+    if "shared" in runs:
+        run, (t, code, hit, aux) = bvh_kernel.prepare_launch(
+            *args, t_min=1e-3, tables=tables, route="global", **kw)
+        bare(run)()
+        runs["global"] = [t, code, hit, *aux]
     tm = kw.pop("time")
-    want = bvh_ops.traverse_packed(*args[:4], tm, 1e-3, *args[4:], **kw)
+    w = flat_out(bvh_ops.traverse_packed(*args[:4], tm, 1e-3, *args[4:], **kw))
     torch.cuda.synchronize(dev)
-    g, w = flat_out(got), flat_out(want)
-    same = (g[2] == w[2]) & (g[1] == w[1])
-    hit = w[2] & same
-    bit_equal = all(torch.equal(a, b) for a, b in zip(g, w))
-    t_err = float((g[0] - w[0])[same].abs().max())
-    aux_err = max([float((a - b)[hit].abs().max()) for a, b in zip(g[3:], w[3:])]
-                  or [0.0])
     stats = dict(variant=f"{case[7]} fold={int(fold)} full={int(full)} "
-                 f"precomp={int(pre)}", rays=int(g[0].shape[0]),
-                 hits=int(w[2].sum()), bit_equal=bit_equal,
-                 lanes_differ=int((~same).sum()), max_abs_err_t=t_err,
-                 max_abs_err_fold=aux_err)
-    diff = (g[0] - w[0])[same].abs()
-    if not bit_equal and (float((~same).float().mean()) > FLIP_BUDGET
-                          or float(diff.median()) >= MEDIAN_MAX):
-        raise AssertionError(f"K5 disagrees with its plain version: {stats}")
+                 f"precomp={int(pre)}", rays=int(w[0].shape[0]),
+                 hits=int(w[2].sum()))
+    for route, g in runs.items():
+        same = (g[2] == w[2]) & (g[1] == w[1])
+        hit = w[2] & same
+        st = dict(bit_equal=all(torch.equal(a, b) for a, b in zip(g, w)),
+                  lanes_differ=int((~same).sum()),
+                  max_abs_err_t=float((g[0] - w[0])[same].abs().max()),
+                  max_abs_err_fold=max(
+                      [float((a - b)[hit].abs().max())
+                       for a, b in zip(g[3:], w[3:])] or [0.0]))
+        diff = (g[0] - w[0])[same].abs()
+        if not st["bit_equal"] and (float((~same).float().mean()) > FLIP_BUDGET
+                                    or float(diff.median()) >= MEDIAN_MAX):
+            raise AssertionError(f"K5 ({route} route) disagrees with its "
+                                 f"plain version: {stats} {st}")
+        stats[route] = st
+    stats["bit_equal"] = all(stats[r]["bit_equal"] for r in runs)
+    stats["max_abs_err_t"] = max(stats[r]["max_abs_err_t"] for r in runs)
     if not 0 < stats["hits"] < stats["rays"]:
         raise AssertionError(f"K5 comparison has no hits or no misses: {stats}")
     return stats
 
 
+def k5_shapes(case, fold, full, pre, dev, launches=20):
+    """K5 alone on one case (``graph_ms``) at each block size of ``BLOCKS``:
+    {block: ms}."""
+    from another_raytracer_tpu_torch.ops.kernels import bvh_kernel
+
+    args, kw = k5_args(case, dev)
+    tables = bvh_kernel.pack_tables(args[0], args[1], case[7], pre)
+    return {blk: round(graph_ms(lambda: bvh_kernel.prepare_launch(
+        *args, t_min=1e-3, fold_record=fold, fold_full=full, precomp=pre,
+        tables=tables, block=blk, **kw)[0], dev, launches, 3)[0], 5)
+        for blk in BLOCKS}
+
+
 def plain_k5(nodes, rows, o, d, init_t, init_idx, *, leaf_size, t_min=1e-3,
              prim="planar", time=None, fold_record=False, fold_full=False,
-             precomp=False):
-    """K5's plain version behind the wrapper's signature."""
+             precomp=False, tables=None):
+    """K5's plain version behind the wrapper's signature (it walks the wide
+    rows; ``tables`` is not read)."""
     from another_raytracer_tpu_torch.ops import bvh as bvh_ops
 
     return bvh_ops.traverse_packed(
@@ -765,6 +914,7 @@ def reset_counts():
     mega_diff.replay_backward.launches = 0
     bvh_kernel.bvh_closest_hit.launches = 0
     perlin_kernel.perlin_noise.launches = 0
+    perlin_kernel.perlin_noise.points = 0
 
 
 def counts():
@@ -1199,7 +1349,7 @@ def main() -> int:
     scene1, cam1 = library.random_scene(device=dev)
     cases = k5_cases(dev, scene1, cam1)
     k5_stats = []
-    for case in cases:
+    for case in cases + [k5_sheet_case(dev)]:
         for fold, full, pre in K5_VARIANTS[case[7]]:
             st = compare_k5(case, fold, full, pre, dev)
             k5_stats.append(st)
@@ -1268,8 +1418,10 @@ def main() -> int:
         rc, out, img, launched = run_cli(1, W, H, SPP, DEPTH, tmp)
     bvh_wall_ms, bvh_mrays, bvh_segs = cli_stats(out)
     k5_launches = launched["K5"]
-    if rc != 0 or k5_launches < 1 or launched["K1"] or bvh_segs <= 0:
-        raise AssertionError(f"main path (scene 1): rc={rc} {launched}\n{out}")
+    if (rc != 0 or k5_launches < 1 or launched["K1"]
+            or bvh_segs != WAVEFRONT_SEGMENTS[1]):
+        raise AssertionError(f"main path (scene 1): rc={rc} {launched}, "
+                             f"{bvh_segs} segments\n{out}")
     if img.shape != (H, W, 3) or img.mean() < 10.0:
         raise AssertionError(f"scene 1 image is wrong: {img.shape} {img.mean()}")
     phase("main_path_bvh", f"scene 1 {W}x{H} spp{SPP} depth{DEPTH} (CLI, "
@@ -1283,105 +1435,164 @@ def main() -> int:
         wall_ms, busy_ms, n_kern, launched, top = profile_render(scene1, cam1,
                                                                  1, dev)
     iters = max(launched["K5"], 1)
+    k5_trace = [(ms, c) for nm, ms, c in top if "bvh_kernel" in nm]
+    k5_trace_ms = sum(ms for ms, _ in k5_trace)
     phase("profile_bvh", f"scene 1 {W}x{H} spp1 depth{DEPTH}: {wall_ms:.1f} ms "
           f"wall, {iters} loop iterations ({wall_ms / iters:.2f} ms each); "
           f"traced: device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% "
           f"of the bare wall), {n_kern} device ops "
-          f"({n_kern / iters:.0f} per iteration); top by device time: "
+          f"({n_kern / iters:.0f} per iteration); K5 {k5_trace_ms:.3f} ms over "
+          f"{sum(c for _, c in k5_trace)} launches "
+          f"({100 * k5_trace_ms / busy_ms:.1f}% of the device time); top by "
+          f"device time: "
           + "; ".join(f"{nm} {ms:.1f} ms / {c}" for nm, ms, c in top[:8]))
 
     # 14. The texture main path: scenes 3, 4 and 5 through the CLI.
-    k4_launches = 0
+    k4_launches = k4_points = 0
+    tex_segments = {}
     for sid in (3, 4, 5):
         with tempfile.TemporaryDirectory() as tmp:
             rc, out, img, launched = run_cli(sid, W, H, TEX_SPP, DEPTH, tmp)
         wall_ms, mrays, segs = cli_stats(out)
-        if rc != 0 or segs <= 0 or (sid in (3, 5) and launched["K4"] < 1):
-            raise AssertionError(f"main path (scene {sid}): rc={rc} {launched}")
+        if rc != 0 or segs <= 0 or (sid in (3, 5) and launched["K4"] < 1) or (
+                segs != WAVEFRONT_SEGMENTS.get(sid, segs)):
+            raise AssertionError(f"main path (scene {sid}): rc={rc} {launched}, "
+                                 f"{segs} segments")
         if img.shape != (H, W, 3) or img.mean() < 2.0:
             raise AssertionError(f"scene {sid} image is wrong: {img.mean()}")
         k4_launches += launched["K4"]
+        k4_points += perlin_kernel.perlin_noise.points
+        tex_segments[sid] = segs
         phase("main_path_textures", f"scene {sid} {W}x{H} spp{TEX_SPP} "
               f"depth{DEPTH} (CLI): {wall_ms} ms wall, {segs} segments, "
-              f"{mrays} Mrays/s; launches {json.dumps(launched)}; PNG mean "
+              f"{mrays} Mrays/s; launches {json.dumps(launched)}, "
+              f"{perlin_kernel.perlin_noise.points} noise points; PNG mean "
               f"{img.mean():.2f}")
+    # K4's width on the main path: the mean points per launch.
+    k4_width = round(k4_points / max(k4_launches, 1))
 
-    # 15. K5 and K4 alone (CUDA events after a synchronise) at the main
-    # path's widths, beside their plain versions and their bounds.  K5: the
-    # first call of the scene-1 render, its camera rays (388,800 lanes)
-    # against the sphere tree with the sphere fold (the render's first stage
-    # is above FOLD_SPH_MIN_B).
+    # 15. K5 and K4 alone at the main path's widths, beside their plain
+    # versions and their bounds.  ``graph_ms`` gives the device time of a
+    # launch without the host's submission; ``cuda_ms``'s events around one
+    # bare launch, which include it, are printed beside it.  K5: the first
+    # call of the scene-1 render, its camera rays (388,800 lanes) against
+    # the sphere tree with the sphere fold (the render's first stage is
+    # above FOLD_SPH_MIN_B), then the three comparison cases, each with the
+    # wavefront's variant: the counting build's tallies (the walk's slab and
+    # leaf row tests, equal to the plain version's counts, active-lane
+    # shares and tail share), the bound from the plain version's counts, and
+    # the time at each block size.
     from another_raytracer_tpu_torch.ops import intersect
 
-    cam = camera_lib.make_camera(aspect_ratio=W / H, device=dev, **cam1)
-    pix, samp = lanes(W, H, dev)
-    o, d, tm = camera_lib.generate_rays(cam, pix, samp, W, H, 0,
-                                        needs_time=scene1.has_motion)
     n = W * H
-    init_t = torch.full((n,), 3e37, device=dev)
-    init_i = torch.zeros(n, dtype=torch.int32, device=dev)
-    nodes, rows = scene1.sph_bvh_nodes, scene1.sph_bvh_rows
-    kkw = dict(leaf_size=scene1.bvh_leaf_size, t_min=1e-3, prim="sphere",
-               time=tm)
     if n < intersect.FOLD_SPH_MIN_B:
         raise AssertionError("the timed K5 call is below the fold's gate")
+    first = k5_first_call(dev, scene1, cam1)
+    args, kw = k5_args(first, dev)
     k5_times = {}
     for label, fold in (("fold", True), ("no fold", False)):
-        run, _ = bvh_kernel.prepare_launch(nodes, rows, o, d, init_t, init_i,
-                                           fold_record=fold, **kkw)
-        k5_times[label] = cuda_ms(bare(run), dev, 10)[0]
+        k5_times[label] = graph_ms(lambda: bvh_kernel.prepare_launch(
+            *args, t_min=1e-3, fold_record=fold, tables=scene1.k5_tables(
+                "sphere"), **kw)[0], dev, 20)[0]
     lib_of = bvh_kernel._lib
     bvh_kernel._lib = lambda: lib_of("bvh_kernel_fma")
     try:
-        run, _ = bvh_kernel.prepare_launch(nodes, rows, o, d, init_t, init_i,
-                                           fold_record=True, **kkw)
+        k5_times["fold, FMA build"] = graph_ms(
+            lambda: bvh_kernel.prepare_launch(*args, t_min=1e-3,
+                                              fold_record=True, **kw)[0],
+            dev, 20)[0]
     finally:
         bvh_kernel._lib = lib_of
-    k5_times["fold, FMA build"] = cuda_ms(bare(run), dev, 10)[0]
     k5_ms = k5_times["fold"]
+    k5_event_ms = cuda_ms(bare(bvh_kernel.prepare_launch(
+        *args, t_min=1e-3, fold_record=True, **kw)[0]), dev, 10)[0]
+    tm = kw.pop("time")
     k5_plain_ms, _ = cuda_ms(lambda: bvh_ops.traverse_packed(
-        nodes, rows, o, d, tm, 1e-3, init_t, init_i,
-        leaf_size=scene1.bvh_leaf_size, prim="sphere", fold_record=True), dev, 1)
-    work = bvh_ops.traverse_packed(nodes, rows, o, d, tm, 1e-3, init_t, init_i,
-                                   leaf_size=scene1.bvh_leaf_size,
-                                   prim="sphere", fold_record=True, counts=True)
-    slabs, tests = int(work[-2].sum()), int(work[-1].sum())
-    k5_ops = (slabs * bvh_ops.OPS_PER_SLAB
-              + tests * bvh_ops.OPS_PER_TEST["sphere", False]
-              + int(work[2].sum()) * bvh_ops.OPS_PER_FOLD["sphere", False])
-    k5_bytes = (nodes.numel() + rows.numel()) * 4 + n * (9 * 4 + 9 + 5 * 4)
-    k5_bound_ms, k5_bound_by = bound(k5_ops, k5_bytes)
+        *args[:4], tm, 1e-3, *args[4:], fold_record=True, **kw), dev, 1)
+    k5_cases_ms = {}
+    for case in [first] + cases:
+        prim = case[7]
+        fold, full, pre = K5_MAIN[prim]
+        work = k5_work(case, fold, full, pre, dev)
+        _, slabs, tests, hits, b_ms, b_by = work
+        tl = k5_tallies(case, fold, full, pre, dev, work=work)
+        cargs, ckw = k5_args(case, dev)
+        row = {}
+        for p in ((pre, False) if prim == "planar" else (pre,)):
+            tables = bvh_kernel.pack_tables(cargs[0], cargs[1], prim, p)
+            row["ms" if p == pre else "ms_no_precomp"] = graph_ms(
+                lambda: bvh_kernel.prepare_launch(
+                    *cargs, t_min=1e-3, fold_record=fold, fold_full=full,
+                    precomp=p, tables=tables, **ckw)[0], dev, 20)[0]
+        row.update(route=bvh_kernel.table_route(bvh_kernel.pack_tables(
+            cargs[0], cargs[1], prim, pre)), rays=cargs[2].x.shape[0],
+            slab_tests=slabs, leaf_tests=tests, hits=hits, bound_ms=b_ms,
+            bound_by=b_by, share_of_bound=b_ms / row["ms"],
+            tallies={k: tl[k] for k in ("slab_simt", "leaf_simt", "tail_share",
+                                        "blocks", "launch_ms")},
+            block_ms=k5_shapes(case, fold, full, pre, dev))
+        k5_cases_ms[case[0]] = row
+        phase("timing_k4_k5", f"K5 on {case[0]} ({prim}, fold={int(fold)} "
+              f"full={int(full)} precomp={int(pre)}, block "
+              f"{bvh_kernel.BLOCK}): {json.dumps(row)}")
+    k5_bound_ms = k5_cases_ms[first[0]]["bound_ms"]
+    k5_bound_by = k5_cases_ms[first[0]]["bound_by"]
     phase("timing_k4_k5", f"K5, scene 1's first call ({n} camera rays, sphere "
           f"tree of {scene1.n_spheres} spheres, leaf {scene1.bvh_leaf_size}): "
-          f"{json.dumps({k: round(v, 4) for k, v in k5_times.items()})} ms; "
-          f"plain {k5_plain_ms:.1f} ms; {slabs} slab tests and {tests} sphere "
-          f"tests ({slabs / n:.1f} / {tests / n:.1f} per ray): bound "
-          f"{k5_bound_ms:.4f} ms by {k5_bound_by}; {k5_launches} launches per "
-          f"scene-1 render")
-    tri = cases[1]
-    args, kw = k5_args(tri, dev)
-    tri_times = {}
-    for fold, full, pre in K5_VARIANTS["planar"]:
-        run, _ = bvh_kernel.prepare_launch(*args, t_min=1e-3, fold_record=fold,
-                                           fold_full=full, precomp=pre, **kw)
-        tri_times[f"fold={int(fold)} full={int(full)} precomp={int(pre)}"] = (
-            round(cuda_ms(bare(run), dev, 5)[0], 4))
-    phase("timing_k4_k5", f"K5 on {tri[0]} ({args[2].x.shape[0]} rays), "
-          f"planar variants: {json.dumps(tri_times)} ms")
+          f"{json.dumps({k: round(v, 5) for k, v in k5_times.items()})} ms "
+          f"(events around one launch: {k5_event_ms:.4f} ms); plain "
+          f"{k5_plain_ms:.1f} ms; bound {k5_bound_ms:.4f} ms by {k5_bound_by}; "
+          f"{k5_launches} launches per scene-1 render")
 
     scene3, _ = library.two_perlin_spheres(device=dev)
     g = np.random.default_rng(2)
     pv = V3(*(torch.from_numpy(g.uniform(-20, 20, n).astype(np.float32)).to(dev)
               for _ in range(3)))
     ids = torch.zeros(n, dtype=torch.int64, device=dev)
-    run, _ = perlin_kernel.prepare_launch(scene3, ids, pv)
-    k4_ms, _ = cuda_ms(bare(run), dev, 10)
+    k4_ms, k4_runs = graph_ms(
+        lambda: perlin_kernel.prepare_launch(scene3, ids, pv)[0], dev)
+    k4_event_ms = cuda_ms(bare(perlin_kernel.prepare_launch(scene3, ids, pv)[0]),
+                          dev, 10)[0]
+    # The main path's branch, one table set and no id array, against the
+    # plain version at both widths, bit for bit.
+    for m in (n, k4_width):
+        pm = V3(*(c[:m] for c in pv))
+        run, got = perlin_kernel.prepare_launch(scene3, ids[:m], pm)
+        bare(run)()
+        want = shade.perlin_noise(scene3, ids[:m], pm)
+        torch.cuda.synchronize(dev)
+        k4_err = max(k4_err, float((got - want).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"K4 (one table set, {m} points) disagrees "
+                                 f"with its plain version: {k4_err}")
+    phase("compare_k4", f"one table set (no id array) at {n} and {k4_width} "
+          f"points: bit-equal")
+    pw = V3(*(c[:k4_width] for c in pv))
+    k4_width_ms = graph_ms(lambda: perlin_kernel.prepare_launch(
+        scene3, ids[:k4_width], pw)[0], dev)[0]
+    # One block's worth of points: the launch and the stage of the tables.
+    p1 = V3(*(c[:256] for c in pv))
+    k4_floor_ms = graph_ms(lambda: perlin_kernel.prepare_launch(
+        scene3, ids[:256], p1)[0], dev)[0]
     k4_plain_ms, _ = cuda_ms(lambda: shade.perlin_noise(scene3, ids, pv), dev, 3)
-    k4_bound_ms, k4_bound_by = bound(
-        n * OPS_PERLIN, n * (3 * 4 + 4 + 4) + scene3.per_perm.numel() * 8)
-    phase("timing_k4_k5", f"K4, {n} points of scene 3's table set: {k4_ms:.4f} "
-          f"ms; plain {k4_plain_ms:.3f} ms; bound {k4_bound_ms:.4f} ms by "
-          f"{k4_bound_by}; {k4_launches} launches in scenes 3, 4 and 5's renders")
+
+    def k4_bound(m):
+        # Each point's three coordinates in and its value out, and the one
+        # table set.
+        return bound(m * OPS_PERLIN,
+                     m * (3 * 4 + 4) + perlin_kernel.TABLE_BYTES)
+
+    k4_bound_ms, k4_bound_by = k4_bound(n)
+    k4_width_bound_ms = k4_bound(k4_width)[0]
+    phase("timing_k4_k5", f"K4, {n} points of scene 3's table set: {k4_ms:.5f} "
+          f"ms (runs {k4_runs}; events around one launch: {k4_event_ms:.4f} "
+          f"ms); at the main path's mean width of {k4_width} points "
+          f"{k4_width_ms:.5f} ms (bound {k4_width_bound_ms:.5f} ms); at 256 "
+          f"points (one block: the launch and the stage) {k4_floor_ms:.5f} "
+          f"ms; plain "
+          f"{k4_plain_ms:.3f} ms; bound {k4_bound_ms:.5f} ms by {k4_bound_by}; "
+          f"{k4_launches} launches of {k4_points} points in scenes 3, 4 and "
+          f"5's renders")
 
     # 16. The megakernel's accel mode (K3).  Its forward instance against
     # its plain version on scene 1 and the 81-sphere tree.
@@ -1749,14 +1960,21 @@ def main() -> int:
          "max_abs_err": max(st["max_abs_err_t"] for st in k5_stats),
          "ms": k5_ms, "plain_ms": k5_plain_ms,
          "bound_ms": k5_bound_ms, "bound_by": k5_bound_by, "library_ms": None,
-         "variant_ms": k5_times, "planar_variant_ms": tri_times,
+         "event_ms": k5_event_ms, "variant_ms": k5_times,
+         "block": bvh_kernel.BLOCK,
+         "cases": k5_cases_ms, "trace_ms_scene1_spp1": k5_trace_ms,
          "comparison": k5_verdict},
         {"name": "perlin_kernel (K4, Perlin noise)",
          "route": "cuda", "source": SRC + "perlin_kernel.cu",
          "replaces": JAX_PALLAS + "perlin_kernel.py:136",
          "launches": k4_launches, "max_abs_err": k4_err,
          "ms": k4_ms, "plain_ms": k4_plain_ms,
-         "bound_ms": k4_bound_ms, "bound_by": k4_bound_by, "library_ms": None},
+         "bound_ms": k4_bound_ms, "bound_by": k4_bound_by, "library_ms": None,
+         "event_ms": k4_event_ms, "points": n, "mean_width": k4_width,
+         "mean_width_ms": k4_width_ms,
+         "mean_width_bound_ms": k4_width_bound_ms,
+         "one_block_ms": k4_floor_ms,
+         "segments": tex_segments},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -282,42 +282,106 @@ def _bvh_inputs(prim, n_rays=4096, seed=0):
             g.uniform(0, 1, n_rays).astype(np.float32))
 
 
-@pytest.mark.parametrize("prim,fold,full,pre", BVH_VARIANTS)
-def test_bvh_kernel_matches_plain(prim, fold, full, pre, dev):
-    """Built without FMA contraction, K5 equals its plain version bit for
-    bit: hit mask, code, t and every fold output."""
-    nodes, rows, o, d, time = _bvh_inputs(prim)
+def _bvh_args(prim, dev, n_rays=4096):
+    nodes, rows, o, d, time = _bvh_inputs(prim, n_rays)
     n = o.shape[1]
     args = (torch.from_numpy(nodes).to(dev), torch.from_numpy(rows).to(dev),
             vec3.V3(*(torch.from_numpy(c).to(dev) for c in o)),
             vec3.V3(*(torch.from_numpy(c).to(dev) for c in d)),
             torch.full((n,), 3e37, device=dev),
             torch.zeros(n, dtype=torch.int32, device=dev))
-    kw = dict(leaf_size=16, prim=prim, time=torch.from_numpy(time).to(dev),
-              fold_record=fold, fold_full=full, precomp=pre)
-    before = bvh_kernel.bvh_closest_hit.launches
-    got = bvh_kernel.bvh_closest_hit(*args, **kw)
-    assert bvh_kernel.bvh_closest_hit.launches == before + 1
-    want = bvh_ops.traverse_packed(*args[:4], kw.pop("time"), 1e-3, *args[4:],
-                                   **kw)
-    flat = lambda out: [x for v in out for x in (v if isinstance(v, vec3.V3) else (v,))]  # noqa: E731
-    for a, b in zip(flat(got), flat(want)):
+    return args, dict(leaf_size=16, prim=prim,
+                      time=torch.from_numpy(time).to(dev))
+
+
+def _flat(out):
+    return [x for v in out for x in (v if isinstance(v, vec3.V3) else (v,))]
+
+
+def _launch_flat(args, kw, **launch):
+    """One bare launch of K5: its outputs as the wrapper's, flattened."""
+    run, (t, code, hit, aux) = bvh_kernel.prepare_launch(*args, **kw,
+                                                         **launch)
+    assert run() == 0
+    return [t, code, hit, *aux]
+
+
+@pytest.mark.parametrize("route", ["shared", "global"])
+@pytest.mark.parametrize("prim,fold,full,pre", BVH_VARIANTS)
+def test_bvh_kernel_matches_plain(prim, fold, full, pre, route, dev):
+    """Built without FMA contraction, K5 equals its plain version bit for
+    bit (hit mask, code, t and every fold output) on both table routes."""
+    args, kw = _bvh_args(prim, dev)
+    kw.update(fold_record=fold, fold_full=full, precomp=pre)
+    want = _flat(bvh_ops.traverse_packed(*args[:4], kw["time"], 1e-3,
+                                         *args[4:], **{
+                                             k: v for k, v in kw.items()
+                                             if k != "time"}))
+    if route == "shared":
+        before = bvh_kernel.bvh_closest_hit.launches
+        got = _flat(bvh_kernel.bvh_closest_hit(*args, **kw))
+        assert bvh_kernel.bvh_closest_hit.launches == before + 1
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    got = _launch_flat(args, kw, t_min=1e-3, route=route)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
         assert torch.equal(a, b)
-    assert 0 < int(got[2].sum()) < n
+    assert 0 < int(want[2].sum()) < args[2].x.shape[0]
 
 
-def test_perlin_kernel_matches_plain(dev):
+@pytest.mark.parametrize("n", [0, 1, 4096 + 37])
+def test_bvh_kernel_at_edge_widths(n, dev):
+    """No rays, one ray, and a width that is no multiple of the block."""
+    args, kw = _bvh_args("sphere", dev, n_rays=n)
+    kw.update(fold_record=True)
+    want = _flat(bvh_ops.traverse_packed(
+        *args[:4], kw["time"], 1e-3, *args[4:],
+        **{k: v for k, v in kw.items() if k != "time"}))
+    before = bvh_kernel.bvh_closest_hit.launches
+    got = _flat(bvh_kernel.bvh_closest_hit(*args, **kw))
+    assert bvh_kernel.bvh_closest_hit.launches == before + (n > 0)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for route in ("shared", "global"):
+        got = _launch_flat(args, kw, t_min=1e-3, route=route, block=64)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("prim", ["planar", "sphere", "rect"])
+def test_bvh_counting_build_equals_plain_counts(prim, dev):
+    args, kw = _bvh_args(prim, dev)
+    tm = kw.pop("time")
+    want = bvh_ops.traverse_packed(*args[:4], tm, 1e-3, *args[4:],
+                                   counts=True, **kw)
+    t, code, hit, tl = bvh_kernel.tallies(*args, t_min=1e-3, time=tm, **kw)
+    assert (tl["slab_tests"], tl["leaf_tests"]) == (
+        int(want[-2].sum()), int(want[-1].sum()))
+    assert all(torch.equal(a, b) for a, b in zip((t, code, hit), want))
+    assert 0 < tl["slab_simt"] <= 1 and 0 < tl["leaf_simt"] <= 1
+    assert 0 <= tl["tail_share"] < 1 and tl["blocks"] >= 1
+
+
+def _noise(dev, q):
     b = SceneBuilder(seed=3)
-    for scale in (4.0, 0.1):
-        b.sphere((0, 0, 0), 1.0, b.lambertian(texture=b.noise_texture(scale)))
-    scene = b.build(device=dev)
+    for k in range(q):
+        b.sphere((0, 0, -k), 1.0,
+                 b.lambertian(texture=b.noise_texture((4.0, 0.1, 1.0)[k % 3])))
+    return b.build(device=dev)
+
+
+@pytest.mark.parametrize("n", [0, 1, 257, 1 << 20])
+@pytest.mark.parametrize("q", [1, 3])
+def test_perlin_kernel_matches_plain(q, n, dev):
+    """Bit-equal to the plain version: one table set (no id array) and
+    three (an id per point), at small and large magnitude."""
+    scene = _noise(dev, q)
     g = np.random.default_rng(1)
-    p = g.uniform(-60, 60, (3, 1 << 16)).astype(np.float32)
+    p = np.concatenate([g.uniform(-60, 60, (3, n - n // 2)),
+                        g.uniform(-500, 500, (3, n // 2))], 1).astype(np.float32)
     pv = vec3.V3(*(torch.from_numpy(c).to(dev) for c in p))
-    ids = torch.from_numpy(g.integers(0, 2, 1 << 16)).to(dev)
+    ids = torch.from_numpy(g.integers(0, q, n)).to(dev)
     before = perlin_kernel.perlin_noise.launches
     got = perlin_kernel.perlin_noise(scene, ids, pv)
-    assert perlin_kernel.perlin_noise.launches == before + 1
+    assert perlin_kernel.perlin_noise.launches == before + (n > 0)
     assert torch.equal(got, shade.perlin_noise(scene, ids, pv))
 
 
