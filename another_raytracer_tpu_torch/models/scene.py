@@ -193,16 +193,18 @@ class SceneData:
     def replace(self, **fields) -> "SceneData":
         """A copy with ``fields`` swapped in (the JAX SceneData.replace that
         grad/diff.merge_params uses); tensors keep their autograd history.
-        The copy keeps the packed kernel tables whose sources it keeps."""
+        The copy shares the scene's packed kernel tables: a table serves
+        every copy that keeps its sources, so one packed on a training
+        step's copy serves the next step's."""
         new = dataclasses.replace(self, **fields)
-        new.__dict__["_packed"] = dict(self.__dict__.get("_packed", {}))
+        new.__dict__["_packed"] = self.__dict__.setdefault("_packed", {})
         return new
 
     # Kernel tables packed once per scene, at their first use: K5's compact
-    # BVH tables and K4's Perlin tables.  They are no dataclass fields (the
-    # fields are the JAX package's); each is kept with the tensors it was
-    # packed from and packed again only where those are no longer the
-    # scene's.
+    # BVH tables, K4's Perlin tables and the replay's tex_cb row map.  They
+    # are no dataclass fields (the fields are the JAX package's); each is
+    # kept with the tensors it was packed from and packed again only where
+    # those are no longer the scene's.
     def _packed_table(self, key, sources, pack):
         cache = self.__dict__.setdefault("_packed", {})
         hit = cache.get(key)
@@ -225,6 +227,14 @@ class SceneData:
         """``perlin_kernel.pack_tables`` of the scene's Perlin tables."""
         return self._packed_table(("k4",), (self.per_perm, self.per_ranvec),
                                   perlin_kernel.pack_tables)
+
+    def replay_slots(self):
+        """``mega_diff.pack_replay_slots`` of the scene's texture kinds."""
+        # mega_diff imports this module.
+        from another_raytracer_tpu_torch.ops.kernels import mega_diff
+
+        return self._packed_table(("replay",), (self.tex_kind,),
+                                  mega_diff.pack_replay_slots)
 
 
 def scene_from_reference(obj, device="cuda") -> SceneData:

@@ -29,6 +29,7 @@ Geometry leaves are refused by ``enabled()``.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -131,14 +132,17 @@ def _flags(scene) -> int:
             | (_HAS_DIEL if scene_lib.MAT_DIELECTRIC in scene.mat_kinds else 0))
 
 
-def replay_backward(codes, tprev: V3, ghat: V3, ca, cb, bg, flags: int):
+def replay_backward(codes, tprev: V3, ghat: V3, ca, cb, bg, flags: int,
+                    slots):
     """Gradients (tex_ca [T,3], tex_cb [T,3], background [3]) of
     sum(ghat * radiance) from the record rows of K2.
 
     ``codes`` int32 [iters, B], ``tprev`` V3 of [iters, B], ``ghat`` V3 of
     [B]; ``flags`` holds the scene's checker / metal / dielectric bits
-    (``_flags``).  CUDA tensors launch ``csrc/mega_replay.cu``; CPU tensors
-    run ``replay_backward_reference``; any other device raises.
+    (``_flags``); ``slots`` is the scene's tex_cb row map
+    (``SceneData.replay_slots``).  CUDA tensors launch
+    ``csrc/mega_replay.cu``; CPU tensors run ``replay_backward_reference``;
+    any other device raises.
     """
     dev = codes.device
     if codes.dtype != torch.int32 or codes.dim() != 2:
@@ -147,7 +151,7 @@ def replay_backward(codes, tprev: V3, ghat: V3, ca, cb, bg, flags: int):
         return replay_backward_reference(codes, tprev, ghat, ca, cb, bg, flags)
     if dev.type != "cuda":
         raise ValueError(f"no replay kernel for device {dev}")
-    return _launch_replay(codes, tprev, ghat, ca, cb, bg, flags)
+    return _launch_replay(codes, tprev, ghat, ca, cb, bg, flags, slots)
 
 
 # Launches of the replay kernel (incremented once per launch, nowhere else).
@@ -159,86 +163,182 @@ def _lib():
 
     lib = _build.load("mega_replay")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.art_mega_replay.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P, P]
+    lib.art_mega_replay.argtypes = [P] * 12 + [I] * 7 + [P, P]
     lib.art_mega_replay.restype = I
+    lib.art_mega_replay_occupancy.argtypes = [I] * 4 + [ctypes.POINTER(I)]
+    lib.art_mega_replay_occupancy.restype = I
     return lib
+
+
+class ReplaySlots(NamedTuple):
+    """Where each texture's tex_cb gradient goes in the replay's compact
+    tables: ``cb_row`` int32 [T] (the texture's tex_cb row, -1 for a
+    texture without one) and ``cb_tex`` int32 [C] (the texture of each of
+    the C tex_cb rows)."""
+
+    cb_row: torch.Tensor
+    cb_tex: torch.Tensor
+
+    @property
+    def checkers(self) -> int:
+        return self.cb_tex.shape[0]
+
+
+def pack_replay_slots(tex_kind) -> ReplaySlots:
+    """The replay's tex_cb rows for a scene's texture kinds: one for each
+    checker texture, the only kind on which the record kernels set the odd
+    bit (a solid texture's value is its tex_ca)."""
+    kinds = tex_kind.detach().to("cpu")
+    tex = torch.nonzero(kinds == scene_lib.TEX_CHECKER).flatten()
+    row = torch.full((kinds.shape[0],), -1, dtype=torch.int32)
+    row[tex] = torch.arange(tex.shape[0], dtype=torch.int32)
+    return ReplaySlots(row.to(tex_kind.device),
+                       tex.to(torch.int32).to(tex_kind.device))
 
 
 # Shared memory a block may use on an H100 (227 KB).
 _MAX_SMEM = 232448
+# The kernel's instances (csrc/mega_replay.cu, enum Instance) and the rows a
+# lane's walk loads at once (CHUNK there): of 1, 4, 8 and 16, 8 was the
+# fastest at the bench size on Cornell and within 2% of 4 on scene 1 (H100
+# 80GB HBM3 at 700 W, PERF.md; 16 needs ~150 registers).
+LANE_COLUMNS, WARP_TABLES = 0, 1
+REPLAY_CHUNK = 8
+# The most shared memory a block of the per-lane columns may take before
+# the per-warp tables run instead (replay_instance).
+COLUMNS_MAX_SMEM = 64 * 1024
 
 
-def replay_smem_bytes(T: int, block: int, warp_tables: bool) -> int:
+def replay_smem_bytes(T: int, C: int, block: int, instance: int) -> int:
     """Shared-memory bytes of one replay block (``smem_bytes`` in
-    csrc/mega_replay.cu): the albedo table, then the gradient columns, one
-    per thread or one table per warp."""
-    tab = 6 * (T + 1)
-    return 4 * (tab + (tab + 3) * (block // 32 if warp_tables else block))
+    csrc/mega_replay.cu): the albedo table (T tex_ca rows, C tex_cb rows,
+    the sentinel), the tex_cb row map where C > 0, then the 3 (T + C) + 3
+    gradient entries, one column per thread or one table per warp."""
+    k = 3 * (T + C) + 3
+    per = block // 32 if instance == WARP_TABLES else block
+    return 4 * (3 * (T + C + 1) + (T if C else 0) + k * per)
 
 
-def replay_instance(T: int):
-    """(warp_tables, block) of the replay launch for T textures: the
-    per-lane columns while they fit at 32 threads or more (T <= 292), else
-    one table per warp (csrc/mega_replay.cu); both are deterministic."""
-    # The per-thread columns: halve the block until they fit the default
-    # 48 KB, and above that use the opt-in shared memory at 32 threads.
+def replay_instance(T: int, C: int = 0):
+    """(instance, block) of the replay launch for T textures of which C have
+    tex_cb rows: the per-lane columns while their block of
+    DEFAULT_REPLAY_BLOCK fits COLUMNS_MAX_SMEM (T + C up to about 40), else
+    the per-warp tables, halving the block until they fit.
+
+    A size threshold set by measured times (H100 80GB HBM3 at 700 W):
+    at the main paths' T, Cornell (T = 4) takes 0.072 ms on the columns at
+    128 threads and 0.12 ms or more on the tables, scene 1 (T = 485, C =
+    1) 0.145 ms on the tables at 128 and 7 ms on the columns, which fit
+    there only at 32 threads (chip_smoke.py's replay_timings fails where
+    another instance or block is more than 1.10x faster).  On scene 1's
+    record folded onto fewer textures (chip_ab.py's replay_t*), the
+    columns at 128 win at T = 32 (0.110 against 0.140 ms) and the tables
+    from T = 64 (0.141 against 0.170 ms); between those T it is not
+    measured."""
     block = DEFAULT_REPLAY_BLOCK
-    while block > 32 and replay_smem_bytes(T, block, False) > 48 * 1024:
+    if replay_smem_bytes(T, C, block, LANE_COLUMNS) <= COLUMNS_MAX_SMEM:
+        return LANE_COLUMNS, block
+    while block > 32 and replay_smem_bytes(T, C, block, WARP_TABLES) > _MAX_SMEM:
         block //= 2
-    if replay_smem_bytes(T, block, False) <= _MAX_SMEM:
-        return False, block
-    # The per-warp tables: halve the block (fewer tables) until they fit.
-    block = DEFAULT_REPLAY_BLOCK
-    while block > 32 and replay_smem_bytes(T, block, True) > _MAX_SMEM:
-        block //= 2
-    if replay_smem_bytes(T, block, True) > _MAX_SMEM:
+    if replay_smem_bytes(T, C, block, WARP_TABLES) > _MAX_SMEM:
         raise ValueError(f"{T} textures exceed the replay kernel's shared "
                          "memory")
-    return True, block
+    return WARP_TABLES, block
 
 
-def prepare_replay(codes, tprev, ghat, ca, cb, bg, flags):
+def replay_inputs(codes, tprev, ghat, ca, cb, bg, slots):
+    """The tensors one replay launch reads, as the kernel takes them: codes,
+    the three tprev planes, the three ghat channels, ca, cb, bg and the
+    tex_cb row map.  Each plane is passed where it lies: K2's views of its
+    [3, iters, B] buffer are contiguous, so nothing is copied; a plane that
+    is not is made so."""
+    f32 = dict(dtype=torch.float32, device=codes.device)
+    return (codes.contiguous(), *(t.to(**f32).contiguous() for t in tprev),
+            *(t.to(**f32).contiguous() for t in ghat),
+            *(t.detach().to(**f32).contiguous() for t in (ca, cb, bg)),
+            slots.cb_row.contiguous(), slots.cb_tex.contiguous())
+
+
+def prepare_replay(codes, tprev, ghat, ca, cb, bg, flags, slots, *,
+                   instance=None, block=None):
     """Everything one replay launch needs: returns (run, partial).
     ``run()`` is the bare launch (it returns the CUDA error code) and
-    ``partial`` the [blocks, 6 (T+1) + 3] rows it fills."""
+    ``partial`` the [blocks, 3 (T + C) + 3] rows it fills.  ``instance``
+    and ``block`` override ``replay_instance`` (measurements)."""
     dev = codes.device
     iters, B = codes.shape
     T = ca.shape[0]
     lib = _lib()
-    warp_tables, block = replay_instance(T)
-    f32 = dict(dtype=torch.float32, device=dev)
-    ins = (codes.contiguous(),
-           torch.stack(tuple(tprev)).to(**f32).contiguous(),
-           torch.stack(tuple(ghat)).to(**f32).contiguous(),
-           ca.detach().to(**f32).contiguous(), cb.detach().to(**f32).contiguous(),
-           bg.detach().to(**f32).contiguous())
-    partial = torch.empty((-(-B // block), 6 * (T + 1) + 3), **f32)
+    ins = replay_inputs(codes, tprev, ghat, ca, cb, bg, slots)
+    C = ins[-1].shape[0]
+    pick = replay_instance(T, C)
+    instance = pick[0] if instance is None else instance
+    block = pick[1] if block is None else block
+    partial = torch.empty((-(-B // block), 3 * (T + C) + 3),
+                          dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [t.data_ptr() for t in ins]
 
     def run(_inputs=ins):  # the default keeps the tensors behind ptrs alive
-        return lib.art_mega_replay(*ptrs, iters, B, T, int(flags), block,
-                                   int(warp_tables), partial.data_ptr(),
-                                   stream)
+        return lib.art_mega_replay(*ptrs, iters, B, T, C, int(flags), block,
+                                   int(instance), partial.data_ptr(), stream)
 
+    run.inputs = ins
     return run, partial
 
 
-def _launch_replay(codes, tprev, ghat, ca, cb, bg, flags):
-    run, partial = prepare_replay(codes, tprev, ghat, ca, cb, bg, flags)
+def replay_occupancy(T: int, C: int, block: int, instance: int) -> int:
+    """Blocks of a replay instance resident on one SM of the current
+    device (the CUDA occupancy query; measurements)."""
+    out = ctypes.c_int(0)
+    err = _lib().art_mega_replay_occupancy(T, C, block, instance,
+                                           ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"mega_replay occupancy query failed: CUDA error "
+                           f"{err}")
+    return out.value
+
+
+def replay_work(codes, T: int, C: int = 0) -> dict:
+    """What one replay launch must move on these residuals: ``live_rows``
+    (rows whose event is not 0, the only ones whose tprev the kernel reads)
+    and ``bytes``: every code (4 B), tprev on live rows (12 B), ghat (12 B
+    a lane), the albedo rows and background read once and the 3 (T + C) + 3
+    gradients written once.  ``sector_bytes`` counts tprev by the card's
+    32-byte sectors instead: three for each row's 8 neighbouring lanes of
+    which any is live."""
+    iters, B = codes.shape
+    live = (codes & 3) != 0
+    n_live = int(live.sum())
+    sectors = int(torch.nn.functional.pad(live, (0, -B % 8))
+                  .view(iters, -1, 8).any(-1).sum())
+    rest = 4 * iters * B + 12 * B + 8 * (3 * (T + C) + 3)
+    return dict(rows=iters * B, live_rows=n_live, bytes=rest + 12 * n_live,
+                sector_bytes=rest + 96 * sectors)
+
+
+def replay_gradients(tot, T: int, cb_tex):
+    """(tex_ca [T,3], tex_cb [T,3], background [3]) from the replay's
+    compact entries ``tot`` [3 (T + C) + 3] (the sum of its partial rows):
+    the tex_cb rows go to their textures ``cb_tex`` [C], the other textures'
+    tex_cb gradients are zero."""
+    C = cb_tex.shape[0]
+    grad_ca = tot[:3 * T].view(T, 3)
+    grad_cb = torch.zeros_like(grad_ca).index_copy_(
+        0, cb_tex.long(), tot[3 * T:3 * (T + C)].view(C, 3))
+    return grad_ca, grad_cb, tot[3 * (T + C):]
+
+
+def _launch_replay(codes, tprev, ghat, ca, cb, bg, flags, slots):
+    run, partial = prepare_replay(codes, tprev, ghat, ca, cb, bg, flags, slots)
     with torch.cuda.device(codes.device):
         err = run()
     if err != 0:
         raise RuntimeError(f"mega_replay launch failed: CUDA error {err}")
     if codes.shape[1]:
         replay_backward.launches += 1
-    T = ca.shape[0]
-    tot = partial.sum(dim=0)
-    tab = tot[:6 * (T + 1)].reshape(2, T + 1, 3)
-    grad_cb = (tab[1, :T] if flags & _HAS_CHECKER
-               else torch.zeros_like(tab[1, :T]))
-    return tab[0, :T], grad_cb, tot[6 * (T + 1):]
+    return replay_gradients(partial.sum(dim=0), ca.shape[0], run.inputs[-1])
 
 
 def replay_backward_reference(codes, tprev: V3, ghat: V3, ca, cb, bg,
@@ -311,6 +411,7 @@ class _Traced(torch.autograd.Function):
             max_depth=max_depth, t_min=t_min, record_iters=record_iters)
         ctx.save_for_backward(codes, *tprev, s.tex_ca, s.tex_cb, s.background)
         ctx.flags = _flags(scene)
+        ctx.slots = scene.replay_slots()
         ctx.leaf_like = [(v.shape, v.dtype, v.device) for v in leaves]
         ctx.mark_non_differentiable(segments)
         return total.x, total.y, total.z, segments
@@ -319,7 +420,8 @@ class _Traced(torch.autograd.Function):
     def backward(ctx, gx, gy, gz, _gseg):
         codes, tpx, tpy, tpz, ca, cb, bg = ctx.saved_tensors
         grad_ca, grad_cb, grad_bg = replay_backward(
-            codes, V3(tpx, tpy, tpz), V3(gx, gy, gz), ca, cb, bg, ctx.flags)
+            codes, V3(tpx, tpy, tpz), V3(gx, gy, gz), ca, cb, bg, ctx.flags,
+            ctx.slots)
         grads = {"tex_ca": grad_ca, "tex_cb": grad_cb, "background": grad_bg}
         # The other declared leaves get zeros (JAX's _zero_cot), not None.
         out = tuple(grads[k].to(dt) if k in grads

@@ -2,7 +2,8 @@
 """A/B of the kernels between two checkouts on one GPU: the megakernel
 (K1, K2, K3 and the replay) and the wavefront's two (K5 and K4).
 
-    python3 chip_ab.py OTHER_CHECKOUT [--runs 5] [--only megakernel|wavefront]
+    python3 chip_ab.py OTHER_CHECKOUT [--runs 5]
+                       [--only megakernel|wavefront|replay|bench]
 
 Runs a worker process for each side in turns: OTHER_CHECKOUT, this
 checkout, this checkout, OTHER_CHECKOUT.  Each worker imports the
@@ -14,9 +15,24 @@ defaults (block size, lane mapping):
   (720x540, spp 100, depth 50);
 * ``k2_ms``: K2 alone at the bench size (Cornell 360x270, spp 16, depth 8);
 * ``replay_ms`` and ``replay_large_ms``: the replay alone on K2's residuals
-  (4 textures: per-lane columns) and on K3's record instance's at the same
-  size on scene 1 (485 textures: the large-T instance), a cotangent of
-  0.5 per channel;
+  (Cornell, 4 textures) and on K3's record instance's at the same size on
+  scene 1 (485 textures), a cotangent of 0.5 per channel, by
+  ``chip_smoke.graph_ms``; ``replay_backward_ms`` and
+  ``replay_large_backward_ms``: the backward as the fused step runs it
+  (``mega_diff.replay_backward``: the wrapper's device work, the launch and
+  the sum of its partial rows), by ``graph_ms`` too; where the side's
+  wrapper takes the scene's tex_cb row map (``mega_diff.ReplaySlots``), the
+  launch on each instance (``_columns``, ``_tables``) at each block of
+  ``REPLAY_BLOCKS``, and ``replay_t{T}_*``: the same on scene 1's record
+  with its texture ids folded onto the first T textures, for each T of
+  ``MID_T`` (``replay_t{T}_pick_ms``: the block ``replay_instance`` picks);
+* with ``--only replay``, ``step_ms`` and ``step_large_ms``: one fused
+  fwd+bwd step at the bench size on Cornell and on scene 1, each built
+  afresh (nothing packed on it before the warm-up step, as ``bench.py``
+  runs it), and ``bench_wall_ms`` / ``bench_device_ms``: the side's
+  ``another_raytracer_tpu_torch.bench`` record (the mean of 20 steps on
+  the host clock, and the profiler's device time per step), which
+  ``--only bench`` times alone;
 * ``cornell_single_ms``: ``render.render`` of the Cornell README render in
   single mode (host clock around a render that ends in the copy to the
   host);
@@ -40,7 +56,8 @@ each the median of ``--runs`` after a warm-up (kernels: CUDA events after a
 synchronise), with the segments of K1 and K3's launches, and the registers
 and static instruction census (``chip_smoke.sass_census`` of this
 checkout) of every megakernel instance the side built, and K5's registers
-per instance.  ``--only`` times one of the two groups.  Prints one JSON
+per instance.  ``--only`` times one group: the megakernel, the wavefront,
+or the replay alone (K2 and K3's record instance write its residuals).  Prints one JSON
 line per worker, then the card's name and power limit and a JSON summary
 (median over each side's turns of the numbers).  Exits non-zero without a
 result when no CUDA device is visible.  Imports no JAX.
@@ -64,6 +81,10 @@ BW, BH, BSPP, BDEPTH = 360, 270, 16, 8  # the bench size
 # spp 16, depth 50 (chip_smoke.py's main_path_textures; the same on both
 # sides, since the wavefront does not depend on the kernel).
 K4_WIDTH = 42052
+REPLAY_BLOCKS = (32, 64, 128, 256)  # the replay's blocks per instance
+# Texture counts between the main paths' 4 and 485, where replay_instance
+# picks by size alone.
+MID_T = (32, 64, 128, 256)
 
 
 def cuda_ms(fn, runs):
@@ -94,7 +115,8 @@ def host_ms(fn, runs):
 
 
 def measure(runs, only=None):
-    """The side's timings (``only``: "megakernel" or "wavefront")."""
+    """The side's timings (``only``: "megakernel", "wavefront", "replay"
+    or "bench")."""
     import torch
 
     from another_raytracer_tpu_torch.config import RenderConfig, RenderMode
@@ -119,22 +141,95 @@ def measure(runs, only=None):
                spp_cap=BSPP, max_depth=BDEPTH, t_min=1e-3)
     bpix = torch.arange(BW * BH, dtype=torch.int64, device=dev)
     res = {}
-    if only != "megakernel":
+    if only in (None, "wavefront"):
         measure_wavefront(runs, dev, res)
     if only == "wavefront":
         return res
 
-    def replay_ms(scene, bcam):
-        """The replay alone on the record instance's own residuals."""
+    smoke = this_smoke()
+
+    def replay(scene, bcam, key):
+        """The replay on the record instance's own residuals (module
+        docstring) into ``res``."""
         _, _, codes, tprev = mega_kernel.trace_regenerative_mega(
             scene, bcam, bpix, torch.zeros_like(bpix), 0,
             record_iters=BSPP * BDEPTH, **bkw)
         ghat = V3(*(torch.full((BW * BH,), 0.5, device=dev)
                     for _ in range(3)))
-        run, _ = mega_diff.prepare_replay(
-            codes, tprev, ghat, scene.tex_ca, scene.tex_cb, scene.background,
-            mega_diff._flags(scene))
-        return cuda_ms(bare(run), runs)
+        args = (codes, tprev, ghat, scene.tex_ca, scene.tex_cb,
+                scene.background, mega_diff._flags(scene))
+        new = hasattr(mega_diff, "ReplaySlots")
+        if new:
+            args += (scene.replay_slots(),)
+
+        def time(args=args, launches=100, **kw):
+            return smoke.graph_ms(lambda: mega_diff.prepare_replay(
+                *args, **kw)[0], dev, launches, runs)[0]
+
+        def backward():
+            mega_diff.replay_backward(*args)
+            return 0
+
+        res[f"{key}_ms"] = time()
+        res[f"{key}_backward_ms"] = smoke.graph_ms(lambda: backward, dev, 20,
+                                                   runs)[0]
+        if not new:
+            return
+        T, C = scene.tex_ca.shape[0], scene.replay_slots().checkers
+        for k, v in mega_diff.replay_work(codes, T, C).items():
+            res[f"{key}_{k}"] = v
+        shapes(args, key, time)
+        if key != "replay_large":
+            return
+        tid = codes >> 4
+        for t in MID_T:
+            # Ids folded onto textures 0 .. t - 1, the sentinel onto t.
+            fold = (torch.where(tid >= T, t, tid % t) << 4) | (codes & 15)
+            shapes((fold, tprev, ghat, scene.tex_ca[:t], scene.tex_cb[:t],
+                    scene.background, args[6],
+                    mega_diff.pack_replay_slots(scene.tex_kind[:t])),
+                   f"replay_t{t}", time)
+
+    def shapes(args, key, time):
+        """The launch on ``args`` on each instance and block that fits,
+        and at ``replay_instance``'s pick, into ``res``."""
+        T, C = args[3].shape[0], args[7].checkers
+        for inst, name in ((mega_diff.LANE_COLUMNS, "columns"),
+                           (mega_diff.WARP_TABLES, "tables")):
+            for blk in REPLAY_BLOCKS:
+                if mega_diff.replay_smem_bytes(T, C, blk, inst) <= 232448:
+                    res[f"{key}_{name}_{blk}_ms"] = time(
+                        args, instance=inst, block=blk)
+        res[f"{key}_pick_ms"] = time(args)
+        res[f"{key}_pick"] = "%s %d" % (
+            ("columns", "tables")[mega_diff.replay_instance(T, C)[0]],
+            mega_diff.replay_instance(T, C)[1])
+
+    def step(scene, bcam):
+        """One fused fwd+bwd step at the bench size (CUDA events)."""
+        params, _ = diff.split_params(scene)
+        target = torch.zeros((BW * BH, 3), device=dev)
+        return cuda_ms(lambda: diff.render_value_and_grad(
+            params, scene, bcam, target, 0, width=BW, height=BH, spp=BSPP,
+            samples_per_pass=1, max_depth=BDEPTH, t_min=1e-3), runs)
+
+    if only in ("replay", "bench"):
+        from another_raytracer_tpu_torch import bench
+
+        rec = bench.run("cuda")
+        res["bench_wall_ms"], res["bench_device_ms"] = (rec["wall_ms"],
+                                                        rec["device_ms"])
+    if only == "bench":
+        return res
+    if only == "replay":
+        for build, tag in ((library.cornell_box, ""),
+                           (library.random_scene, "_large")):
+            scene, cp = build(device=dev)
+            bcam = camera_lib.make_camera(aspect_ratio=BW / BH, device=dev,
+                                          **cp)
+            res[f"step{tag}_ms"] = step(scene, bcam)
+            replay(scene, bcam, f"replay{tag}")
+        return res
 
     # The Cornell box: K1, K2, its render and its training step.
     cornell, cp = library.cornell_box(device=dev)
@@ -149,16 +244,12 @@ def measure(runs, only=None):
         cornell, bcam, bpix, torch.zeros_like(bpix), 0,
         record_iters=BSPP * BDEPTH, **bkw)
     res["k2_ms"] = cuda_ms(bare(run), runs)
-    res["replay_ms"] = replay_ms(cornell, bcam)
+    replay(cornell, bcam, "replay")
     cfg = RenderConfig(width=W, height=H, samples_per_pixel=SPP,
                        max_depth=DEPTH, mode=RenderMode("single"))
     res["cornell_single_ms"] = host_ms(
         lambda: render_lib.render(cornell, cam, cfg), runs)
-    params, _ = diff.split_params(cornell)
-    target = torch.zeros((BW * BH, 3), device=dev)
-    res["step_ms"] = cuda_ms(lambda: diff.render_value_and_grad(
-        params, cornell, bcam, target, 0, width=BW, height=BH, spp=BSPP,
-        samples_per_pass=1, max_depth=BDEPTH, t_min=1e-3), runs)
+    res["step_ms"] = step(cornell, bcam)
 
     # Scene 1: K3, its record instance and its renders.
     scene, cp = library.random_scene(device=dev)
@@ -174,7 +265,7 @@ def measure(runs, only=None):
         scene, bcam, bpix, torch.zeros_like(bpix), 0,
         record_iters=BSPP * BDEPTH, **bkw)
     res["k3_record_ms"] = cuda_ms(bare(run), runs)
-    res["replay_large_ms"] = replay_ms(scene, bcam)
+    replay(scene, bcam, "replay_large")
     for mode in ("adaptive", "single"):
         cfg = RenderConfig(width=W, height=H, samples_per_pixel=SPP,
                            max_depth=DEPTH, mode=RenderMode(mode))
@@ -280,7 +371,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", nargs="?", help="the checkout to compare with")
     ap.add_argument("--runs", type=int, default=5)
-    ap.add_argument("--only", choices=("megakernel", "wavefront"))
+    ap.add_argument("--only", choices=("megakernel", "wavefront", "replay",
+                                       "bench"))
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
@@ -314,7 +406,7 @@ def main():
                for side, rs in results.items()}
     summary["this_over_other"] = {
         k: summary["this"][k] / summary["other"][k]
-        for k in summary["this"] if k.endswith("_ms")}
+        for k in summary["this"] if k.endswith("_ms") and k in summary["other"]}
     print(json.dumps({"summary": summary}))
     return 0
 

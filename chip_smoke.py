@@ -16,7 +16,13 @@ PyTorch version:
   size of ``BLOCKS``);
 * training: the record-mode megakernel (K2, bit-equal) and the replay
   backward against their plain versions at the bench size (Cornell 360x270,
-  spp 16, depth 8), the sweep's counting instance (K1's and K2's row tests,
+  spp 16, depth 8; the replay also on a 21-texture scene, bit for bit
+  against itself, and reading K2's buffer where K2 wrote it, in the
+  comparison and in a fused step), the replay's times (``replay_timings``:
+  the launch, the backward as the step runs it, its live-row bound, its
+  instance's shared memory and residency, and the launch on each instance
+  and block, which must agree with ``replay_instance``'s pick), the
+  sweep's counting instance (K1's and K2's row tests,
   active-lane shares and tails; K2's equal to the plain version's), the
   fused gradients against the lockstep autograd path, 24 adam steps of the
   inverse-rendering demo's protocol, and the times of K2, the replay, one
@@ -48,7 +54,7 @@ PyTorch version:
   instance's walk totals (equal to the plain version's at the bench size;
   at the README size the work of K3's bound) and the active-lane shares of
   its walk, and the times of K3's two instances (at each block size of
-  ``BLOCKS``) and the large-T replay beside their bounds.
+  ``BLOCKS``) beside their bounds and the replay's at 485 textures.
 
 The wavefront phases run with ``mega_kernel.MEGA_FORWARD = False``, which
 sends scene 1 to the wavefront + K5 (its auto route is K3).  Every phase
@@ -111,9 +117,14 @@ OPS_SPHERE_ROW, OPS_RECT_ROW, OPS_SEGMENT = 30, 35, 144
 # and sphere tests (ops/bvh.py's OPS_PER_SLAB, OPS_PER_TEST), counted by the
 # plain version on the same inputs.
 OPS_K3_NORMAL = 9
-# Operations per residual row of the replay, and per point of K4
+# Operations per live residual row of the replay, and per point of K4
 # (csrc/mega_replay.cu, csrc/perlin_kernel.cu).
 OPS_REPLAY_ROW, OPS_PERLIN = 15, 96
+# The replay's blocks timed per instance, and how much slower than the
+# fastest instance and block replay_instance's pick may be (the spread of
+# graph_ms between runs is a few percent).
+REPLAY_BLOCKS = (32, 64, 128, 256)
+REPLAY_PICK_SLACK = 1.10
 
 _T0 = time.perf_counter()
 _T_LAST = [_T0]
@@ -330,7 +341,9 @@ def compare_record(scene, cam_params, device, seed=0, what="K2"):
 
 def compare_replay(scene, got, device):
     """The replay kernel vs its plain version on K2's own residuals, with a
-    positive random cotangent; gradients to rtol 1e-5."""
+    positive random cotangent; gradients to rtol 1e-5, the same bits over
+    repeated runs, and the launch reading the record buffer where K2 wrote
+    it.  Returns (stats, the replay's arguments)."""
     import torch
 
     from another_raytracer_tpu_torch.ops.kernels import mega_diff
@@ -341,9 +354,9 @@ def compare_replay(scene, got, device):
     ghat = V3(*(torch.rand(B, generator=gen, device=device) * 0.8 + 0.2
                 for _ in range(3)))
     args = (got[2], got[3], ghat, scene.tex_ca, scene.tex_cb,
-            scene.background, mega_diff._flags(scene))
+            scene.background, mega_diff._flags(scene), scene.replay_slots())
     kern = mega_diff.replay_backward(*args)
-    plain = mega_diff.replay_backward_reference(*args)
+    plain = mega_diff.replay_backward_reference(*args[:7])
     torch.cuda.synchronize(device)
     err = 0.0
     for name, a, b in zip(("tex_ca", "tex_cb", "background"), kern, plain):
@@ -352,8 +365,93 @@ def compare_replay(scene, got, device):
             raise AssertionError(f"replay {name}: kernel {a.tolist()} vs "
                                  f"plain {b.tolist()}")
         err = max(err, float((a - b).abs().max()))
-    return dict(textures=scene.tex_ca.shape[0], max_abs_err=err,
-                grad_tex_ca_max=float(plain[0].abs().max())), (args, ghat)
+    deterministic = all(
+        torch.equal(a, b) for _ in range(3)
+        for a, b in zip(kern, mega_diff.replay_backward(*args)))
+    if not deterministic:
+        raise AssertionError(f"the replay changed bits between runs "
+                             f"({scene.tex_ca.shape[0]} textures)")
+    reads_record(mega_diff.replay_inputs(*args[:6], args[7]), got[3])
+    return dict(textures=scene.tex_ca.shape[0],
+                checker_rows=scene.replay_slots().checkers, max_abs_err=err,
+                grad_tex_ca_max=float(plain[0].abs().max()),
+                bit_deterministic=deterministic), args
+
+
+def reads_record(inputs, tprev):
+    """Raise unless a replay launch's inputs (``mega_diff.replay_inputs``)
+    hold the record's tprev planes where the record kernel wrote them: views
+    of its one [3, iters, B] buffer, not a copy."""
+    plane = tprev.x.numel() * 4
+    base = tprev.x.untyped_storage().data_ptr()
+    for k, (t, ref) in enumerate(zip(inputs[1:4], tprev)):
+        if (t.data_ptr() != ref.data_ptr() or t.data_ptr() != base + k * plane
+                or ref.untyped_storage().data_ptr() != base):
+            raise AssertionError(f"the replay does not read tprev plane {k} "
+                                 "where the record kernel wrote it")
+
+
+def replay_timings(args, dev, sms):
+    """The replay at the bench size on one record's arguments (``args`` of
+    ``compare_replay``): the launch alone by ``graph_ms`` and by events, the
+    backward as the fused step runs it (``replay_backward``: wrapper, launch,
+    the sum of the partial rows) by ``graph_ms``, a copy of the record as a
+    wrapper that stacks the planes makes it, the bound from the live
+    rows, the instance and its shared memory and residency, and the launch
+    on each instance and block of ``REPLAY_BLOCKS``.  Raises if ``replay_instance``'s pick is more than
+    ``REPLAY_PICK_SLACK`` slower than the fastest instance and block."""
+    import torch
+
+    from another_raytracer_tpu_torch.ops.kernels import mega_diff
+
+    codes, tprev, ghat, ca = args[:4]
+    T, C = ca.shape[0], args[7].checkers
+    inst, block = mega_diff.replay_instance(T, C)
+
+    def time(**kw):
+        return graph_ms(lambda: mega_diff.prepare_replay(*args, **kw)[0],
+                        dev)[0]
+
+    def backward():
+        mega_diff.replay_backward(*args)
+        return 0
+
+    def copy():
+        torch.stack(tuple(tprev))
+        torch.stack(tuple(ghat))
+        return 0
+
+    names = {mega_diff.LANE_COLUMNS: "columns", mega_diff.WARP_TABLES: "tables"}
+    by_shape = {f"{names[i]} {b}": time(instance=i, block=b)
+                for i in names for b in REPLAY_BLOCKS
+                if mega_diff.replay_smem_bytes(T, C, b, i) <= 232448}
+    ms = by_shape[f"{names[inst]} {block}"]
+    best = min(by_shape, key=by_shape.get)
+    if ms > REPLAY_PICK_SLACK * by_shape[best]:
+        raise AssertionError(f"replay_instance picks {names[inst]} {block} "
+                             f"({ms:.5f} ms) at T = {T}, but {best} takes "
+                             f"{by_shape[best]:.5f} ms")
+    work = mega_diff.replay_work(codes, T, C)
+    bound_ms, bound_by = bound(work["live_rows"] * OPS_REPLAY_ROW,
+                               work["bytes"])
+    per_sm = mega_diff.replay_occupancy(T, C, block, inst)
+    blocks = -(-codes.shape[1] // block)
+    return dict(
+        textures=T, checker_rows=C, ms=ms,
+        event_ms=cuda_ms(bare(mega_diff.prepare_replay(*args)[0]), dev, 5)[0],
+        backward_ms=graph_ms(lambda: backward, dev, 20)[0],
+        copy_ms=graph_ms(lambda: copy, dev, 20)[0],
+        plain_ms=cuda_ms(lambda: mega_diff.replay_backward_reference(
+            *args[:7]), dev, 3)[0],
+        bound_ms=bound_ms, bound_by=bound_by, rows=work["rows"],
+        live_rows=work["live_rows"], bytes=work["bytes"],
+        sector_bytes=work["sector_bytes"],
+        sector_bound_ms=work["sector_bytes"] / PEAK_BYTES * 1e3,
+        instance=names[inst], block=block,
+        smem_bytes=mega_diff.replay_smem_bytes(T, C, block, inst),
+        blocks=blocks, blocks_per_sm=per_sm,
+        waves=blocks / max(per_sm * sms, 1),
+        by_shape_ms=by_shape)
 
 
 def fused_vs_lockstep(scene, cam, target, params, kw, dev, seed=555):
@@ -441,11 +539,30 @@ def plain_versions():
     saved = mega_kernel.trace_regenerative_mega, mega_diff.replay_backward
     mega_kernel.trace_regenerative_mega = (
         mega_kernel.trace_regenerative_mega_reference)
-    mega_diff.replay_backward = mega_diff.replay_backward_reference
+    mega_diff.replay_backward = (
+        lambda *args: mega_diff.replay_backward_reference(*args[:7]))
     try:
         yield
     finally:
         mega_kernel.trace_regenerative_mega, mega_diff.replay_backward = saved
+
+
+@contextlib.contextmanager
+def spy(module, name, look):
+    """Call ``look`` on what ``module.name`` returns, for as long as the
+    block runs."""
+    saved = getattr(module, name)
+
+    def seen(*args, **kw):
+        out = saved(*args, **kw)
+        look(out)
+        return out
+
+    setattr(module, name, seen)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
 
 
 @contextlib.contextmanager
@@ -1026,6 +1143,7 @@ def main() -> int:
     from another_raytracer_tpu_torch.ops import rng
     from another_raytracer_tpu_torch.ops.kernels import (_build, mega_diff,
                                                          mega_kernel)
+    from another_raytracer_tpu_torch.ops.vec3 import V3
     from another_raytracer_tpu_torch.utils import imageio
 
     dev = torch.device("cuda", 0)
@@ -1185,7 +1303,7 @@ def main() -> int:
             raise AssertionError(f"K2 differs from its plain version on {name}")
 
     # 7. The replay vs its plain version on K2's own residuals.
-    replay_stats, (replay_args, _) = compare_replay(cornell, rec["cornell"][1], dev)
+    replay_stats, replay_args = compare_replay(cornell, rec["cornell"][1], dev)
     phase("compare_replay", f"cornell (T <= 16): {json.dumps(replay_stats)}")
     big, big_cam = many_textures_scene(dev)
     _, got_big, _ = compare_record(big, big_cam, dev)
@@ -1253,16 +1371,29 @@ def main() -> int:
     k2_ms, _ = cuda_ms(bare(run), dev, 5)
     k2_plain_ms, _ = cuda_ms(lambda: mega_kernel.trace_regenerative_mega_reference(
         cornell, bcam, pix, samp, 0, **bkw), dev, 3)
-    run, _ = mega_diff.prepare_replay(*replay_args)
-    replay_ms, _ = cuda_ms(bare(run), dev, 5)
-    replay_plain_ms, _ = cuda_ms(
-        lambda: mega_diff.replay_backward_reference(*replay_args), dev, 3)
     phase("timing_kernels", f"cornell {BW}x{BH} spp{BSPP} depth{BDEPTH}: K2 "
           f"alone {k2_ms:.3f} ms ({100 * (k2_ms / K2_ROWS_MS - 1):+.1f}% vs "
           f"{K2_ROWS_MS} ms on the 32-float rows) vs plain {k2_plain_ms:.1f} "
-          f"ms ({k2_regs} "
-          f"registers); replay alone "
-          f"{replay_ms:.3f} ms vs plain {replay_plain_ms:.1f} ms")
+          f"ms ({k2_regs} registers)")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rp4 = replay_timings(replay_args, dev, sms)
+    phase("timing_replay", f"cornell {BW}x{BH} spp{BSPP} depth{BDEPTH}, "
+          f"T = 4: {json.dumps(rp4)}")
+    # The fused step reads the record where K2 wrote it: one step with the
+    # record's buffer and the replay's inputs looked at as they pass.
+    seen = {}
+    with spy(mega_kernel, "prepare_launch",
+             lambda out: out[1][-1].dim() == 3
+             and seen.setdefault("record", out[1][-1])), \
+            spy(mega_diff, "replay_inputs",
+                lambda out: seen.setdefault("inputs", out)):
+        diff.render_value_and_grad(
+            params, cornell, bcam, torch.zeros((BW * BH, 3), device=dev), 0,
+            width=BW, height=BH, spp=BSPP, samples_per_pass=1,
+            max_depth=BDEPTH, t_min=1e-3)
+    reads_record(seen["inputs"], V3(*seen["record"].unbind(0)))
+    phase("timing_replay", "the fused step's replay read tprev in K2's "
+          f"buffer ({seen['record'].data_ptr():#x}, no copy)")
 
     # Inside the sweep (its counting instance: the record build's arithmetic,
     # the same lanes): K1's launch at the README size with lane fetch and
@@ -1631,18 +1762,8 @@ def main() -> int:
                              "version")
     if (walked["K3_record"], walked["K3_record_global"]) != (1, 1):
         raise AssertionError(f"the record comparisons skipped a walk {walked}")
-    rp485, (rp485_args, _) = compare_replay(scene1, got_k3r, dev)
-    if not mega_diff.replay_instance(rp485["textures"])[0]:
-        raise AssertionError("scene 1's replay did not take the per-warp tables")
-    # The per-warp tables are deterministic: repeated runs, the same bits.
-    first = mega_diff.replay_backward(*rp485_args)
-    rp485["bit_deterministic"] = all(
-        torch.equal(a, b) for _ in range(3)
-        for a, b in zip(first, mega_diff.replay_backward(*rp485_args)))
-    if not rp485["bit_deterministic"]:
-        raise AssertionError("the large-T replay changed bits between runs")
-    phase("compare_replay", f"scene 1, {rp485['textures']} textures (per-warp "
-          f"tables, block {mega_diff.replay_instance(rp485['textures'])[1]}): "
+    rp485, rp485_args = compare_replay(scene1, got_k3r, dev)
+    phase("compare_replay", f"scene 1 {BW}x{BH} spp{BSPP} depth{BDEPTH}: "
           f"{json.dumps(rp485)}")
 
     # The accel main path: the scene-1 README render through the CLI, in
@@ -1844,19 +1965,13 @@ def main() -> int:
         + tests3r * bvh_ops.OPS_PER_TEST["sphere", False]
         + st_k3r["segments"] * (OPS_SEGMENT + OPS_K3_NORMAL),
         BW * BH * 24 + rows_bytes + nodes_bytes + resid)
-    run, _ = mega_diff.prepare_replay(*rp485_args)
-    rp485_ms, _ = cuda_ms(bare(run), dev, 5)
-    rp485_plain_ms, _ = cuda_ms(
-        lambda: mega_diff.replay_backward_reference(*rp485_args), dev, 3)
-    rp485_bound_ms, rp485_bound_by = bound(
-        BSPP * BDEPTH * BW * BH * OPS_REPLAY_ROW, resid + BW * BH * 12)
+    rp485_t = replay_timings(rp485_args, dev, sms)
     phase("timing_k3", f"scene 1 {BW}x{BH} spp{BSPP} depth{BDEPTH}: K3 record "
           f"alone {k3r_ms:.3f} ms vs plain {k3r_plain_ms:.1f} ms "
           f"({k3r_regs['shared']} registers), bound {k3r_bound_ms:.4f} ms by "
-          f"{k3r_bound_by}; by block {json.dumps(k3r_block_ms)} ms; replay "
-          f"at T = {rp485['textures']} alone {rp485_ms:.3f} ms vs plain "
-          f"{rp485_plain_ms:.1f} ms, bound {rp485_bound_ms:.4f} ms by "
-          f"{rp485_bound_by}")
+          f"{k3r_bound_by}; by block {json.dumps(k3r_block_ms)} ms")
+    phase("timing_replay", f"scene 1 {BW}x{BH} spp{BSPP} depth{BDEPTH}, T = "
+          f"{rp485['textures']}: {json.dumps(rp485_t)}")
 
     # Bounds of the earlier kernels from this run's work: segments x the
     # per-segment operations; the bytes a lane reads and writes, the rows,
@@ -1868,8 +1983,6 @@ def main() -> int:
     resid = BSPP * BDEPTH * BW * BH * 16
     k2_bound_ms, k2_bound_by = bound(st_c["segments"] * seg_ops,
                                      BW * BH * 24 + row_bytes + resid)
-    rp_bound_ms, rp_bound_by = bound(BSPP * BDEPTH * BW * BH * OPS_REPLAY_ROW,
-                                     resid + BW * BH * 12)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1942,17 +2055,12 @@ def main() -> int:
          "replaces": JAX_PALLAS + "mega_diff.py:266",
          "launches": replay_launches,
          "max_abs_err": replay_stats["max_abs_err"],
-         "ms": replay_ms, "plain_ms": replay_plain_ms,
-         "bound_ms": rp_bound_ms, "bound_by": rp_bound_by, "library_ms": None,
-         "textures": replay_stats["textures"],
-         "large_t": {"textures": rp485["textures"],
-                     "instance": "per-warp tables",
-                     "bit_deterministic": rp485["bit_deterministic"],
-                     "launches": train_launched["replay"],
+         "library_ms": None, **rp4,
+         "bit_deterministic": replay_stats["bit_deterministic"],
+         "large_t": {"launches": train_launched["replay"],
                      "max_abs_err": rp485["max_abs_err"],
-                     "ms": rp485_ms, "plain_ms": rp485_plain_ms,
-                     "bound_ms": rp485_bound_ms,
-                     "bound_by": rp485_bound_by}},
+                     "library_ms": None, **rp485_t,
+                     "bit_deterministic": rp485["bit_deterministic"]}},
         {"name": "bvh_kernel (K5, BVH closest hit)",
          "route": "cuda", "source": SRC + "bvh_kernel.cu",
          "replaces": JAX_PALLAS + "bvh_kernel.py:537",

@@ -98,7 +98,7 @@ def test_replay_reference_matches_bwd_large():
                               tvec3.V3(*map(torch.from_numpy, tprev)),
                               tvec3.V3(*map(torch.from_numpy, ghat)),
                               port.tex_ca, port.tex_cb, port.background,
-                              tmd._flags(port))
+                              tmd._flags(port), port.replay_slots())
     for g, key in zip(got, ("tex_ca", "tex_cb", "background")):
         want = np.asarray(getattr(scene_bar, key))
         np.testing.assert_allclose(g.numpy(), want, rtol=1e-5,

@@ -192,21 +192,90 @@ def test_record_kernel_matches_plain(name, dev):
     assert bool(((got[2] & 3) == 1).any())
 
 
-@pytest.mark.parametrize("name", list(SCENES))
-def test_replay_kernel_matches_plain(name, dev):
-    scene, got, _ = _record(name, dev)
+def _checkers_scene(device):
+    # Three checker textures among five on a sweep scene, with metal and a
+    # dielectric: three tex_cb rows.
+    b = SceneBuilder(background=(0.7, 0.8, 1.0), seed=5)
+    b.sphere((0, -100.5, -1), 100,
+             b.lambertian(texture=b.checker_texture((0.2, 0.3, 0.1),
+                                                    (0.9, 0.9, 0.9))))
+    b.sphere((0, 0, -1), 0.5, b.lambertian(
+        texture=b.checker_texture((0.8, 0.1, 0.1), (0.1, 0.1, 0.8))))
+    b.sphere((1, 0, -1), 0.5, b.metal((0.8, 0.6, 0.2), 0.3))
+    b.sphere((-1, 0, -1), 0.5, b.dielectric(1.5))
+    b.sphere((0, 1.0, -1.5), 0.4, b.lambertian(
+        texture=b.checker_texture((0.5, 0.9, 0.2), (0.9, 0.9, 0.2))))
+    cam = dict(lookfrom=(0, 0.5, 1.5), lookat=(0, 0, -1), vfov=70.0)
+    return b.build(device=device), cam
+
+
+# The replay's scenes by texture count: 4 (Cornell), 21 solid ones (above
+# JAX's select-sum limit), and checker textures with their tex_cb rows.
+REPLAY_SCENES = dict(SCENES, many_textures=chip_smoke.many_textures_scene,
+                     several_checkers=_checkers_scene)
+
+
+def _replay_args(name, dev):
+    scene, params = REPLAY_SCENES[name](device=dev)
+    cam = camera.make_camera(aspect_ratio=W / H, device=dev, **params)
+    pix = torch.arange(W * H, device=dev)
+    samp = torch.zeros(W * H, dtype=torch.int64, device=dev)
+    got = mega_kernel.trace_regenerative_mega(
+        scene, cam, pix, samp, 7, width=W, height=H, sample_stride=1,
+        sample_end=4, spp_cap=4, max_depth=8, t_min=1e-3, record_iters=32)
     gen = torch.Generator(device=dev).manual_seed(5)
     ghat = vec3.V3(*(torch.rand(W * H, generator=gen, device=dev) + 0.2
                      for _ in range(3)))
-    args = (got[2], got[3], ghat, scene.tex_ca, scene.tex_cb,
-            scene.background, mega_diff._flags(scene))
+    return (got[2], got[3], ghat, scene.tex_ca, scene.tex_cb,
+            scene.background, mega_diff._flags(scene), scene.replay_slots())
+
+
+@pytest.mark.parametrize("name", list(REPLAY_SCENES))
+def test_replay_kernel_matches_plain(name, dev):
+    args = _replay_args(name, dev)
+    if name == "several_checkers":
+        assert args[-1].checkers == 3
     before = mega_diff.replay_backward.launches
     kern = mega_diff.replay_backward(*args)
     assert mega_diff.replay_backward.launches == before + 1
-    plain = mega_diff.replay_backward_reference(*args)
+    plain = mega_diff.replay_backward_reference(*args[:7])
     for a, b in zip(kern, plain):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * float(b.abs().max()))
     assert float(kern[0].abs().max()) > 0
+    if args[6] & 1:  # checker textures: their tex_cb rows take gradients
+        assert float(kern[1].abs().max()) > 0
+    # With a tex_cb row for every texture: the same gradients.
+    T = args[3].shape[0]
+    every = mega_diff.ReplaySlots(*(torch.arange(T, dtype=torch.int32,
+                                                 device=dev),) * 2)
+    for a, b in zip(mega_diff.replay_backward(*args[:7], every), plain):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("name", ["cornell_box", "several_checkers"])
+def test_replay_kernel_is_bit_deterministic(name, dev):
+    args = _replay_args(name, dev)
+    first = mega_diff.replay_backward(*args)
+    for _ in range(3):
+        for a, b in zip(first, mega_diff.replay_backward(*args)):
+            assert torch.equal(a, b)
+
+
+def test_replay_kernel_reads_separate_planes(dev):
+    # tprev as three tensors of their own (not views of one buffer) and a
+    # cotangent that is not contiguous (made so): the same gradients as on
+    # K2's views.
+    args = _replay_args("lens_motion_metal_dielectric_checker", dev)
+    want = mega_diff.replay_backward(*args)
+    own = vec3.V3(*(t.clone() for t in args[1]))
+    assert own.x.untyped_storage().data_ptr() != own.y.untyped_storage().data_ptr()
+    wide = vec3.V3(*(torch.stack([t, t], 1)[:, 0] for t in args[2]))
+    assert not wide.x.is_contiguous()
+    got = mega_diff.replay_backward(args[0], own, wide, *args[3:])
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    inputs = mega_diff.replay_inputs(args[0], own, *args[2:6], args[7])
+    assert [t.data_ptr() for t in inputs[1:4]] == [t.data_ptr() for t in own]
 
 
 def test_fused_grads_match_lockstep_on_card(dev):
@@ -494,12 +563,14 @@ def test_walk_tallies_equal_plain_work(name, dev):
 def _large_t_replay_args(dev):
     scene, got, _ = _accel("random_scene", dev, record_iters=4 * 8, depth=8)
     T = scene.tex_ca.shape[0]
-    assert T == 485 and mega_diff.replay_instance(T)[0]
+    slots = scene.replay_slots()
+    assert T == 485 and slots.checkers == 1
+    assert mega_diff.replay_instance(T, 1)[0] == mega_diff.WARP_TABLES
     gen = torch.Generator(device=dev).manual_seed(5)
     ghat = vec3.V3(*(torch.rand(W * H, generator=gen, device=dev) + 0.2
                      for _ in range(3)))
     return (got[2], got[3], ghat, scene.tex_ca, scene.tex_cb,
-            scene.background, mega_diff._flags(scene))
+            scene.background, mega_diff._flags(scene), slots)
 
 
 def test_replay_kernel_large_t_matches_plain(dev):
@@ -509,7 +580,7 @@ def test_replay_kernel_large_t_matches_plain(dev):
     before = mega_diff.replay_backward.launches
     kern = mega_diff.replay_backward(*args)
     assert mega_diff.replay_backward.launches == before + 1
-    plain = mega_diff.replay_backward_reference(*args)
+    plain = mega_diff.replay_backward_reference(*args[:7])
     for a, b in zip(kern, plain):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * float(b.abs().max()))
     assert float(kern[0].abs().max()) > 0 and float(kern[1].abs().max()) > 0
@@ -520,7 +591,7 @@ def test_replay_kernel_large_t_is_bit_deterministic(dev):
     # the same bits (and stay within rtol 1e-5 of the plain version).
     args = _large_t_replay_args(dev)
     first = mega_diff.replay_backward(*args)
-    plain = mega_diff.replay_backward_reference(*args)
+    plain = mega_diff.replay_backward_reference(*args[:7])
     for _ in range(3):
         again = mega_diff.replay_backward(*args)
         for a, b in zip(first, again):

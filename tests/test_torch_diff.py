@@ -213,7 +213,7 @@ def test_replay_matches_traced_bwd(name):
     got = tmd.replay_backward(codes, tvec3.V3(*tprev),
                               tvec3.V3(*map(torch.from_numpy, ghat)),
                               port.tex_ca, port.tex_cb, port.background,
-                              tmd._flags(port))
+                              tmd._flags(port), port.replay_slots())
     for g, key in zip(got, ("tex_ca", "tex_cb", "background")):
         want = np.asarray(getattr(scene_bar, key))
         scale = np.abs(want).max()
