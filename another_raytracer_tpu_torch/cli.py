@@ -4,12 +4,12 @@
         --height 540 --spp 100 --max-depth 50 --mode single --device cuda \
         --out output.png
 
-The flags are the JAX CLI's plus ``--device``.  Ported so far: scenes 1-6
-in modes ``single`` and ``adaptive`` (2 and 6 through the megakernel's sweep
-mode, 1 through its accel mode, 3, 4 and 5 through the wavefront with the
-BVH and Perlin kernels).  The default mode is ``single``: the JAX CLI's
-defaults (``--scene 9 --mode adaptive``) need scene 9 (ROADMAP M17).  The
-flags named in ``_UNPORTED_FLAGS`` and the parallel modes (M18) fail.
+The flags and defaults are the JAX CLI's (``--scene 9 --mode adaptive``)
+plus ``--device``.  Every scene renders in modes ``single`` and
+``adaptive``: 2 and 6 through the megakernel's sweep mode, 1 through its
+accel mode, 3, 4, 5, 7, 8 and 9 through the wavefront with the BVH and
+Perlin kernels.  Scene 9 renders ``--obj`` or the capsule asset.  The flags
+named in ``_UNPORTED_FLAGS`` and the parallel modes (ROADMAP M18) fail.
 """
 
 from __future__ import annotations
@@ -28,7 +28,6 @@ from another_raytracer_tpu_torch.utils import imageio
 
 # Flags accepted for parity with the JAX CLI but not ported yet.
 _UNPORTED_FLAGS = {
-    "obj": "ROADMAP M17 (mesh scenes)",
     "preview": "ROADMAP M20 (progress preview)",
     "checkpoint": "ROADMAP M20 (checkpoint / resume)",
     "profile_dir": "ROADMAP M20 (profiling)",
@@ -39,25 +38,22 @@ _UNPORTED_FLAGS = {
 
 def main(argv=None):
     p = argparse.ArgumentParser(
-        description="PyTorch/CUDA port of the path tracer.  Ported so far: "
-                    "scenes 1-6, --mode single and adaptive; scene 9 (the "
-                    "JAX CLI's default), the parallel modes and --obj, "
-                    "--preview, --checkpoint, --profile-dir, --live, --view "
-                    "fail until ported (ROADMAP.md).")
+        description="PyTorch/CUDA port of the path tracer.  The parallel "
+                    "modes and --preview, --checkpoint, --profile-dir, "
+                    "--live, --view fail until ported (ROADMAP.md).")
     p.add_argument("--scene", type=int, default=9,
                    help="scene alias 1..9 (default 9 = mesh, matching "
-                        "main.cpp:20; not ported yet — ported: 1-6)")
+                        "main.cpp:20)")
     p.add_argument("--width", type=int, default=720)
     p.add_argument("--height", type=int, default=540)
     p.add_argument("--spp", type=int, default=100)
     p.add_argument("--max-depth", type=int, default=50)
     p.add_argument("--samples-per-pass", type=int, default=1)
     p.add_argument("--mode", choices=[m.value for m in RenderMode],
-                   default=RenderMode.SINGLE.value,
-                   help="render mode (default single; the JAX CLI's default "
-                        "is adaptive, main.cpp:44, with scene 9; "
-                        "'parallel_stripes' and 'parallel_images' are not "
-                        "ported yet; adaptive needs 12 | width and height)")
+                   default=RenderMode.ADAPTIVE.value,
+                   help="render mode (default adaptive, matching main.cpp:44; "
+                        "it needs 12 | width and height; 'parallel_stripes' "
+                        "and 'parallel_images' are not ported yet)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default="output.png")
     p.add_argument("--scene-seed", type=int, default=1234)
@@ -65,7 +61,9 @@ def main(argv=None):
                    help="torch device to render on (default cuda; 'cpu' runs "
                         "the kernels' plain PyTorch versions)")
     p.add_argument("--obj", default=None, metavar="PATH",
-                   help="mesh scene (9): render this .obj (not ported yet)")
+                   help="mesh scene (9): render this .obj instead of the "
+                        "capsule (e.g. the reference's models/cow.obj or "
+                        "models/dino.obj; ressources.h.in:7-9)")
     p.add_argument("--preview", default=None, metavar="PNG",
                    help="live progress snapshot PNG (not ported yet)")
     p.add_argument("--checkpoint", default=None, metavar="FILE",
@@ -101,8 +99,12 @@ def main(argv=None):
         samples_per_pass=args.samples_per_pass, mode=mode,
     )
     try:
-        scene, cam_params = library.build(args.scene, seed=args.scene_seed,
-                                          device=device)
+        if args.obj is not None and args.scene == library.SceneAlias.MESH:
+            scene, cam_params = library.mesh_scene(
+                seed=args.scene_seed, obj_path=args.obj, device=device)
+        else:
+            scene, cam_params = library.build(args.scene, seed=args.scene_seed,
+                                              device=device)
     except NotImplementedError as e:
         p.error(str(e))
     cam = camera_lib.make_camera(aspect_ratio=cfg.aspect_ratio, device=device,

@@ -1,20 +1,23 @@
-"""The canonical scenes ported so far (port of
-``another_raytracer_tpu.models.library``).
+"""The nine canonical scenes (port of ``another_raytracer_tpu.models.library``).
 
 Each function returns ``(SceneData, cam_params dict)`` where cam_params feeds
 ``ops.camera.make_camera`` (vup=(0,1,0), focus_dist=10, shutter [0,1] fixed
 app-wide at src/main.cpp:33-35).  Scenes are built on ``device`` (default
-the card).  Ported: random (1), two_spheres (2), two_perlin_spheres (3),
-earth (4), simple_light (5) and cornell_box (6).  The other aliases raise
-NotImplementedError naming their ROADMAP item.
+the card).  Randomised scenes (random, final) draw from the builder's
+seeded host generator in the JAX package's order, so they come out
+identical.  Image assets: the earthmap is a JPEG, which the port cannot
+decode yet (ROADMAP M20); scenes 4 and 8 take the reference's solid-cyan
+fallback when it is absent and raise when it is found.
 """
 
 from __future__ import annotations
 
 import enum
+from pathlib import Path
 
 import numpy as np
 
+from another_raytracer_tpu_torch.models import mesh as mesh_lib
 from another_raytracer_tpu_torch.models.scene import SceneBuilder
 from another_raytracer_tpu_torch.utils import assets
 
@@ -34,14 +37,6 @@ class SceneAlias(enum.IntEnum):
     CORNELL_SMOKE = 7
     FINAL = 8
     MESH = 9
-
-
-# What each unported alias waits for (ROADMAP.md, Queue 1).
-_NOT_PORTED = {
-    SceneAlias.CORNELL_SMOKE: "constant-density media (ROADMAP M15)",
-    SceneAlias.FINAL: "constant-density media (ROADMAP M15)",
-    SceneAlias.MESH: "the .obj mesh loader (ROADMAP M17)",
-}
 
 
 def _cam(lookfrom, lookat, vfov, aperture=0.0):
@@ -113,17 +108,23 @@ def two_perlin_spheres(seed: int = 1234, device="cuda"):
     return b.build(device=device), _cam((13, 2, 3), (0, 0, 0), 20.0)
 
 
+def _earthmap():
+    """The earthmap's texels, or None for the reference's missing-file
+    fallback (solid cyan, texture.h:91-92).  A found earthmap needs a JPEG
+    decoder the port does not have yet."""
+    path = assets.earthmap_path()
+    if path is not None:
+        raise NotImplementedError(
+            f"found the earthmap at {path}, but decoding JPEG is not "
+            "ported yet (ROADMAP M20)")
+    return None
+
+
 def earth(seed: int = 1234, device="cuda", image=None):
     """A globe with an image texture.  ``image``: [h,w,3] texels (float in
-    [0,1] or uint8).  Without one, the earthmap asset: when none is found,
-    the reference's missing-file fallback (solid cyan, texture.h:91-92); a
-    found one needs a JPEG decoder the port does not have yet."""
+    [0,1] or uint8); without one, the earthmap asset (``_earthmap``)."""
     if image is None:
-        path = assets.earthmap_path()
-        if path is not None:
-            raise NotImplementedError(
-                f"found the earthmap at {path}, but decoding JPEG is not "
-                "ported yet (ROADMAP M20); pass image= with decoded texels")
+        image = _earthmap()
     b = SceneBuilder(background=SKY, seed=seed)
     b.sphere((0, 0, 0), 2, b.lambertian(texture=b.image_texture(image)))
     return b.build(device=device), _cam((13, 2, 3), (0, 0, 0), 20.0)
@@ -163,6 +164,89 @@ def cornell_box(seed: int = 1234, device="cuda"):
     return b.build(device=device), _cam((278, 278, -800), (278, 278, 0), 40.0)
 
 
+def cornell_smoke(seed: int = 1234, device="cuda"):
+    """Cornell box with the boxes replaced by smoke volumes
+    (scene_manager.cpp:141-169; dimmer, larger light)."""
+    b = SceneBuilder(background=BLACK, seed=seed)
+    white = _cornell_walls(b, (113, 443, 127, 432), (7, 7, 7))
+    b.xz_rect(0, 555, 0, 555, 555, white)
+    b.xz_rect(0, 555, 0, 555, 0, white)
+    b.xy_rect(0, 555, 0, 555, 555, white)
+    xf1 = b.transform(rotate_y_deg=15, translate=(265, 0, 295))
+    b.constant_medium_box((0, 0, 0), (165, 330, 165), 0.01, color=(0, 0, 0),
+                          xform=xf1)
+    xf2 = b.transform(rotate_y_deg=-18, translate=(130, 0, 65))
+    b.constant_medium_box((0, 0, 0), (165, 165, 165), 0.01, color=(1, 1, 1),
+                          xform=xf2)
+    return b.build(device=device), _cam((278, 278, -800), (278, 278, 0), 40.0)
+
+
+def final_scene(seed: int = 1234, device="cuda"):
+    """The Next Week final scene (scene_manager.cpp:171-234).  Leaf 48 is
+    the JAX package's choice, measured on the TPU (library.py:164-167
+    there); an H100 measurement is to set it (ROADMAP, the re-gates)."""
+    b = SceneBuilder(background=BLACK, seed=seed)
+    ground = b.lambertian(color=(0.48, 0.83, 0.53))
+    for i in range(20):
+        for j in range(20):
+            w = 100.0
+            x0 = -1000.0 + i * w
+            z0 = -1000.0 + j * w
+            y1 = b.rand.uniform(1, 101)
+            b.box((x0, 0.0, z0), (x0 + w, y1, z0 + w), ground)
+
+    b.xz_rect(123, 423, 147, 412, 554, b.diffuse_light(color=(7, 7, 7)))
+
+    center1 = np.array([400.0, 400.0, 200.0])
+    b.moving_sphere(center1, center1 + np.array([30.0, 0, 0]), 0, 1, 50,
+                    b.lambertian(color=(0.7, 0.3, 0.1)))
+    b.sphere((260, 150, 45), 50, b.dielectric(1.5))
+    b.sphere((0, 150, 145), 50, b.metal((0.8, 0.8, 0.9), 1.0))
+
+    # Subsurface-ish: a glass boundary around a blue medium.
+    b.sphere((360, 150, 145), 70, b.dielectric(1.5))
+    b.constant_medium_sphere((360, 150, 145), 70, 0.2, color=(0.2, 0.4, 0.9))
+    # Global thin mist: its giant boundary sphere is not a surface in the
+    # reference, only its medium is (scene_manager.cpp:212-213).
+    b.constant_medium_sphere((0, 0, 0), 5000, 1e-4, color=(1, 1, 1))
+
+    b.sphere((400, 200, 400), 100,
+             b.lambertian(texture=b.image_texture(_earthmap())))
+    b.sphere((220, 280, 300), 80, b.lambertian(texture=b.noise_texture(0.1)))
+
+    white = b.lambertian(color=(0.73, 0.73, 0.73))
+    xf = b.transform(rotate_y_deg=15, translate=(-100, 270, 395))
+    for _ in range(1000):
+        b.sphere(b.rand.uniform(0, 165, 3), 10, white, xform=xf)
+    return (b.build(device=device, bvh_leaf_size=48),
+            _cam((478, 278, -600), (278, 278, 0), 40.0))
+
+
+# Per-model camera presets from the reference's commented-out alternates
+# (scene_manager.cpp:334-342); the active capsule view is 344-346.
+_MESH_CAMERAS = {
+    "dino": ((0, 15, 25), (0, 10, 0)),
+    "cow": ((4, 2, 6), (2, 0, 0)),
+}
+
+
+def mesh_scene(seed: int = 1234, obj_path=None, device="cuda"):
+    """A textured .obj mesh (default the capsule asset) + light + global
+    mist (scene_manager.cpp:236-258, camera table 330-348).  Raises
+    FileNotFoundError when no mesh is given and no asset is found."""
+    b = SceneBuilder(background=SKY, seed=seed)
+    path = obj_path or assets.capsule_obj_path()
+    if path is None:
+        raise FileNotFoundError(
+            "cannot parse input obj file! (no mesh asset found)")
+    mesh_lib.add_to_builder(b, mesh_lib.parse(path))
+    b.xz_rect(123, 423, 147, 412, 554, b.diffuse_light(color=(7, 7, 7)))
+    b.constant_medium_sphere((0, 0, 0), 5000, 1e-4, color=(1, 1, 1))
+    lookfrom, lookat = _MESH_CAMERAS.get(Path(path).stem,
+                                         ((2, 2, 1), (0, 0, 0)))
+    return b.build(device=device), _cam(lookfrom, lookat, 75.0)
+
+
 _BUILDERS = {
     SceneAlias.RANDOM: random_scene,
     SceneAlias.TWO_SPHERES: two_spheres,
@@ -170,20 +254,17 @@ _BUILDERS = {
     SceneAlias.EARTH: earth,
     SceneAlias.SIMPLE_LIGHT: simple_light,
     SceneAlias.CORNELL_BOX: cornell_box,
+    SceneAlias.CORNELL_SMOKE: cornell_smoke,
+    SceneAlias.FINAL: final_scene,
+    SceneAlias.MESH: mesh_scene,
 }
-PORTED = tuple(int(a) for a in _BUILDERS)
 
 
 def build(alias, seed: int = 1234, device="cuda"):
     """scene_manager::build equivalent; raises ValueError on an unknown alias
-    (scene_manager.cpp:350-351) and NotImplementedError on one not ported."""
+    (scene_manager.cpp:350-351)."""
     try:
         alias = SceneAlias(int(alias))
     except ValueError as e:
         raise ValueError("unknown scene requested!") from e
-    if alias not in _BUILDERS:
-        raise NotImplementedError(
-            f"scene {alias.value} ({alias.name.lower()}) is not ported yet: it "
-            f"needs {_NOT_PORTED[alias]}; ported scenes: "
-            f"{', '.join(map(str, PORTED))}")
     return _BUILDERS[alias](seed=seed, device=device)

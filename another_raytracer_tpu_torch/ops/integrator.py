@@ -18,7 +18,7 @@ backward.
 
 ``trace_regenerative`` is the forward wavefront of every scene the
 megakernel does not take (BVH scenes, noise / image / barycentric textures,
-triangles): each lane re-arms with its next sample the moment its path
+triangles, media): each lane re-arms with its next sample the moment its path
 ends, and the alive lanes are compacted into narrower buffers as the tail
 thins out.  Its bounces run the kernels K5 (BVH closest hit) and K4 (Perlin
 noise) on CUDA tensors.
@@ -26,7 +26,7 @@ noise) on CUDA tensors.
 Left out on purpose (ROADMAP M21): the XLA schedule arguments ``remat`` and
 ``unroll``, the dead-lane parking ``_park_dead`` / ``DEAD_PARK`` and the
 Mosaic tiling ``REGEN_COMPACT_ALIGN`` — results on dead lanes are masked
-either way.  Media (M15) raise.
+either way.
 """
 
 from __future__ import annotations
@@ -47,11 +47,18 @@ REGEN_COMPACT_SHRINK = 8
 REGEN_COMPACT_ROUND = 128
 
 
-def check_supported(scene):
-    """Raise NotImplementedError naming the ROADMAP item of anything in the
-    scene the integrators cannot trace yet."""
-    intersect.check_supported(scene)
-    shade.check_supported(scene)
+def media_uniforms(scene, pixel_ids, sample_ids, bounce, seed):
+    """One uniform per (ray, medium) for the free flights, [B, Nm]: lanes
+    DIM_MEDIUM + 2*m keep media draws independent of every other draw.  A
+    function of (pixel, sample, bounce), so the wavefront's compaction
+    carries nothing for it."""
+    cols = [rng.uniform2(seed, pixel_ids, sample_ids, bounce,
+                         rng.DIM_MEDIUM + 2 * m)[0]
+            for m in range(scene.n_media)]
+    if not cols:
+        return torch.zeros((pixel_ids.shape[0], 0), dtype=torch.float32,
+                           device=pixel_ids.device)
+    return torch.stack(cols, dim=-1)
 
 
 def _advance(scene, o, d, time, throughput, alive, pixel_ids, sample_ids,
@@ -73,12 +80,14 @@ def _advance(scene, o, d, time, throughput, alive, pixel_ids, sample_ids,
                 and scene.n_bvh_nodes == 0 and scene.sph_fold_safe
                 and width >= intersect.FOLD_SPH_MIN_B)
     want_aux = fast_texel and (fold_tri or fold_sph)
+    u_media = media_uniforms(scene, pixel_ids, sample_ids, bounce, seed)
     # Winner selection is a detached discrete decision (the JAX sg): the
     # backward sees only the per-ray winner recompute in make_hit_record.
     aux = None
     with torch.no_grad():
         hit_args = (scene, o.map(torch.Tensor.detach),
-                    d.map(torch.Tensor.detach), time.detach(), t_min)
+                    d.map(torch.Tensor.detach), time.detach(), u_media,
+                    t_min)
         if want_aux:
             (t, kind, idx), aux = intersect.closest_hit(*hit_args,
                                                         want_aux=True)
@@ -92,7 +101,8 @@ def _advance(scene, o, d, time, throughput, alive, pixel_ids, sample_ids,
     delta = vec3.where(miss_now, throughput * V3.from_array(scene.background),
                        zero)
 
-    rec = intersect.make_hit_record(scene, o, d, time, t, kind, idx, aux=aux)
+    rec = intersect.make_hit_record(scene, o, d, time, t, kind, idx, u_media,
+                                    t_min=t_min, aux=aux)
     # Emission accumulates for every live hit (engine.h:460-465).
     emit, new_dir, attenuation, scatter_ok = shade.emit_and_scatter(
         scene, rec, d, pixel_ids, sample_ids, bounce, seed, fast_texel)
@@ -127,7 +137,6 @@ def trace(scene, o: V3, d: V3, time, pixel_ids, sample_ids, seed,
     ``trace_regenerative``; this is the path of the differentiable renders
     that the fused path does not take.
     """
-    check_supported(scene)
     z = d.x * 0.0
     ones = z + 1.0
     alive = torch.ones(z.shape, dtype=torch.bool, device=z.device)
@@ -246,7 +255,6 @@ def trace_regenerative(scene, cam, pixel_ids, sample_ids0, seed, *,
     Returns (radiance V3 [B] per-lane sums, segments int64 scalar tensor).
     Not differentiable: the loop's trip count depends on the data.
     """
-    check_supported(scene)
     limit = min(int(sample_end), int(spp_cap), rng.MASK32)
     B = pixel_ids.shape[0]
     widths = _stage_widths(B)

@@ -21,16 +21,17 @@ normal (sphere.h:24-65), moving sphere centre lerped by ray time
 (aarect.cpp), triangle plane + edge half-plane test with area-ratio
 barycentrics and a normalised normal (triangle.h:22-87; PARITY.md #3),
 instancing through the primitive's world-from-object transform
-(hittable.cpp).
+(hittable.cpp), constant-density media with analytic boundaries and an
+exponential free flight, one uniform per (ray, medium)
+(constant_medium.h:42-80).
 
 Every division and sqrt whose lane may be masked out has a safe operand, as
 in the JAX package: ``torch.where`` passes a zero cotangent to the branch it
 did not pick, and zero times an infinite local derivative is NaN.
 
-Not ported here: media (ROADMAP M15) raise NotImplementedError; the JAX
-package's TPU-only knobs (``RECORD_T_UNPACK``, ``TRI_PACKED_RECORD``, the
-one-hot ``Lookup`` gathers) are left out (M21): a plain index gathers
-exactly.
+Left out (ROADMAP M21): the JAX package's TPU-only knobs
+(``RECORD_T_UNPACK``, ``TRI_PACKED_RECORD``, the one-hot ``Lookup``
+gathers): a plain index gathers exactly.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from another_raytracer_tpu_torch.ops import vec3
 from another_raytracer_tpu_torch.ops.vec3 import V3
 
 BIG = 3e37  # effectively +infinity for t comparisons
+MEDIUM_REHIT_EPS = 1e-4  # reference: constant_medium.h:47 second-probe offset
 
 # Primitive chunk size of the [B, N] sweeps (the JAX package's PRIM_CHUNK):
 # bounds the [B, N] temporaries; the strict fold across chunks keeps the
@@ -77,14 +79,6 @@ class HitRecord(NamedTuple):
     v: torch.Tensor  # [B]
     tu: torch.Tensor  # [B] texture coordinate (blended texcoord for triangles)
     tv: torch.Tensor  # [B]
-
-
-def check_supported(scene):
-    """Raise NotImplementedError for primitive kinds the port does not
-    intersect yet."""
-    if scene.n_media:
-        raise NotImplementedError(
-            "constant-density media are not ported yet (ROADMAP M15)")
 
 
 def take(table, idx):
@@ -245,6 +239,75 @@ def _triangle_t(scene, sl, o: V3, d: V3, t_min, t_max):
     return t, valid
 
 
+def _maximum(x, c):
+    """``jnp.maximum(x, c)`` for a Python float ``c``: ``torch.maximum``
+    splits the gradient evenly at a tie, as JAX does (``clamp`` would pass
+    all of it to ``x``)."""
+    return torch.maximum(x, x.new_tensor(c))
+
+
+def _medium_interval(scene, o: V3, d: V3):
+    """Boundary entry / exit interval (t1, t2, boundary_hit) of every
+    medium, [B, Nm] each: the analytic equivalent of the reference's two
+    hittable::hit probes (constant_medium.h:42-47), in the medium's object
+    space."""
+    kind = scene.med_kind
+    a3 = _col3(scene.med_a)
+    b3 = _col3(scene.med_b)
+    o_b, d_b = _object_rays_bn(scene, scene.med_xf, o, d)
+
+    # Sphere boundary: both quadratic roots.
+    oc = V3(o_b.x - a3.x[None, :], o_b.y - a3.y[None, :],
+            o_b.z - a3.z[None, :])
+    qa = vec3.length_squared(d_b)
+    half_b = vec3.dot(oc, d_b)
+    qc = vec3.length_squared(oc) - (b3.x * b3.x)[None, :]
+    disc = half_b * half_b - qa * qc
+    s_ok = disc > 0.0
+    sq = vec3.sqrt(torch.where(s_ok, disc, torch.ones_like(disc)))
+    s_t1 = (-half_b - sq) / qa
+    s_t2 = (-half_b + sq) / qa
+
+    # Box boundary: the slab interval.  The signed-epsilon divide guard
+    # keeps lanes and cotangents finite for axis-parallel rays.
+    def slab(dc, oc_, lo, hi):
+        eps = torch.where(dc < 0, -1e-20, 1e-20)
+        inv = 1.0 / torch.where(dc.abs() < 1e-20, eps, dc)
+        t_a = (lo[None, :] - oc_) * inv
+        t_b = (hi[None, :] - oc_) * inv
+        return torch.minimum(t_a, t_b), torch.maximum(t_a, t_b)
+
+    nx, xx = slab(d_b.x, o_b.x, a3.x, b3.x)
+    ny, xy = slab(d_b.y, o_b.y, a3.y, b3.y)
+    nz, xz = slab(d_b.z, o_b.z, a3.z, b3.z)
+    b_t1 = torch.maximum(torch.maximum(nx, ny), nz)
+    b_t2 = torch.minimum(torch.minimum(xx, xy), xz)
+
+    is_sphere = (kind == scene_lib.MED_SPHERE)[None, :]
+    t1 = torch.where(is_sphere, s_t1, b_t1)
+    t2 = torch.where(is_sphere, s_t2, b_t2)
+    ok = torch.where(is_sphere, s_ok, b_t1 < b_t2)
+    # The reference's second probe starts at t1 + 1e-4; a thinner slab than
+    # that fails its second hit.
+    return t1, t2, ok & (t2 > t1 + MEDIUM_REHIT_EPS)
+
+
+def _medium_t(scene, o: V3, d: V3, u_media, t_min, t_max):
+    """Exponential free flight inside the boundary (constant_medium.h:49-80)
+    for [B, Nm] uniforms ``u_media``.  log(0) = -inf gives an infinite
+    distance, rejected, as the reference when random_double() returns 0."""
+    t1, t2, ok = _medium_interval(scene, o, d)
+    r1 = _maximum(t1, t_min)
+    r2 = torch.minimum(t2, t_max)
+    ok = ok & (r1 < r2)
+    r1 = _maximum(r1, 0.0)
+    ray_len = vec3.length(d)[:, None]
+    dist_inside = (r2 - r1) * ray_len
+    hit_dist = scene.med_neg_inv_density[None, :] * vec3.log(u_media)
+    ok = ok & (hit_dist <= dist_inside)
+    return r1 + hit_dist / ray_len, ok
+
+
 # --------------------------------------------------------------------------
 # Closest hit
 # --------------------------------------------------------------------------
@@ -306,16 +369,17 @@ def _fold_bvh(scene, best, nodes, rows, o, d, time, t_min, prim,
     return (t, kind, idx)
 
 
-def closest_hit(scene, o: V3, d: V3, time, t_min, want_aux=False):
+def closest_hit(scene, o: V3, d: V3, time, u_media, t_min, want_aux=False):
     """Closest intersection over all primitive kinds.
 
     Returns (t [B], kind [B] int64 with -1 = miss, idx [B] within-kind), and
     with ``want_aux`` also the kernel-folded winner record (or None; see
     ``_fold_bvh``).  BVH folds run first, so their winner t tightens the
     sweeps' t_max; then the sweeps of spheres, rects and triangles outside
-    a BVH.  A strict improvement keeps the earlier primitive on a tie.
+    a BVH, and last the media's free flights (``u_media``: [B, Nm]
+    uniforms, ``integrator.media_uniforms``).  A strict improvement keeps
+    the earlier primitive on a tie.
     """
-    check_supported(scene)
     z = o.x * 0.0
     best = (z + BIG, torch.full_like(z, -1, dtype=torch.int64),
             torch.zeros_like(z, dtype=torch.int64))
@@ -354,6 +418,9 @@ def closest_hit(scene, o: V3, d: V3, time, t_min, want_aux=False):
             best, scene.n_triangles,
             lambda sl, t_max: _triangle_t(scene, sl, o, d, t_min, t_max),
             scene_lib.PRIM_TRIANGLE)
+    if scene.n_media:
+        t, valid = _medium_t(scene, o, d, u_media, t_min, best[0][:, None])
+        best = _fold_kind(best, t, valid, scene_lib.PRIM_MEDIUM)
     if want_aux:
         return best, aux
     return best
@@ -498,17 +565,39 @@ def _triangle_record_aux(scene, o, d, t, idx, aux):
     return t, o + d * t, n_aux, scene.tri_mat[ii].long(), u, v, tu, tv
 
 
-def make_hit_record(scene, o: V3, d: V3, time, t, kind, idx,
-                    aux=None) -> HitRecord:
+def _medium_record(scene, o, d, t, idx, u_media, t_min):
+    ii = torch.clamp(idx, 0, scene.n_media - 1)
+    # Differentiable t recompute: given the (detached) uniform, the free
+    # flight is a smooth function of the boundary interval and the density.
+    t1, _, _ = _medium_interval(scene, o, d)
+    if scene.n_media == 1:
+        t1, u = t1[:, 0], u_media[:, 0]
+    else:
+        sel = ii[:, None] == torch.arange(scene.n_media, device=ii.device)
+        t1 = torch.where(sel, t1, torch.zeros_like(t1)).sum(dim=1)
+        u = torch.where(sel, u_media, torch.zeros_like(u_media)).sum(dim=1)
+    r1 = _maximum(_maximum(t1, t_min), 0.0)
+    hd = take(scene.med_neg_inv_density, ii) * vec3.log(_maximum(u, 1e-37))
+    t = r1 + hd / vec3.length(d)
+    # Arbitrary fixed normal, front face (constant_medium.h:77-78).
+    one, zero = torch.ones_like(t), torch.zeros_like(t)
+    return (t, o + d * t, V3(one, zero, zero), scene.med_mat[ii].long(),
+            zero, zero, zero, zero)
+
+
+def make_hit_record(scene, o: V3, d: V3, time, t, kind, idx, u_media=None,
+                    t_min=1e-3, aux=None) -> HitRecord:
     """Reconstruct the full hit record for each ray's winning primitive.
 
     ``t`` is only a detached selection hint: each kind recomputes its own t
-    differentiably.  ``aux``: the kernel-folded winner record from
+    differentiably.  ``u_media`` (needed where the scene has media) and
+    ``t_min`` must be those of the winner selection: the medium recompute redraws its free flight from the same
+    uniform and clamps the boundary entry to ``t_min``
+    (constant_medium.h:57).  ``aux``: the kernel-folded winner record from
     ``closest_hit(want_aux=True)`` (forward path only), which replaces its
     tree kind's recompute.  Lanes that missed get some kind's record of
     index 0; callers mask them out.
     """
-    check_supported(scene)
     z = torch.zeros_like(o.x)
     zv = V3(z, z, z)
     t_out, p, n = t, zv, zv
@@ -541,8 +630,12 @@ def make_hit_record(scene, o: V3, d: V3, time, t, kind, idx,
         else:
             tri = _triangle_record(scene, o, d, t, idx)
         merge(kind == scene_lib.PRIM_TRIANGLE, tri)
-    # set_face_normal (hittable.h:18-22).
-    front = vec3.dot(d, n) < 0.0
+    if scene.n_media:
+        merge(kind == scene_lib.PRIM_MEDIUM,
+              _medium_record(scene, o, d, t, idx, u_media, t_min))
+    # set_face_normal (hittable.h:18-22); a medium's record keeps its
+    # normal and faces front.
+    front = (vec3.dot(d, n) < 0.0) | (kind == scene_lib.PRIM_MEDIUM)
     n = vec3.where(front, n, -n)
     return HitRecord(t=t_out, p=p, normal=n, front_face=front, mat=mat, u=u,
                      v=v, tu=tu, tv=tv)

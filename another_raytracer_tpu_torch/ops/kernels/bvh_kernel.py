@@ -37,6 +37,7 @@ meta = first * 64 + count (internal nodes have count 0).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import numpy as np
@@ -270,7 +271,7 @@ def bvh_closest_hit(nodes, rows, o: V3, d: V3, init_t, init_idx, *,
     if err != 0:
         raise RuntimeError(f"bvh_kernel launch failed: CUDA error {err}")
     if o.x.shape[0]:
-        bvh_closest_hit.launches += 1
+        bvh_closest_hit.launches[f"{prim}/{run.route}"] += 1
     t, code, hit, aux = outputs
     out = (t, code, hit)
     if fold_record:
@@ -278,8 +279,9 @@ def bvh_closest_hit(nodes, rows, o: V3, d: V3, init_t, init_idx, *,
     return out
 
 
-# Launches of the CUDA kernel, incremented once per launch and nowhere else.
-bvh_closest_hit.launches = 0
+# Launches of the CUDA kernel, incremented once per launch and nowhere else,
+# by tree kind and table route ("sphere/shared", ...); ``.total()`` is all.
+bvh_closest_hit.launches = collections.Counter()
 
 
 def _lib(target="bvh_kernel"):
@@ -346,7 +348,8 @@ def prepare_launch(nodes, rows, o: V3, d: V3, init_t, init_idx, *,
                    fold_full=False, precomp=False, tables=None, route=None,
                    block=BLOCK, tally=False):
     """Everything one CUDA launch needs: returns (run, (t, code, hit, aux)).
-    ``run()`` is the bare launch and returns the CUDA error code.
+    ``run()`` is the bare launch and returns the CUDA error code;
+    ``run.route`` is the table route it takes.
     ``tables``: as ``bvh_closest_hit``'s.  ``route`` ("shared" / "global")
     overrides ``table_route``'s choice (a small tree can take the
     device-memory walk); ``block`` is the launch's threads per block (each
@@ -410,4 +413,5 @@ def prepare_launch(nodes, rows, o: V3, d: V3, init_t, init_idx, *,
     def run(_inputs=args):  # the default keeps the tensors behind ptrs alive
         return entry(*ptrs)
 
+    run.route = route
     return run, outputs

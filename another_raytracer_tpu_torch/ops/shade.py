@@ -1,7 +1,7 @@
 """Texture evaluation, emission and branchless material scatter (port of
 ``another_raytracer_tpu.ops.shade``): solid, checker, Perlin noise, image
 and barycentric textures; lambertian, metal, dielectric and diffuse-light
-materials.
+materials, and the isotropic material of media.
 
 Every ray evaluates the closed-form candidates of the kinds the scene holds
 and a masked select keyed on the material / texture kind picks the winner;
@@ -13,7 +13,8 @@ random_unit_vector with a near-zero fallback (material.h:20-43); metal
 reflect(unit(d), n) + fuzz * random_in_unit_sphere, absorbed below the
 surface (material.h:45-61); dielectric attenuation 1, ratio by front face,
 TIR test and Schlick reflectance vs a uniform (material.h:63-99);
-diffuse_light never scatters and emits its texture (material.h:101-118).
+diffuse_light never scatters and emits its texture (material.h:101-118);
+isotropic scatters to random_in_unit_sphere with its texture's albedo.
 
 Perlin noise: ``perlin_noise`` is the plain version (direct ``index_select``
 gathers of the tables), differentiable in the point; the forward path
@@ -22,9 +23,8 @@ the noise argument (``noise_value_only``) evaluate it through the kernel K4
 (``ops/kernels/perlin_kernel.py``).  Image textures gather the atlas row of
 the nearest texel.
 
-Not ported: the isotropic material of media (ROADMAP M15) raises
-NotImplementedError; the TPU-only packed atlas and its ``ATLAS_*`` knobs and
-the one-hot ``Lookup`` gathers are left out (M21).
+Left out (ROADMAP M21): the TPU-only packed atlas and its ``ATLAS_*``
+knobs and the one-hot ``Lookup`` gathers.
 """
 
 from __future__ import annotations
@@ -40,13 +40,6 @@ from another_raytracer_tpu_torch.ops.intersect import HitRecord, take
 from another_raytracer_tpu_torch.ops.vec3 import V3
 
 PERLIN_N = scene_lib.PERLIN_POINT_COUNT
-
-
-def check_supported(scene):
-    """Raise NotImplementedError for material kinds not ported."""
-    if scene_lib.MAT_ISOTROPIC in scene.mat_kinds:
-        raise NotImplementedError(
-            "the isotropic material of media is not ported yet (ROADMAP M15)")
 
 
 # Differentiable renders whose declared trainable set cannot reach the noise
@@ -224,7 +217,6 @@ def emit_and_scatter(scene, rec: HitRecord, d_in: V3, pixel_ids, sample_ids,
 
     Returns (emit V3, scatter_dir V3, attenuation V3, scatter_ok [B]).
     """
-    check_supported(scene)
     kinds = scene.mat_kinds
     kind = scene.mat_kind[rec.mat]
     tex = scene.mat_tex[rec.mat].long()
@@ -234,12 +226,17 @@ def emit_and_scatter(scene, rec: HitRecord, d_in: V3, pixel_ids, sample_ids,
     rand_unit = vec3.unit_vector_from_uniforms(u1, u2)
     has_metal = scene_lib.MAT_METAL in kinds
     has_diel = scene_lib.MAT_DIELECTRIC in kinds
-    # Lanes 2,3 feed only the metal fuzz radius and the dielectric coin; a
-    # lambertian/light-only scene skips that threefry block.  Draws are keyed
-    # per purpose, so skipping one never shifts another.
-    if has_metal or has_diel:
+    need_ball = has_metal or scene_lib.MAT_ISOTROPIC in kinds
+    # Lanes 2,3 feed only the unit-ball radius (metal fuzz, isotropic) and
+    # the dielectric coin; a lambertian/light-only scene skips that threefry
+    # block.  Draws are keyed per purpose, so skipping one never shifts
+    # another.
+    if need_ball or has_diel:
         u3, u4 = rng.uniform2(seed, pixel_ids, sample_ids, bounce,
                               rng.DIM_SCATTER_B)
+    # A point in the unit ball (vec3.h:117-123), shared by metal and
+    # isotropic.
+    in_ball = rand_unit * vec3.cbrt(u3) if need_ball else None
     unit_d = vec3.unit(d_in) if (has_metal or has_diel) else d_in
 
     # lambertian (material.h:29-36)
@@ -250,7 +247,7 @@ def emit_and_scatter(scene, rec: HitRecord, d_in: V3, pixel_ids, sample_ids,
     if has_metal:
         # metal (material.h:52-55)
         fuzz = take(scene.mat_fuzz, rec.mat)
-        met_dir = vec3.reflect(unit_d, n) + (rand_unit * vec3.cbrt(u3)) * fuzz
+        met_dir = vec3.reflect(unit_d, n) + in_ball * fuzz
         met_ok = vec3.dot(met_dir, n) > 0.0
         is_met = kind == scene_lib.MAT_METAL
         direction = vec3.where(is_met, met_dir, direction)
@@ -273,6 +270,11 @@ def emit_and_scatter(scene, rec: HitRecord, d_in: V3, pixel_ids, sample_ids,
                              vec3.reflect(unit_d, n),
                              vec3.refract(unit_d, n, ratio))
         direction = vec3.where(kind == scene_lib.MAT_DIELECTRIC, die_dir,
+                               direction)
+
+    if scene_lib.MAT_ISOTROPIC in kinds:
+        # isotropic: a direction in the unit ball (material.h:120-135).
+        direction = vec3.where(kind == scene_lib.MAT_ISOTROPIC, in_ball,
                                direction)
 
     tex_val = texture_value(scene, tex, rec.u, rec.v, rec.tu, rec.tv, rec.p,

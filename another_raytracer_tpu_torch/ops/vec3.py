@@ -76,6 +76,12 @@ def sin(x):
     return torch.sin(x.double()).to(x.dtype)
 
 
+def log(x):
+    """float32 natural log, correctly rounded (through float64); log(0) is
+    -inf.  See ``cos``."""
+    return torch.log(x.double()).to(x.dtype)
+
+
 def dot(a: V3, b: V3):
     return a.x * b.x + a.y * b.y + a.z * b.z
 

@@ -22,7 +22,8 @@ def asset_root() -> Optional[Path]:
 
 
 def find(relpath: str) -> Optional[Path]:
-    """Resolve e.g. 'textures/earthmap.jpg' under the asset root."""
+    """Resolve e.g. 'textures/earthmap.jpg' or 'models/capsule/capsule.obj'
+    under the asset root."""
     root = asset_root()
     if root is None:
         return None
@@ -32,3 +33,15 @@ def find(relpath: str) -> Optional[Path]:
 
 def earthmap_path() -> Optional[Path]:
     return find("textures/earthmap.jpg")
+
+
+def capsule_obj_path() -> Optional[Path]:
+    return find("models/capsule/capsule.obj")
+
+
+def cow_obj_path() -> Optional[Path]:
+    return find("models/cow.obj")
+
+
+def dino_obj_path() -> Optional[Path]:
+    return find("models/dino.obj")

@@ -1,9 +1,11 @@
-"""Minimal PNG writer and reader (stdlib zlib + numpy), so the port needs no
-image library: 8-bit RGB, no filtering on write; filter-0 rows on read (what
-``save_png`` writes)."""
+"""Host-side image IO with the stdlib and numpy only, so the port needs no
+image library: a PNG writer (8-bit RGB, no filtering) and a PNG decoder
+(port of the JAX package's ``utils.imageio._decode_png``) that reads the
+port's output and the texture maps of meshes and scenes."""
 
 from __future__ import annotations
 
+import os
 import struct
 import zlib
 
@@ -30,22 +32,93 @@ def save_png(path, image_uint8) -> None:
 
 
 def load_png(path) -> np.ndarray:
-    """Read a PNG written by ``save_png`` back to [h, w, 3] uint8."""
+    """Read an 8-bit PNG to [h, w, 3] uint8 (``_decode_png``)."""
     data = open(path, "rb").read()
     if data[:8] != _SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
-    pos, idat, w, h = 8, b"", None, None
+    return _decode_png(data)
+
+
+def load_image(path) -> "np.ndarray | None":
+    """Decode an image file to [h, w, 3] float64 in [0, 1] (the reference's
+    stb_image role).  None for a missing file: callers take the reference's
+    solid-cyan fallback texture (texture.h:91-92).  PNG only: a file of
+    another format that exists raises NotImplementedError (JPEG decoding
+    waits for ROADMAP M20) instead of quietly rendering cyan."""
+    if not os.path.exists(path):
+        return None
+    data = open(path, "rb").read()
+    if data[:8] != _SIGNATURE:
+        kind = "JPEG" if data[:2] == b"\xff\xd8" else "this format"
+        raise NotImplementedError(
+            f"{path}: decoding {kind} is not ported yet (ROADMAP M20); "
+            "PNG files are read")
+    return _decode_png(data).astype(np.float64) / 255.0
+
+
+def _decode_png(data: bytes) -> np.ndarray:
+    """Minimal stdlib PNG decoder to [h, w, 3] uint8: 8-bit gray / gray +
+    alpha / RGB / RGBA, all five filter types, no interlacing or palette."""
+    pos = 8
+    idat = b""
+    w = h = nchan = None
     while pos < len(data):
         (ln,) = struct.unpack(">I", data[pos:pos + 4])
-        typ, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + ln]
+        typ = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + ln]
         pos += 12 + ln
         if typ == b"IHDR":
-            w, h, depth, color_type = struct.unpack(">IIBB", body[:10])
-            if depth != 8 or color_type != 2:
-                raise ValueError(f"{path}: only 8-bit RGB PNGs are read")
+            w, h, depth, color_type, _comp, _filt, interlace = struct.unpack(
+                ">IIBBBBB", body)
+            if depth != 8 or interlace:
+                raise ValueError("only 8-bit non-interlaced PNG supported")
+            nchan = {0: 1, 2: 3, 4: 2, 6: 4}.get(color_type)
+            if nchan is None:
+                raise ValueError("palette PNG not supported")
         elif typ == b"IDAT":
             idat += body
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
-    if rows[:, 0].any():
-        raise ValueError(f"{path}: filtered PNG rows are not supported")
-    return rows[:, 1:].reshape(h, w, 3).copy()
+        elif typ == b"IEND":
+            break
+    raw = zlib.decompress(idat)
+    stride = w * nchan
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.int64)
+    p = 0
+    for row in range(h):
+        f = raw[p]
+        line = np.frombuffer(raw, np.uint8, stride, p + 1).astype(np.int64)
+        p += 1 + stride
+        # Filters 0 (none), 1 (sub: a per-channel running sum) and 2 (up)
+        # unfilter a row at once; 3 (average) and 4 (Paeth) depend on the
+        # decoded previous pixel, so they walk the pixels.
+        if f == 0:
+            cur = line
+        elif f == 1:
+            cur = np.cumsum(line.reshape(w, nchan), axis=0).reshape(stride) & 0xFF
+        elif f == 2:
+            cur = (line + prev) & 0xFF
+        else:
+            px_line = line.reshape(w, nchan)
+            px_prev = prev.reshape(w, nchan)
+            px_cur = np.zeros((w, nchan), np.int64)
+            a = np.zeros(nchan, np.int64)
+            c = np.zeros(nchan, np.int64)
+            for i in range(w):
+                b = px_prev[i]
+                if f == 3:
+                    x = px_line[i] + (a + b) // 2
+                else:  # Paeth
+                    pp = a + b - c
+                    pa, pb, pc = np.abs(pp - a), np.abs(pp - b), np.abs(pp - c)
+                    pred = np.where((pa <= pb) & (pa <= pc), a,
+                                    np.where(pb <= pc, b, c))
+                    x = px_line[i] + pred
+                a = px_cur[i] = x & 0xFF
+                c = b
+            cur = px_cur.reshape(stride)
+        out[row] = cur
+        prev = cur
+    img = out.reshape(h, w, nchan)
+    if nchan <= 2:
+        return np.repeat(img[..., :1], 3, axis=-1)
+    return img[..., :3].copy()

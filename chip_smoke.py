@@ -40,6 +40,20 @@ PyTorch version:
   5 must equal ``WAVEFRONT_SEGMENTS``), and the two kernels' times
   (``graph_ms``) beside their bounds, with K5's counting build's tallies
   and its time at each block size of ``BLOCKS``;
+* media and meshes (``media_phases``): scenes 7 and 8 and a 5,760-triangle
+  capsule that ``write_capsule`` writes (scene 9 through ``--obj``), through
+  the wavefront with K5 and K4 bit for bit against the same through their
+  plain versions (96x72, spp 2, depth 8; K5's launches by tree and table
+  route: scene 8's rect and sphere trees in shared memory, the mesh's
+  planar tree in device memory); the CLI at 720x540, spp 16, depth 50
+  (scenes 7 and 8 single, the mesh adaptive and single; segments must
+  equal ``MEDIA_SEGMENTS``, and nothing may reach the megakernel or the
+  replay); profiler traces of scene 8 and the mesh at spp 1 (the device's
+  busy share, K5's and K4's shares); K5 on scene 8's first call (388,800
+  camera rays on its rect and sphere trees) bit for bit against its plain
+  version; K5 alone on the mesh's first call (388,800 camera rays on
+  device-memory tables: ``graph_ms``, bound, tallies, blocks); and a
+  lockstep gradient step on scene 7;
 * the megakernel's accel mode (K3): its forward instance against its plain
   version on scene 1, an 81-sphere tree and a dense 6,000-sphere grid, its
   record instance bit-equal to its plain version at the bench size through
@@ -85,11 +99,17 @@ import numpy as np
 FLIP_ABS, FLIP_BUDGET, MEDIAN_MAX = 2e-2, 0.02, 1e-5
 
 W, H, SPP, DEPTH = 720, 540, 100, 50  # README render (serving), scene 1
-TEX_SPP = 16  # scenes 3, 4 and 5 through the CLI
+TEX_SPP = 16  # scenes 3, 4 and 5 through the CLI, and 7, 8 and 9
+MW, MH, MSPP, MDEPTH = 96, 72, 2, 8  # the media and mesh comparison
+GW, GH, GSPP, GDEPTH = 180, 135, 4, 6  # the media gradient step (scene 7)
 # Segments of the CLI renders through the wavefront at W x H, depth DEPTH
 # (scene 1 at SPP with MEGA_FORWARD = False, scenes 3 and 5 at TEX_SPP):
 # K5 and K4 are bit-equal to their plain versions, so these never move.
 WAVEFRONT_SEGMENTS = {1: 120859593, 3: 16145816, 5: 10753141}
+# The same for the media and mesh renders at spp TEX_SPP (the mesh is
+# ``write_capsule``'s).
+MEDIA_SEGMENTS = {"scene 7 single": 28428617, "scene 8 single": 33376402,
+                  "scene 9 adaptive": 1120699, "scene 9 single": 10280559}
 CW, CH, CSPP = 180, 135, 4  # the wavefront comparison
 BW, BH, BSPP, BDEPTH = 360, 270, 16, 8  # bench.py (training)
 TW, TH, TSPP, TDEPTH = 180, 135, 8, 6  # scripts/train_demo.py, chip size
@@ -719,6 +739,53 @@ def bare(run):
 # --------------------------------------------------------------------------
 
 
+def write_capsule(directory, segments=64, rings=45, texels=256):
+    """Write a textured capsule as an .obj, its .mtl and a ``map_Kd`` PNG
+    (a texels x texels checker) into ``directory``; returns the .obj's path.
+
+    A closed surface around the origin along y: radius 0.5, a cylinder of
+    length 1 and two hemispherical caps, ``segments`` quads around and
+    ``rings`` quads from pole to pole, written as quad faces with
+    texcoords (fan triangulation makes two triangles of each; at the poles
+    one of them is degenerate and never hit).  Its stem is not one of the
+    mesh scene's camera presets, so the scene takes the default camera."""
+    import math
+
+    from another_raytracer_tpu_torch.utils import imageio
+
+    cap = (rings - rings // 3) // 2  # quad rings per cap; the rest: cylinder
+    cyl = rings - 2 * cap
+    prof = [(-0.5 + 0.5 * math.sin(a), 0.5 * math.cos(a)) for a in
+            (-math.pi / 2 + math.pi / 2 * k / cap for k in range(cap + 1))]
+    prof += [(-0.5 + k / cyl, 0.5) for k in range(1, cyl + 1)]
+    prof += [(0.5 + 0.5 * math.sin(a), 0.5 * math.cos(a)) for a in
+             (math.pi / 2 * k / cap for k in range(1, cap + 1))]
+    lines = ["mtllib capsule.mtl", "usemtl checker"]
+    for r, (y, rho) in enumerate(prof):
+        for s in range(segments + 1):
+            a = 2.0 * math.pi * s / segments
+            lines.append(f"v {rho * math.cos(a):.7f} {y:.7f} "
+                         f"{rho * math.sin(a):.7f}")
+            lines.append(f"vt {s / segments:.7f} {r / rings:.7f}")
+    row = segments + 1
+    for r in range(rings):
+        for s in range(segments):
+            q = (r * row + s + 1, r * row + s + 2, (r + 1) * row + s + 2,
+                 (r + 1) * row + s + 1)
+            lines.append("f " + " ".join(f"{i}/{i}" for i in q))
+    base = os.path.join(directory, f"capsule_{segments}x{rings}")
+    with open(base + ".obj", "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(os.path.join(directory, "capsule.mtl"), "w") as f:
+        f.write("newmtl checker\nKa 0 0 0\nKd 0.8 0.8 0.8\n"
+                "map_Kd checker.png\n")
+    ij = np.add.outer(np.arange(texels), np.arange(texels)) // (texels // 8)
+    img = np.where((ij % 2)[..., None] == 0, (230, 200, 40), (40, 60, 200))
+    imageio.save_png(os.path.join(directory, "checker.png"),
+                     img.astype(np.uint8))
+    return base + ".obj"
+
+
 def sheet_scene(device):
     """The 128-triangle bumpy sheet of __graft_entry__.py:36-60 in a BVH,
     with a barycentric texture and an image texture of generated texels on
@@ -1029,7 +1096,7 @@ def reset_counts():
     mega_kernel.trace_regenerative_mega.accel_global_launches = 0
     mega_kernel.trace_regenerative_mega.accel_record_global_launches = 0
     mega_diff.replay_backward.launches = 0
-    bvh_kernel.bvh_closest_hit.launches = 0
+    bvh_kernel.bvh_closest_hit.launches.clear()
     perlin_kernel.perlin_noise.launches = 0
     perlin_kernel.perlin_noise.points = 0
 
@@ -1047,13 +1114,14 @@ def counts():
                 K3_record_global=(mega_kernel.trace_regenerative_mega
                                   .accel_record_global_launches),
                 replay=mega_diff.replay_backward.launches,
-                K5=bvh_kernel.bvh_closest_hit.launches,
+                K5=bvh_kernel.bvh_closest_hit.launches.total(),
+                K5_by_tree=dict(bvh_kernel.bvh_closest_hit.launches),
                 K4=perlin_kernel.perlin_noise.launches)
 
 
-def run_cli(scene, width, height, spp, depth, tmp, mode="single"):
-    """The CLI on the card; returns (rc, stdout, image, {kernel: launches in
-    this run})."""
+def run_cli(scene, width, height, spp, depth, tmp, mode="single", obj=None):
+    """The CLI on the card (``obj``: its ``--obj``); returns (rc, stdout,
+    image, {kernel: launches in this run})."""
     from another_raytracer_tpu_torch import cli
     from another_raytracer_tpu_torch.utils import imageio
 
@@ -1064,7 +1132,8 @@ def run_cli(scene, width, height, spp, depth, tmp, mode="single"):
         rc = cli.main(["--scene", str(scene), "--width", str(width),
                        "--height", str(height), "--spp", str(spp),
                        "--max-depth", str(depth), "--mode", mode,
-                       "--device", "cuda", "--out", out])
+                       "--device", "cuda", "--out", out]
+                      + ([] if obj is None else ["--obj", obj]))
     launched = counts()
     return rc, buf.getvalue(), imageio.load_png(out), launched
 
@@ -1114,6 +1183,240 @@ def profile_render(scene, cam_params, spp, dev):
     top = sorted(((nm, ms, c) for nm, (ms, c) in by_name.items()),
                  key=lambda x: -x[1])
     return (wall_ms, busy_ms, sum(c for _, _, c in top), launched, top)
+
+
+def media_phases(dev, mesh_dir):
+    """The media and mesh phases (scenes 7, 8 and 9 through ``--obj``):
+    the wavefront through the kernels against their plain versions, the
+    CLI renders, profiler traces, K5 alone on the mesh's first call and a
+    lockstep gradient step on scene 7.  Returns what the ``kernels`` line
+    reports of them."""
+    import torch
+
+    from another_raytracer_tpu_torch.grad import diff
+    from another_raytracer_tpu_torch.models import library
+    from another_raytracer_tpu_torch.ops import bvh as bvh_ops
+    from another_raytracer_tpu_torch.ops import camera as camera_lib
+    from another_raytracer_tpu_torch.ops import integrator
+    from another_raytracer_tpu_torch.ops import intersect
+    from another_raytracer_tpu_torch.ops import render as render_lib
+    from another_raytracer_tpu_torch.ops.kernels import bvh_kernel
+
+    obj = write_capsule(mesh_dir)
+    scenes = {7: library.cornell_smoke(device=dev),
+              8: library.final_scene(device=dev),
+              9: library.mesh_scene(obj_path=obj, device=dev)}
+    mesh = scenes[9][0]
+    tables = mesh.k5_tables("planar", intersect.PRECOMP_TRI)
+    mesh_route = bvh_kernel.table_route(tables)
+    phase("media_scenes", f"scene 7: {scenes[7][0].n_rects} rects, "
+          f"{scenes[7][0].n_media} media; scene 8: {scenes[8][0].n_rects} "
+          f"rects (tree of {scenes[8][0].n_rect_bvh_nodes} nodes), "
+          f"{scenes[8][0].n_spheres} spheres (tree of "
+          f"{scenes[8][0].n_sph_bvh_nodes} nodes), {scenes[8][0].n_media} "
+          f"media, leaf {scenes[8][0].bvh_leaf_size}; mesh {obj}: "
+          f"{mesh.n_triangles} triangles, {mesh.n_bvh_nodes} nodes, K5 tables "
+          f"{tables.numel() * 4} B (shared-memory limit "
+          f"{bvh_kernel.MAX_SMEM} B), route {mesh_route!r}")
+    if mesh_route != "global" or mesh.n_triangles != 5760:
+        raise AssertionError("the mesh's K5 tables must take the "
+                             "device-memory route")
+
+    def untouched(launched, what):
+        if any(launched[k] for k in ("K1", "K2", "K3", "K3_record",
+                                     "K3_global", "K3_record_global",
+                                     "replay")):
+            raise AssertionError(f"{what} reached the megakernel or the "
+                                 f"replay: {launched}")
+
+    # The wavefront through the kernels against the same through their
+    # plain versions: every other operation is the same, and K5 and K4 are
+    # bit-equal to theirs, so the sums and segments must be equal.
+    wkw = dict(width=MW, height=MH, sample_start=0, n_samples=MSPP,
+               spp_cap=MSPP, samples_per_pass=1, max_depth=MDEPTH, t_min=1e-3)
+    want_trees = {7: set(), 8: {"rect/shared", "sphere/shared"},
+                  9: {"planar/global"}}
+    compare = {}
+    for sid, (sc, cp) in scenes.items():
+        cam = camera_lib.make_camera(aspect_ratio=MW / MH, device=dev, **cp)
+        pix = torch.arange(MW * MH, device=dev)
+        reset_counts()
+        got, got_segs = render_lib.radiance_batch(sc, cam, pix, 7, **wkw)
+        launched = counts()
+        with plain_wavefront():
+            ref, ref_segs = render_lib.radiance_batch(sc, cam, pix, 7, **wkw)
+        torch.cuda.synchronize(dev)
+        equal = (all(torch.equal(a, b) for a, b in zip(got, ref))
+                 and int(got_segs) == int(ref_segs))
+        st = dict(bit_equal=equal, segments=int(got_segs),
+                  max_abs_err=max(float((a - b).abs().max())
+                                  for a, b in zip(got, ref)),
+                  K5=launched["K5"], K5_by_tree=launched["K5_by_tree"],
+                  K4=launched["K4"])
+        untouched(launched, f"scene {sid}")
+        if (not equal or set(launched["K5_by_tree"]) != want_trees[sid]
+                or (launched["K4"] > 0) != (sid == 8)):
+            raise AssertionError(f"scene {sid}: the wavefront through the "
+                                 f"kernels against their plain versions: {st}")
+        compare[sid] = st
+        phase("compare_media", f"scene {sid} {MW}x{MH} spp{MSPP} "
+              f"depth{MDEPTH}: {json.dumps(st)}")
+
+    # The CLI at the README size, spp TEX_SPP: scenes 7 and 8 in single
+    # mode, the mesh in adaptive (the CLI's default) and single mode.
+    renders = {}
+    for sid, mode in ((7, "single"), (8, "single"), (9, "adaptive"),
+                      (9, "single")):
+        with tempfile.TemporaryDirectory() as tmp:
+            rc, out, img, launched = run_cli(sid, W, H, TEX_SPP, DEPTH, tmp,
+                                             mode, obj if sid == 9 else None)
+        wall_ms, mrays, segs = cli_stats(out)
+        untouched(launched, f"the scene-{sid} CLI render")
+        if (rc != 0 or segs != MEDIA_SEGMENTS[f"scene {sid} {mode}"]
+                or img.shape != (H, W, 3) or img.mean() < 2.0
+                or set(launched["K5_by_tree"]) != want_trees[sid]
+                or (launched["K4"] > 0) != (sid == 8)):
+            raise AssertionError(f"main path (scene {sid}, {mode}): rc={rc} "
+                                 f"{launched}, {segs} segments, PNG mean "
+                                 f"{img.mean():.2f}")
+        renders[f"scene {sid} {mode}"] = dict(
+            ms=wall_ms, segments=segs, mrays_per_s=mrays, K5=launched["K5"],
+            K5_by_tree=launched["K5_by_tree"], K4=launched["K4"],
+            png_mean=round(float(img.mean()), 2))
+        phase("main_path_media", f"scene {sid} {W}x{H} spp{TEX_SPP} "
+              f"depth{DEPTH} {mode} (CLI): "
+              f"{json.dumps(renders[f'scene {sid} {mode}'])}")
+
+    # Where the scene-8 and mesh renders' time goes: profiler traces at
+    # spp 1.
+    profiles = {}
+    for sid in (8, 9):
+        wall_ms, busy_ms, n_kern, launched, top = profile_render(
+            scenes[sid][0], scenes[sid][1], 1, dev)
+        k5_ms = sum(ms for nm, ms, _ in top if "bvh_kernel" in nm)
+        k4_ms = sum(ms for nm, ms, _ in top if "perlin_kernel" in nm)
+        profiles[sid] = dict(wall_ms=round(wall_ms, 1),
+                             busy_ms=round(busy_ms, 2),
+                             busy_share=round(busy_ms / wall_ms, 4),
+                             device_ops=n_kern, K5_launches=launched["K5"],
+                             K4_launches=launched["K4"],
+                             K5_ms=round(k5_ms, 3), K4_ms=round(k4_ms, 3),
+                             K5_share=round(k5_ms / busy_ms, 4),
+                             K4_share=round(k4_ms / busy_ms, 4))
+        phase("profile_media", f"scene {sid} {W}x{H} spp1 depth{DEPTH}: "
+              f"{json.dumps(profiles[sid])}; top by device time: "
+              + "; ".join(f"{nm} {ms:.1f} ms / {c}" for nm, ms, c in top[:6]))
+
+    # K5 on scene 8's first call against its plain version: the 388,800
+    # camera rays against the rect tree and the sphere tree (leaf 48), each
+    # in the variant the wavefront gives it at this width.
+    sc8, cp8 = scenes[8]
+    cam = camera_lib.make_camera(aspect_ratio=W / H, device=dev, **cp8)
+    pix, samp = lanes(W, H, dev)
+    o, d, tm = camera_lib.generate_rays(cam, pix, samp, W, H, 0,
+                                        needs_time=sc8.has_motion)
+    sph_fold = (intersect.FOLD_SPH_RECORD and sc8.n_bvh_nodes == 0
+                and sc8.sph_fold_safe and W * H >= intersect.FOLD_SPH_MIN_B)
+    scene8_first = {}
+    for prim, nodes, rows, fold in (
+            ("rect", sc8.rect_bvh_nodes, sc8.rect_bvh_rows, False),
+            ("sphere", sc8.sph_bvh_nodes, sc8.sph_bvh_rows, sph_fold)):
+        case = (f"scene 8's first call, {prim} tree", nodes, rows, list(o),
+                list(d), tm, sc8.bvh_leaf_size, prim)
+        cmp = compare_k5(case, fold, False, False, dev)
+        if not cmp["bit_equal"]:
+            raise AssertionError(f"K5 on scene 8's {prim} tree differs from "
+                                 f"its plain version: {cmp}")
+        scene8_first[prim] = cmp
+        phase("compare_k5_scene8", f"K5 on scene 8's first call ({W * H} "
+              f"camera rays, {prim} tree of {nodes.shape[0]} nodes, leaf "
+              f"{sc8.bvh_leaf_size}): {json.dumps(cmp)}")
+
+    # K5 alone on the mesh's first call: 388,800 camera rays against the
+    # planar tree on device memory, the wavefront's variant (the full fold
+    # on precomputed geometry: the width is above FOLD_RECORD_MIN_B).
+    if W * H < intersect.FOLD_RECORD_MIN_B:
+        raise AssertionError("the timed K5 call is below the fold's gate")
+    cam = camera_lib.make_camera(aspect_ratio=W / H, device=dev,
+                                 **scenes[9][1])
+    pix, samp = lanes(W, H, dev)
+    o, d, tm = camera_lib.generate_rays(cam, pix, samp, W, H, 0)
+    case = ("the mesh's first call", mesh.bvh_packed_nodes,
+            mesh.bvh_packed_tris, list(o), list(d), tm, mesh.bvh_leaf_size,
+            "planar")
+    fold, full, pre = K5_MAIN["planar"]
+    cmp = compare_k5(case, fold, full, pre, dev)
+    if not cmp["bit_equal"]:
+        raise AssertionError(f"K5 on the mesh differs from its plain "
+                             f"version: {cmp}")
+    work = k5_work(case, fold, full, pre, dev)
+    _, slabs, tests, hits, b_ms, b_by = work
+    tl = k5_tallies(case, fold, full, pre, dev, work=work)
+    args, kw = k5_args(case, dev)
+    ms = graph_ms(lambda: bvh_kernel.prepare_launch(
+        *args, t_min=1e-3, fold_record=fold, fold_full=full, precomp=pre,
+        tables=tables, **kw)[0], dev, 20)[0]
+    tmk = kw.pop("time")
+    plain_ms = cuda_ms(lambda: bvh_ops.traverse_packed(
+        *args[:4], tmk, 1e-3, *args[4:], fold_record=fold, fold_full=full,
+        precomp=pre, **kw), dev, 1)[0]
+    kw["time"] = tmk
+    first = dict(rays=W * H, route=mesh_route, table_bytes=tables.numel() * 4,
+                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                 share_of_bound=b_ms / ms, slab_tests=slabs, leaf_tests=tests,
+                 hits=hits, bit_equal=cmp["bit_equal"],
+                 tallies={k: tl[k] for k in ("slab_simt", "leaf_simt",
+                                             "tail_share", "blocks",
+                                             "launch_ms")},
+                 block_ms=k5_shapes(case, fold, full, pre, dev))
+    phase("timing_k5_mesh", f"K5 on the mesh's first call ({W * H} camera "
+          f"rays, {mesh.n_triangles} triangles, planar fold={int(fold)} "
+          f"full={int(full)} precomp={int(pre)}, block {bvh_kernel.BLOCK}): "
+          f"{json.dumps(first)}")
+
+    # One lockstep gradient step on scene 7 with the media densities
+    # trainable: the loss against a render at other densities.
+    smoke, cp = scenes[7]
+    cam = camera_lib.make_camera(aspect_ratio=GW / GH, device=dev, **cp)
+    gkw = dict(width=GW, height=GH, spp=GSPP, samples_per_pass=1,
+               max_depth=GDEPTH, t_min=1e-3)
+    with torch.no_grad():
+        acc, _ = render_lib.render_radiance(smoke.replace(
+            med_neg_inv_density=smoke.med_neg_inv_density * 0.5), cam, 1,
+            **gkw)
+    target = torch.stack(tuple(acc), -1) / GSPP
+    params = {"med_neg_inv_density": smoke.med_neg_inv_density}
+    calls = []
+    real = integrator.trace
+    integrator.trace = lambda *a, **k: calls.append(1) or real(*a, **k)
+    try:
+        reset_counts()
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        loss, grads = diff.render_value_and_grad(params, smoke, cam, target, 1,
+                                                 **gkw)
+        torch.cuda.synchronize(dev)
+        step_ms = (time.perf_counter() - t) * 1e3
+        launched = counts()
+    finally:
+        integrator.trace = real
+    # The media's albedos are solid colours and their scatter directions do
+    # not depend on the scatter point, so the radiance is piecewise constant
+    # in the densities: the gradient is finite and zero, as JAX's.
+    g = grads["med_neg_inv_density"]
+    untouched(launched, "the media gradient step")
+    if (not calls or not bool(torch.isfinite(loss)) or g.device != loss.device
+            or g.device.type != "cuda" or not bool(torch.isfinite(g).all())):
+        raise AssertionError(f"media gradient step: loss {loss}, gradient "
+                             f"{g}, lockstep calls {len(calls)}")
+    grad = dict(ms=round(step_ms, 1), loss=float(loss),
+                gradient=[float(x) for x in g])
+    phase("media_gradient", f"scene 7 {GW}x{GH} spp{GSPP} depth{GDEPTH}, "
+          f"med_neg_inv_density trainable, lockstep on the card: "
+          f"{json.dumps(grad)}")
+    return dict(compare=compare, renders=renders, profiles=profiles,
+                scene8_first_call=scene8_first, mesh_first_call=first,
+                gradient=grad)
 
 
 def kernel_entries(log):
@@ -1543,7 +1846,7 @@ def main() -> int:
               f"{json.dumps(st)}")
 
     # 13. The wavefront's BVH path: scene 1 through the CLI at the README
-    # size with MEGA_FORWARD = False (its auto route is K3, section 16): the
+    # size with MEGA_FORWARD = False (its auto route is K3, section 17): the
     # forward gate's measurement of the wavefront + K5.
     with tempfile.TemporaryDirectory() as tmp, mega_forward(False):
         rc, out, img, launched = run_cli(1, W, H, SPP, DEPTH, tmp)
@@ -1725,7 +2028,22 @@ def main() -> int:
           f"{k4_launches} launches of {k4_points} points in scenes 3, 4 and "
           f"5's renders")
 
-    # 16. The megakernel's accel mode (K3).  Its forward instance against
+    # 16. Media and meshes: scenes 7 and 8, and scene 9 through --obj on a
+    # 5,760-triangle capsule that this script writes.  Their forward renders
+    # take the wavefront (the megakernel refuses media and triangles): K5
+    # on scene 8's rect and sphere trees (tables in shared memory) and on
+    # the mesh's planar tree (device memory), K4 on scene 8's marble
+    # sphere; scene 7 has no tree and no noise.  Gradients take the
+    # lockstep autograd path.
+    mesh_dir = tempfile.mkdtemp()
+    try:
+        media = media_phases(dev, mesh_dir)
+    finally:
+        import shutil
+
+        shutil.rmtree(mesh_dir, ignore_errors=True)
+
+    # 17. The megakernel's accel mode (K3).  Its forward instance against
     # its plain version on scene 1 and the 81-sphere tree.
     k3_cmp = {}
     for name, (sc, cp), counter in [
@@ -2065,13 +2383,24 @@ def main() -> int:
          "route": "cuda", "source": SRC + "bvh_kernel.cu",
          "replaces": JAX_PALLAS + "bvh_kernel.py:537",
          "launches": k5_launches,
-         "max_abs_err": max(st["max_abs_err_t"] for st in k5_stats),
+         "max_abs_err": max(st["max_abs_err_t"] for st in
+                            k5_stats + list(
+                                media["scene8_first_call"].values())),
          "ms": k5_ms, "plain_ms": k5_plain_ms,
          "bound_ms": k5_bound_ms, "bound_by": k5_bound_by, "library_ms": None,
          "event_ms": k5_event_ms, "variant_ms": k5_times,
          "block": bvh_kernel.BLOCK,
          "cases": k5_cases_ms, "trace_ms_scene1_spp1": k5_trace_ms,
-         "comparison": k5_verdict},
+         "comparison": k5_verdict,
+         "media_and_meshes": {
+             "launches_per_render": {k: v["K5_by_tree"]
+                                     for k, v in media["renders"].items()},
+             "bit_equal_wavefront": {k: v["bit_equal"]
+                                     for k, v in media["compare"].items()},
+             "scene8_first_call": media["scene8_first_call"],
+             "mesh_first_call": media["mesh_first_call"],
+             "device_share_spp1": {k: v["K5_share"]
+                                   for k, v in media["profiles"].items()}}},
         {"name": "perlin_kernel (K4, Perlin noise)",
          "route": "cuda", "source": SRC + "perlin_kernel.cu",
          "replaces": JAX_PALLAS + "perlin_kernel.py:136",
@@ -2082,7 +2411,9 @@ def main() -> int:
          "mean_width_ms": k4_width_ms,
          "mean_width_bound_ms": k4_width_bound_ms,
          "one_block_ms": k4_floor_ms,
-         "segments": tex_segments},
+         "segments": tex_segments,
+         "launches_scene8": media["renders"]["scene 8 single"]["K4"],
+         "device_share_scene8_spp1": media["profiles"][8]["K4_share"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

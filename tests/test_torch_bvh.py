@@ -369,7 +369,7 @@ def test_closest_hit_and_record_match_jax(name):
     jt, jk, ji = jix.closest_hit(ref, _jv3(o), _jv3(d), jnp.asarray(t),
                                  jnp.zeros((B, 0)), 1e-3)
     tt, tk, ti = tix.closest_hit(port, _tv3(o), _tv3(d), torch.from_numpy(t),
-                                 1e-3)
+                                 torch.zeros((B, 0)), 1e-3)
     np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     hit = np.asarray(jk) >= 0
@@ -407,7 +407,8 @@ def test_folded_record_matches_jax(monkeypatch, name):
     (jt, jk, ji), jaux = jix.closest_hit(ref, _jv3(o), _jv3(d), jnp.asarray(t),
                                          jnp.zeros((B, 0)), 1e-3, want_aux=True)
     (tt, tk, ti), taux = tix.closest_hit(port, _tv3(o), _tv3(d),
-                                         torch.from_numpy(t), 1e-3,
+                                         torch.from_numpy(t),
+                                         torch.zeros((B, 0)), 1e-3,
                                          want_aux=True)
     assert taux[0] == jaux[0] == ("planar" if name == "sheet" else "sphere")
     np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))

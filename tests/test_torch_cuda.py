@@ -18,7 +18,7 @@ from another_raytracer_tpu_torch.models import bvh as bvh_lib
 from another_raytracer_tpu_torch.models import library
 from another_raytracer_tpu_torch.models.scene import SceneBuilder
 from another_raytracer_tpu_torch.ops import bvh as bvh_ops
-from another_raytracer_tpu_torch.ops import camera, rng, shade, vec3
+from another_raytracer_tpu_torch.ops import camera, render, rng, shade, vec3
 from another_raytracer_tpu_torch.ops.kernels import (bvh_kernel, mega_diff,
                                                      mega_kernel, perlin_kernel)
 from another_raytracer_tpu_torch.utils import imageio
@@ -387,9 +387,9 @@ def test_bvh_kernel_matches_plain(prim, fold, full, pre, route, dev):
                                              k: v for k, v in kw.items()
                                              if k != "time"}))
     if route == "shared":
-        before = bvh_kernel.bvh_closest_hit.launches
+        before = bvh_kernel.bvh_closest_hit.launches.total()
         got = _flat(bvh_kernel.bvh_closest_hit(*args, **kw))
-        assert bvh_kernel.bvh_closest_hit.launches == before + 1
+        assert bvh_kernel.bvh_closest_hit.launches.total() == before + 1
         assert all(torch.equal(a, b) for a, b in zip(got, want))
     got = _launch_flat(args, kw, t_min=1e-3, route=route)
     assert len(got) == len(want)
@@ -406,9 +406,9 @@ def test_bvh_kernel_at_edge_widths(n, dev):
     want = _flat(bvh_ops.traverse_packed(
         *args[:4], kw["time"], 1e-3, *args[4:],
         **{k: v for k, v in kw.items() if k != "time"}))
-    before = bvh_kernel.bvh_closest_hit.launches
+    before = bvh_kernel.bvh_closest_hit.launches.total()
     got = _flat(bvh_kernel.bvh_closest_hit(*args, **kw))
-    assert bvh_kernel.bvh_closest_hit.launches == before + (n > 0)
+    assert bvh_kernel.bvh_closest_hit.launches.total() == before + (n > 0)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     for route in ("shared", "global"):
         got = _launch_flat(args, kw, t_min=1e-3, route=route, block=64)
@@ -638,3 +638,108 @@ def test_cli_renders_scene1_adaptive(dev, tmp_path):
     assert mega_kernel.trace_regenerative_mega.accel_launches > before
     img = imageio.load_png(out)
     assert img.shape == (72, 96, 3) and img.mean() > 5.0
+
+
+# --------------------------------------------------------------------------
+# Media and meshes: scenes 7-9 through the wavefront and lockstep paths
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def capsule_obj(tmp_path_factory):
+    """The 5,760-triangle capsule of chip_smoke.py (64 x 45 quads)."""
+    return chip_smoke.write_capsule(str(tmp_path_factory.mktemp("mesh")))
+
+
+def test_bvh_kernel_on_a_mesh_takes_device_memory(capsule_obj, dev):
+    """K5 on the planar tree of a >= 5,000-triangle mesh: its tables do not
+    fit shared memory, so the wrapper launches the device-memory walk, bit
+    for bit its plain version, in every planar variant."""
+    scene, params = library.mesh_scene(obj_path=capsule_obj, device=dev)
+    assert scene.n_triangles == 5760 and scene.tri_in_bvh
+    cam = camera.make_camera(aspect_ratio=W / H, device=dev, **params)
+    pix = torch.arange(W * H, device=dev)
+    o, d, tm = camera.generate_rays(cam, pix, torch.zeros_like(pix), W, H, 0)
+    n = W * H
+    args = (scene.bvh_packed_nodes, scene.bvh_packed_tris, o, d,
+            torch.full((n,), 3e37, device=dev),
+            torch.zeros(n, dtype=torch.int32, device=dev))
+    for fold, full, pre in chip_smoke.K5_VARIANTS["planar"]:
+        kw = dict(leaf_size=scene.bvh_leaf_size, prim="planar", time=tm,
+                  fold_record=fold, fold_full=full, precomp=pre)
+        tables = scene.k5_tables("planar", pre)
+        assert bvh_kernel.table_route(tables) == "global"
+        before = bvh_kernel.bvh_closest_hit.launches.copy()
+        got = _flat(bvh_kernel.bvh_closest_hit(*args, tables=tables, **kw))
+        after = bvh_kernel.bvh_closest_hit.launches
+        assert after - before == {"planar/global": 1}
+        want = _flat(bvh_ops.traverse_packed(
+            *args[:4], tm, 1e-3, *args[4:],
+            **{k: v for k, v in kw.items() if k != "time"}))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert 0 < int(want[2].sum()) < n
+
+
+def _media_scenes(obj):
+    return {"cornell_smoke": library.cornell_smoke,
+            "final_scene": library.final_scene,
+            "mesh": lambda device: library.mesh_scene(obj_path=obj,
+                                                      device=device)}
+
+
+@pytest.mark.parametrize("name", ["cornell_smoke", "final_scene", "mesh"])
+def test_media_wavefront_matches_plain(name, capsule_obj, dev):
+    """The wavefront of scenes 7, 8 and a mesh through K5 and K4, bit-equal
+    to the same through their plain versions (every other operation is the
+    same); the megakernel launches nothing."""
+    scene, params = _media_scenes(capsule_obj)[name](device=dev)
+    cam = camera.make_camera(aspect_ratio=W / H, device=dev, **params)
+    kw = dict(width=W, height=H, sample_start=0, n_samples=2, spp_cap=2,
+              samples_per_pass=1, max_depth=8, t_min=1e-3)
+    pix = torch.arange(W * H, device=dev)
+    chip_smoke.reset_counts()
+    got, got_segs = render.radiance_batch(scene, cam, pix, 5, **kw)
+    launched = chip_smoke.counts()
+    with chip_smoke.plain_wavefront():
+        want, want_segs = render.radiance_batch(scene, cam, pix, 5, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert int(got_segs) == int(want_segs) > W * H
+    assert launched["K1"] == launched["K3"] == launched["K3_global"] == 0
+    trees = {"cornell_smoke": set(), "final_scene": {"rect/shared",
+                                                     "sphere/shared"},
+             "mesh": {"planar/global"}}[name]
+    assert set(launched["K5_by_tree"]) == trees
+    assert (launched["K4"] > 0) == (name == "final_scene")
+
+
+def test_media_gradient_is_finite_on_the_card(dev):
+    """A lockstep gradient step on scene 7 with the media densities
+    trainable (media never take the fused path).  Its media have solid
+    albedos, so the radiance is piecewise constant in the densities and the
+    gradient is zero, as in the JAX package; a noise-textured medium's is
+    not."""
+    scene, params = library.cornell_smoke(device=dev)
+    cam = camera.make_camera(aspect_ratio=W / H, device=dev, **params)
+    target = torch.full((W * H, 3), 0.2, device=dev)
+    before = mega_diff.replay_backward.launches
+    loss, grads = diff.render_value_and_grad(
+        {"med_neg_inv_density": scene.med_neg_inv_density}, scene, cam,
+        target, 1, width=W, height=H, spp=2, samples_per_pass=1, max_depth=6,
+        t_min=1e-3)
+    g = grads["med_neg_inv_density"]
+    assert g.device.type == "cuda" and bool(torch.isfinite(loss))
+    assert bool(torch.isfinite(g).all())
+    assert mega_diff.replay_backward.launches == before
+    b = SceneBuilder(background=(0.0, 0.0, 0.0), seed=12)
+    b.xz_rect(-30, 30, -30, 30, 6, b.diffuse_light(color=(2, 2, 2)))
+    b.constant_medium_box((-3, -2, -6), (3, 2, -2), 0.4,
+                          texture=b.noise_texture(1.3))
+    noisy = b.build(device=dev)
+    cam = camera.make_camera(aspect_ratio=W / H, device=dev, lookfrom=(0, 0.3, 2),
+                             lookat=(0, 0, -4), vfov=50.0)
+    _, grads = diff.render_value_and_grad(
+        {"med_neg_inv_density": noisy.med_neg_inv_density}, noisy, cam,
+        target, 1, width=W, height=H, spp=2, samples_per_pass=1, max_depth=4,
+        t_min=1e-3)
+    g = grads["med_neg_inv_density"]
+    assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0

@@ -183,7 +183,8 @@ def test_closest_hit_and_record_match_jax(name):
     (ref, port), (o, d, t), _ = _rays(name)
     jt, jk, ji = jix.closest_hit(ref, _jv(o), _jv(d), jnp.asarray(t),
                                  jnp.zeros((B, 0)), 1e-3)
-    tt, tk, ti = tix.closest_hit(port, _tv(o), _tv(d), torch.from_numpy(t), 1e-3)
+    tt, tk, ti = tix.closest_hit(port, _tv(o), _tv(d), torch.from_numpy(t),
+                                 torch.zeros((B, 0)), 1e-3)
     same = (tk.numpy() == np.asarray(jk)) & (ti.numpy() == np.asarray(ji))
     assert same.mean() >= 0.99, same.mean()
     assert (tk >= 0).any() and (tk < 0).any() or name == "cornell"
@@ -281,7 +282,7 @@ def test_geometry_gradient_matches_jax(name, leaf):
     want = np.asarray(jax.grad(jrecord_loss)(getattr(ref, leaf)))
     with torch.no_grad():
         tt, tk, ti = tix.closest_hit(port, _tv(o), _tv(d), torch.from_numpy(t),
-                                     1e-3)
+                                     torch.zeros((B, 0)), 1e-3)
     x = getattr(port, leaf).clone().requires_grad_(True)
     rec = tix.make_hit_record(port.replace(**{leaf: x}), _tv(o), _tv(d),
                               torch.from_numpy(t), tt, tk, ti)
@@ -321,12 +322,31 @@ def test_geometry_gradient_matches_jax(name, leaf):
 
 
 def test_trace_refuses_unported_kinds():
+    """Every primitive kind is traced now: triangles (since the BVH slice)
+    and media (the refusal this test held until media were ported) trace
+    as in the JAX package, radiance and segments equal to its eager
+    evaluation on the same rays."""
     b = JBuilder(seed=1)
     b.triangle((0, 0, -2), (1, 0, -2), (0, 1, -2), b.lambertian(color=(1, 0, 0)))
-    tri = tscene.scene_from_reference(b.build(), device="cpu")
-    b = JBuilder(seed=1)
-    b.constant_medium_sphere((0, 0, -2), 1.0, 0.5, color=(1, 1, 1))
-    med = tscene.scene_from_reference(b.build(), device="cpu")
-    tint.check_supported(tri)  # triangles are traced since the BVH slice
-    with pytest.raises(NotImplementedError, match="M15"):
-        tint.check_supported(med)
+    tri = b.build()
+    b = JBuilder(background=(0.7, 0.8, 1.0), seed=1)
+    b.constant_medium_sphere((0, 0, -2), 1.0, 0.5, color=(0.9, 0.9, 0.9))
+    med = b.build()
+    n = W * H
+    pix, samp = np.arange(n), np.zeros(n, np.int64)
+    for ref in (tri, med):
+        port = tscene.scene_from_reference(ref, device="cpu")
+        params = dict(lookfrom=(0, 0, 1), lookat=(0, 0, -2), vfov=60.0)
+        cam = tcam.make_camera(aspect_ratio=W / H, device="cpu", **params)
+        o, d, t = tcam.generate_rays(cam, torch.from_numpy(pix),
+                                     torch.from_numpy(samp), W, H, 2)
+        with jax.disable_jit():
+            want, wsegs = jint.trace(
+                ref, _jv(tv.to_numpy(o).T), _jv(tv.to_numpy(d).T),
+                jnp.asarray(t.numpy()), jnp.asarray(pix, jnp.uint32),
+                jnp.asarray(samp, jnp.uint32), jnp.uint32(2), 3, 1e-3,
+                differentiable=True)
+        got, gsegs = tint.trace(port, o, d, t, torch.from_numpy(pix),
+                                torch.from_numpy(samp), 2, 3, 1e-3)
+        assert int(gsegs) == int(wsegs) > n
+        _close(tv.to_numpy(got), jv.to_numpy(want), rtol=1e-5, atol=1e-6)

@@ -80,7 +80,7 @@ def test_converters_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
-def test_builder_refuses_unported():
+def test_builder_refuses_unported(monkeypatch):
     # 64 spheres reach the sphere-BVH threshold: the builder packs a tree.
     b = tscene.SceneBuilder()
     m = b.lambertian(color=(0.5, 0.5, 0.5))
@@ -88,9 +88,14 @@ def test_builder_refuses_unported():
         b.sphere((i, 0, 0), 0.4, m)
     scene = b.build(device="cpu")
     assert scene.sph_in_bvh and scene.n_sph_bvh_nodes > 0 and scene.has_accel
-    for alias, item in ((7, "M15"), (8, "M15"), (9, "M17")):
-        with pytest.raises(NotImplementedError, match=item):
-            tlib.build(alias, device="cpu")
+    # Every alias builds now (7 and 8 raised NotImplementedError naming
+    # M15 before media were ported, 9 named M17); scene 9 without a mesh
+    # and with no asset raises FileNotFoundError, as in the JAX package.
+    for alias in (7, 8):
+        assert tlib.build(alias, device="cpu")[0].n_media == 2
+    monkeypatch.delenv("ARTPU_ASSETS", raising=False)
+    with pytest.raises(FileNotFoundError):
+        tlib.build(9, device="cpu")
     with pytest.raises(ValueError, match="unknown scene"):
         tlib.build(12)
 
