@@ -17,8 +17,15 @@ the reference's module names so each counterpart is easy to find:
                                 record (K2) instances, and its plain version;
   * ``ops.kernels.mega_diff`` — the fused differentiable path: K2 + the
                                 replay kernel (CUDA) and its plain version;
-  * ``ops.render``            — single-mode render driver;
-  * ``grad.diff``             — render_loss, gradients, the adam train step;
+  * ``ops.render``, ``ops.adaptive`` — the single and adaptive modes;
+  * ``parallel.sharding``, ``parallel.multihost`` — the stripes and images
+                                modes over a device partition, and across
+                                processes (``torch.distributed``);
+  * ``grad.diff``             — render_loss, gradients, the adam train step
+                                (also over a partition);
+  * ``utils``                 — image IO, the native host library (.obj
+                                parser, JPEG), preview / checkpoint, the
+                                live viewer, profiling;
   * ``cli``, ``bench``        — the command-line renderer and the bench.
 
 Every function that builds tensors takes an explicit ``device``; there is no

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import json
 import sys
+import tempfile
 import time
 
 import torch
@@ -31,26 +32,20 @@ from another_raytracer_tpu_torch.grad import diff
 from another_raytracer_tpu_torch.models import library
 from another_raytracer_tpu_torch.ops import camera as camera_lib
 from another_raytracer_tpu_torch.ops import render as render_lib
+from another_raytracer_tpu_torch.utils import profiling
 
 WIDTH, HEIGHT, SPP, MAX_DEPTH = 360, 270, 16, 8  # bench.py's workload
 WARMUP, ITERS, PROFILED = 2, 20, 5
 
 
 def _device_ms(step, n):
-    """Device busy ms per call of ``step``, from a profiler trace of n calls."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=activities) as prof:
-        for _ in range(n):
-            step()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    if us <= 0:
-        raise RuntimeError("the profiler recorded no device activity")
-    return us / 1e3 / n
+    """Device busy ms per call of ``step``, from a profiler trace of n calls
+    (``utils.profiling``)."""
+    with tempfile.TemporaryDirectory() as log_dir:
+        with profiling.trace(log_dir):
+            for _ in range(n):
+                step()
+        return profiling.device_seconds(log_dir) * 1e3 / n
 
 
 def run(device) -> dict:

@@ -5,18 +5,18 @@
         --out output.png
 
 The flags and defaults are the JAX CLI's (``--scene 9 --mode adaptive``)
-plus ``--device``.  Every scene renders in modes ``single`` and
-``adaptive``: 2 and 6 through the megakernel's sweep mode, 1 through its
-accel mode, 3, 4, 5, 7, 8 and 9 through the wavefront with the BVH and
-Perlin kernels.  Scene 9 renders ``--obj`` or the capsule asset.  The flags
-named in ``_UNPORTED_FLAGS`` and the parallel modes (ROADMAP M18) fail.
+plus ``--device``.  Every scene renders in every mode: 2 and 6 through the
+megakernel's sweep mode, 1 through its accel mode, 3, 4, 5, 7, 8 and 9
+through the wavefront with the BVH and Perlin kernels.  Scene 9 renders
+``--obj`` or the capsule asset.  The parallel modes split the render over
+every visible CUDA device (``--device cuda``) or run on the one device
+named.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
-import time
 
 import torch
 
@@ -24,23 +24,14 @@ from another_raytracer_tpu_torch.config import RenderConfig, RenderMode
 from another_raytracer_tpu_torch.models import library
 from another_raytracer_tpu_torch.ops import camera as camera_lib
 from another_raytracer_tpu_torch.ops import render as render_lib
-from another_raytracer_tpu_torch.utils import imageio
+from another_raytracer_tpu_torch.utils import imageio, profiling
 
-# Flags accepted for parity with the JAX CLI but not ported yet.
-_UNPORTED_FLAGS = {
-    "preview": "ROADMAP M20 (progress preview)",
-    "checkpoint": "ROADMAP M20 (checkpoint / resume)",
-    "profile_dir": "ROADMAP M20 (profiling)",
-    "live": "ROADMAP M20 (live view)",
-    "view": "ROADMAP M20 (live view)",
-}
+_PARALLEL = (RenderMode.PARALLEL_STRIPES, RenderMode.PARALLEL_IMAGES)
 
 
 def main(argv=None):
-    p = argparse.ArgumentParser(
-        description="PyTorch/CUDA port of the path tracer.  The parallel "
-                    "modes and --preview, --checkpoint, --profile-dir, "
-                    "--live, --view fail until ported (ROADMAP.md).")
+    p = argparse.ArgumentParser(description="PyTorch/CUDA port of the path "
+                                            "tracer")
     p.add_argument("--scene", type=int, default=9,
                    help="scene alias 1..9 (default 9 = mesh, matching "
                         "main.cpp:20)")
@@ -52,41 +43,49 @@ def main(argv=None):
     p.add_argument("--mode", choices=[m.value for m in RenderMode],
                    default=RenderMode.ADAPTIVE.value,
                    help="render mode (default adaptive, matching main.cpp:44; "
-                        "it needs 12 | width and height; 'parallel_stripes' "
-                        "and 'parallel_images' are not ported yet)")
+                        "it needs 12 | width and height)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default="output.png")
     p.add_argument("--scene-seed", type=int, default=1234)
     p.add_argument("--device", default="cuda",
-                   help="torch device to render on (default cuda; 'cpu' runs "
-                        "the kernels' plain PyTorch versions)")
+                   help="torch device to render on (default cuda: the card, "
+                        "and every visible card in the parallel modes; "
+                        "'cpu' runs the kernels' plain PyTorch versions)")
     p.add_argument("--obj", default=None, metavar="PATH",
                    help="mesh scene (9): render this .obj instead of the "
                         "capsule (e.g. the reference's models/cow.obj or "
                         "models/dino.obj; ressources.h.in:7-9)")
     p.add_argument("--preview", default=None, metavar="PNG",
-                   help="live progress snapshot PNG (not ported yet)")
+                   help="write a live progress snapshot PNG between passes "
+                        "(headless equivalent of the reference's dynamic_gui)")
     p.add_argument("--checkpoint", default=None, metavar="FILE",
-                   help="persist/resume render state (not ported yet)")
+                   help="persist/resume render state (exact resume via "
+                        "counter-based RNG; --mode single)")
     p.add_argument("--profile-dir", default=None,
-                   help="profiler trace of the render (not ported yet)")
+                   help="write a torch.profiler trace of the render")
     p.add_argument("--live", type=int, default=None, metavar="PORT", nargs="?",
-                   const=0, help="live HTTP progress view (not ported yet)")
+                   const=0,
+                   help="serve a live progress view over HTTP while rendering "
+                        "(0/omitted value = pick a free port; analog of the "
+                        "reference's dynamic_gui window, gui.cpp:25-58)")
     p.add_argument("--view", action="store_true",
-                   help="serve the final frame over HTTP (not ported yet)")
+                   help="after rendering, keep serving the final frame over "
+                        "HTTP until ^C (analog of the blocking gui::display, "
+                        "gui.cpp:13-23 / main.cpp:55)")
     args = p.parse_args(argv)
 
-    for flag, item in _UNPORTED_FLAGS.items():
-        value = getattr(args, flag)
-        if value is not None and value is not False:  # --live gives 0
-            p.error(f"--{flag.replace('_', '-')} is not ported yet ({item})")
     mode = RenderMode(args.mode)
-    if mode in (RenderMode.PARALLEL_STRIPES, RenderMode.PARALLEL_IMAGES):
-        p.error(f"--mode {mode.value} is not ported yet (ROADMAP M18); use "
-                "--mode single or adaptive")
     if mode == RenderMode.ADAPTIVE and (args.width % 12 or args.height % 12):
         p.error("--mode adaptive needs a width and a height divisible by 12 "
                 "(the adaptive mode's 12x12 squares)")
+    sinks = args.preview or args.checkpoint or args.live is not None
+    if args.checkpoint and mode != RenderMode.SINGLE:
+        p.error(f"--checkpoint requires --mode single (mode {mode.value} has "
+                "no pass-resume stream)")
+    if sinks and mode in _PARALLEL:
+        p.error(f"--mode {mode.value} renders in one call and cannot stream "
+                "progress; use --mode single or adaptive with "
+                "--preview/--live")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -98,31 +97,76 @@ def main(argv=None):
         max_depth=args.max_depth, seed=args.seed,
         samples_per_pass=args.samples_per_pass, mode=mode,
     )
-    try:
-        if args.obj is not None and args.scene == library.SceneAlias.MESH:
-            scene, cam_params = library.mesh_scene(
-                seed=args.scene_seed, obj_path=args.obj, device=device)
-        else:
-            scene, cam_params = library.build(args.scene, seed=args.scene_seed,
-                                              device=device)
-    except NotImplementedError as e:
-        p.error(str(e))
+    if args.obj is not None and args.scene == library.SceneAlias.MESH:
+        scene, cam_params = library.mesh_scene(
+            seed=args.scene_seed, obj_path=args.obj, device=device)
+    else:
+        scene, cam_params = library.build(args.scene, seed=args.scene_seed,
+                                          device=device)
     cam = camera_lib.make_camera(aspect_ratio=cfg.aspect_ratio, device=device,
                                  **cam_params)
+    partition = None
+    if mode in _PARALLEL:
+        from another_raytracer_tpu_torch.parallel import sharding
+
+        # "cuda" alone: every visible card; a named device: that one.
+        devices = (None if device.type == "cuda" and device.index is None
+                   else [device])
+        partition = sharding.default_partition(mode, devices)
 
     print(f"rendering scene {args.scene} at {cfg.width}x{cfg.height} "
           f"spp={cfg.samples_per_pixel} depth={cfg.max_depth} "
-          f"mode={cfg.mode.value} device={device}")
-    t0 = time.perf_counter()
-    img, stats = render_lib.render(scene, cam, cfg)  # returns on the host
-    elapsed = time.perf_counter() - t0
-    segments = stats["segments"]
-    # Honest rays/s: traced ray segments including bounces (the wall time
-    # includes the kernel build on a first run).
-    print(f"finished in {elapsed*1000:.0f} ms "
-          f"({segments/elapsed/1e6:.2f} Mrays/s, {segments} segments)")
-    imageio.save_png(args.out, img)
-    print(f"wrote {args.out}")
+          f"mode={cfg.mode.value} device={device}"
+          + (f" partition={partition.shape}" if partition else ""))
+
+    viewer = None
+    if args.live is not None or args.view:
+        from another_raytracer_tpu_torch.utils.liveview import LiveViewer
+
+        viewer = LiveViewer(port=args.live or 0)
+        viewer.start()
+        print(f"live view at {viewer.url}")
+
+    def do_render():
+        """The mode stays what --mode says: adaptive with a sink streams its
+        work frame per level, single with a sink takes the progressive loop
+        (which also checkpoints)."""
+        if not sinks:
+            return render_lib.render(scene, cam, cfg, partition=partition)
+        from another_raytracer_tpu_torch.utils import preview as preview_lib
+
+        prev = (preview_lib.ProgressivePreview(
+                    args.preview, cfg.width, cfg.height, viewer=viewer)
+                if args.preview or args.live is not None else None)
+        if mode == RenderMode.SINGLE:
+            ckpt = (preview_lib.RenderCheckpoint(args.checkpoint)
+                    if args.checkpoint else None)
+            return preview_lib.render_progressive(scene, cam, cfg, prev, ckpt)
+        return render_lib.render(scene, cam, cfg, progress=prev)
+
+    try:
+        with profiling.timed("render", sink=None) as timing:
+            if args.profile_dir:
+                with profiling.trace(args.profile_dir):
+                    img, stats = do_render()  # returns on the host
+            else:
+                img, stats = do_render()
+        # Honest rays/s: traced ray segments including bounces (the wall
+        # time includes the kernel build on a first run).
+        rays = profiling.RayStats()
+        rays.add(stats["segments"], timing.seconds)
+        print(f"finished in {rays.seconds*1000:.0f} ms "
+              f"({rays.mrays_per_s:.2f} Mrays/s, {rays.segments} segments)")
+        imageio.save_png(args.out, img)
+        print(f"wrote {args.out}")
+        if viewer is not None:
+            viewer.update(img, cfg.samples_per_pixel)
+            if args.view:
+                print(f"serving final frame at {viewer.url} (^C to exit)")
+                viewer.serve_forever()
+    finally:
+        if viewer is not None:
+            viewer.stop()
     return 0
 
 

@@ -24,8 +24,8 @@ class RenderMode(enum.Enum):
     * ``ADAPTIVE``        — hierarchical adaptive subsampling: corner pixels of
       12->6->3 square tiles are path traced and flat tiles are interpolated.
 
-    The port renders ``SINGLE`` and ``ADAPTIVE`` (one device); the parallel
-    modes raise NotImplementedError (ROADMAP M18).
+    The parallel modes split over a device partition
+    (``parallel/sharding.py``).
     """
 
     SINGLE = "single"

@@ -45,17 +45,31 @@ def merge_params(scene, params):
 
 
 def render_loss(params, scene, cam, target, seed, *, width, height, spp,
-                samples_per_pass, max_depth, t_min):
+                samples_per_pass, max_depth, t_min, partition=None):
     """L2 loss between the rendered radiance mean and a target image
-    (linear radiance, [H*W, 3] on the scene's device)."""
+    (linear radiance, [H*W, 3] on the scene's device).
+
+    ``partition`` (``parallel/sharding.Partition``): the sharded step of
+    the JAX package's ``dryrun_multichip`` — the scanline pixels in
+    contiguous chunks over ``tile``, the samples over ``spp``, the shards'
+    sums reduced before the loss (its psums).  A ``tile``-only partition
+    keeps the fused path on each shard (K2 + the replay) where the chunks
+    need no padding; an ``spp`` split takes the lockstep path, as in JAX."""
     s = merge_params(scene, params)
-    acc, _ = render_lib.radiance_batch(
-        s, cam, torch.arange(width * height, dtype=torch.int64,
-                             device=s.device), seed,
-        width=width, height=height, sample_start=0, n_samples=spp,
-        spp_cap=spp, samples_per_pass=samples_per_pass, max_depth=max_depth,
-        t_min=t_min, differentiable=True, trainable=tuple(sorted(params)),
-    )
+    pixel_ids = torch.arange(width * height, dtype=torch.int64,
+                             device=s.device)
+    kw = dict(width=width, height=height, samples_per_pass=samples_per_pass,
+              max_depth=max_depth, t_min=t_min, differentiable=True,
+              trainable=tuple(sorted(params)))
+    if partition is None:
+        acc, _ = render_lib.radiance_batch(
+            s, cam, pixel_ids, seed, sample_start=0, n_samples=spp,
+            spp_cap=spp, **kw)
+    else:
+        from another_raytracer_tpu_torch.parallel import sharding
+
+        acc, _ = sharding.radiance_pixels(s, cam, pixel_ids, seed,
+                                          partition=partition, spp=spp, **kw)
     inv = 1.0 / spp
     return (
         torch.mean((acc.x * inv - target[:, 0]) ** 2)
@@ -65,7 +79,8 @@ def render_loss(params, scene, cam, target, seed, *, width, height, spp,
 
 
 def render_value_and_grad(params, scene, cam, target, seed, *, width, height,
-                          spp, samples_per_pass, max_depth, t_min):
+                          spp, samples_per_pass, max_depth, t_min,
+                          partition=None):
     """(loss, grads dict): the counterpart of
     ``jax.value_and_grad(render_loss)``.  A leaf the loss does not reach gets
     a zero gradient, as in JAX."""
@@ -74,7 +89,8 @@ def render_value_and_grad(params, scene, cam, target, seed, *, width, height,
         loss = render_loss(leaves, scene, cam, target, seed, width=width,
                            height=height, spp=spp,
                            samples_per_pass=samples_per_pass,
-                           max_depth=max_depth, t_min=t_min)
+                           max_depth=max_depth, t_min=t_min,
+                           partition=partition)
         # A loss that no leaf reaches (say mat_fuzz on a scene without metal)
         # has no graph at all: every gradient is zero.
         grads = (torch.autograd.grad(loss, list(leaves.values()),
@@ -97,11 +113,13 @@ def _adam(params, learning_rate):
 
 def make_train_step(scene, cam, target, *, width, height, spp,
                     samples_per_pass, max_depth, t_min=1e-3,
-                    learning_rate=1e-2, trainable=DEFAULT_TRAINABLE):
+                    learning_rate=1e-2, trainable=DEFAULT_TRAINABLE,
+                    partition=None):
     """Build (init_state, step_fn) for inverse rendering with adam.
 
     step_fn(state, seed) -> (state, loss): one forward + backward through
-    ``render_loss`` and one adam update of ``state.params`` (in place).
+    ``render_loss`` (over ``partition`` where given) and one adam update of
+    ``state.params`` (in place).
     """
     params, _ = split_params(scene, trainable)
     params = {k: v.detach().clone().requires_grad_(True)
@@ -115,7 +133,8 @@ def make_train_step(scene, cam, target, *, width, height, spp,
             loss = render_loss(state.params, scene, cam, target, seed,
                                width=width, height=height, spp=spp,
                                samples_per_pass=samples_per_pass,
-                               max_depth=max_depth, t_min=t_min)
+                               max_depth=max_depth, t_min=t_min,
+                               partition=partition)
             loss.backward()
         # A leaf the loss does not reach keeps a zero gradient (optax sees
         # zeros there too), so adam's moments decay alike in both.

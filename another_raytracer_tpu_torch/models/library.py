@@ -5,9 +5,9 @@ Each function returns ``(SceneData, cam_params dict)`` where cam_params feeds
 app-wide at src/main.cpp:33-35).  Scenes are built on ``device`` (default
 the card).  Randomised scenes (random, final) draw from the builder's
 seeded host generator in the JAX package's order, so they come out
-identical.  Image assets: the earthmap is a JPEG, which the port cannot
-decode yet (ROADMAP M20); scenes 4 and 8 take the reference's solid-cyan
-fallback when it is absent and raise when it is found.
+identical.  Image assets: scenes 4 and 8 take the earthmap JPEG found
+under ``ARTPU_ASSETS`` (``utils/assets.py``), else the reference's
+solid-cyan fallback.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import numpy as np
 
 from another_raytracer_tpu_torch.models import mesh as mesh_lib
 from another_raytracer_tpu_torch.models.scene import SceneBuilder
-from another_raytracer_tpu_torch.utils import assets
+from another_raytracer_tpu_torch.utils import assets, imageio
 
 SKY = (0.70, 0.80, 1.00)
 BLACK = (0.0, 0.0, 0.0)
@@ -110,14 +110,9 @@ def two_perlin_spheres(seed: int = 1234, device="cuda"):
 
 def _earthmap():
     """The earthmap's texels, or None for the reference's missing-file
-    fallback (solid cyan, texture.h:91-92).  A found earthmap needs a JPEG
-    decoder the port does not have yet."""
+    fallback (solid cyan, texture.h:91-92)."""
     path = assets.earthmap_path()
-    if path is not None:
-        raise NotImplementedError(
-            f"found the earthmap at {path}, but decoding JPEG is not "
-            "ported yet (ROADMAP M20)")
-    return None
+    return imageio.load_image(path) if path is not None else None
 
 
 def earth(seed: int = 1234, device="cuda", image=None):

@@ -10,9 +10,12 @@ texcoords and materials along the reference's three material paths:
   (c) no materials     -> lambertian(random colour) per triangle
       (mesh.h:132-138).
 
-The parser is the pure-Python one.  The JAX package also loads a native
-C++ parser (native/objparser.cpp) when built; the port's loader for it
-waits for ROADMAP M20.
+``parse`` takes the native C++ parser of the port's host library
+(``utils/native.py``, ``csrc/host/objparser.cpp``); the pure-Python parser
+stays as its plain version (``parse(path, native=False)``), which the tests
+hold it against.  The JAX package's native parser misreads a negative
+texcoord index (``f -5/-4 ...``); the port's copy reads it as the Python
+parser does.
 """
 
 from __future__ import annotations
@@ -136,14 +139,21 @@ def _parse_obj_python(path: Path):
     )
 
 
-def parse(mesh_path) -> MeshData:
-    """Parse and triangulate an .obj.  Raises FileNotFoundError on a
-    missing file, as the reference throws on a failed parse
+def parse(mesh_path, native: bool = True) -> MeshData:
+    """Parse and triangulate an .obj with the native parser (``native``
+    False: the pure-Python one).  Raises FileNotFoundError on a missing
+    file, as the reference throws on a failed parse
     (scene_manager.cpp:257)."""
     path = Path(mesh_path)
     if not path.exists():
         raise FileNotFoundError(f"cannot parse mesh file: {path}")
-    tri_pos, tri_uv, tri_mat, materials = _parse_obj_python(path)
+    if native:
+        from another_raytracer_tpu_torch.utils import native as native_lib
+
+        tri_pos, tri_uv, tri_mat, mats = native_lib.parse_obj(path)
+        materials = [MtlMaterial(*m) for m in mats]
+    else:
+        tri_pos, tri_uv, tri_mat, materials = _parse_obj_python(path)
     return MeshData(tri_pos=tri_pos, tri_uv=tri_uv, tri_mat=tri_mat,
                     materials=materials, work_dir=path.parent)
 

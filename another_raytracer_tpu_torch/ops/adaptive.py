@@ -1,5 +1,5 @@
 """Adaptive hierarchical subsampling, the reference's default render mode
-(port of ``another_raytracer_tpu.ops.adaptive``, one device).
+(port of ``another_raytracer_tpu.ops.adaptive``).
 
 Behavioural port of ``engine::_run_adaptive`` (engine.h:96-333): the image is
 tiled into 12x12 "big squares"; the 4 corner pixels of each square are path
@@ -25,7 +25,10 @@ On a BVH scene the batch is sorted into Morton order first, so that a
 warp's lanes are neighbouring pixels whose walks of the tree coincide (as
 ``render.render_radiance`` orders a full image).
 
-The multi-device branch (the JAX ``mesh`` argument) is ROADMAP M18.
+Over a device partition (``partition``, the JAX ``mesh``), each level's
+batch goes through ``parallel/sharding.radiance_pixels``: its pixels in
+contiguous chunks over ``tile`` and its samples over ``spp``, the
+decomposition of the parallel modes (JAX's ``_trace_pixels_sharded``).
 """
 
 from __future__ import annotations
@@ -102,18 +105,26 @@ def _quarters(xs, ys, half):
             (ys[:, None] + np.array([0, 0, half, half])[None, :]).ravel())
 
 
-def render_adaptive(scene, cam, config: RenderConfig, mesh=None):
+def render_adaptive(scene, cam, config: RenderConfig, partition=None,
+                    progress=None):
     """Adaptive render -> (uint8 image [H, W, 3] on the host, stats).
 
     ``stats['traced_pixels']`` counts the pixels actually path traced (the
     honest workload measure the reference's kRay/s metric overcounts) and
-    ``stats['segments']`` the traced ray segments, bounces included.  The
-    scene and camera decide the device.
+    ``stats['segments']`` the traced ray segments, bounces included, and
+    ``stats['batches']`` the levels that traced a batch.  The
+    scene and camera decide the device, unless ``partition``
+    (``parallel/sharding.Partition``) spreads the batches over devices.
+
+    ``progress``: optional sink with ``update_image(img_uint8, traced)``
+    (``utils/preview.ProgressivePreview``), called after each level's
+    trace and fill and once with the final image, so a live viewer streams
+    the work frame as it fills (the reference's per-square
+    ``dgui.show(work_image)``, engine.h:307); pixels not yet decided show
+    black.  The image does not depend on it.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "adaptive mode over a device mesh is not ported yet (ROADMAP "
-            "M18); render on one device")
+    if partition is not None:
+        from another_raytracer_tpu_torch.parallel import sharding
     W, H = config.width, config.height
     big = config.adaptive_tile
     if big % 2 != 0 or (big // 2) % 2 != 0:
@@ -131,6 +142,7 @@ def render_adaptive(scene, cam, config: RenderConfig, mesh=None):
     work = np.full((H, W, 3), -1, np.int64)
     total_segments = 0
     traced = 0
+    batches = 0
     morton_rank = (render_lib.morton_order(W, H)[1] if scene.has_accel
                    else None)
 
@@ -139,7 +151,7 @@ def render_adaptive(scene, cam, config: RenderConfig, mesh=None):
         work frame.  The reference re-traces corners shared between levels
         (engine.h:222-232); with a per-(pixel, sample) RNG a re-trace gives
         the same value, so skipping it changes only the work done."""
-        nonlocal total_segments, traced
+        nonlocal total_segments, traced, batches
         if len(px) == 0:
             return
         flat = np.unique(py.astype(np.int64) * W + px.astype(np.int64))
@@ -149,11 +161,18 @@ def render_adaptive(scene, cam, config: RenderConfig, mesh=None):
         if morton_rank is not None:
             flat = flat[np.argsort(morton_rank[flat], kind="stable")]
         traced += len(flat)
-        acc, segments = render_lib.radiance_batch(
-            scene, cam, torch.from_numpy(flat).to(dev), config.seed,
-            width=W, height=H, sample_start=0, n_samples=spp, spp_cap=spp,
-            samples_per_pass=spass, max_depth=config.max_depth,
-            t_min=config.t_min)
+        batches += 1
+        kw = dict(width=W, height=H, samples_per_pass=spass,
+                  max_depth=config.max_depth, t_min=config.t_min)
+        pixels = torch.from_numpy(flat).to(dev)
+        if partition is None:
+            acc, segments = render_lib.radiance_batch(
+                scene, cam, pixels, config.seed, sample_start=0,
+                n_samples=spp, spp_cap=spp, **kw)
+        else:
+            acc, segments = sharding.radiance_pixels(
+                scene, cam, pixels, config.seed, partition=partition,
+                spp=spp, **kw)
         total_segments += int(segments)
         # float32, as the JAX package converts it.
         rad = torch.stack(tuple(acc), dim=1).cpu().numpy()
@@ -168,6 +187,9 @@ def render_adaptive(scene, cam, config: RenderConfig, mesh=None):
         decided = int((work[..., 0] >= 0).sum())
         print(f"\radaptive level {level[0]}: {decided * 100 // (W * H)}% "
               f"filled, {traced} traced", end="", file=sys.stderr, flush=True)
+        if progress is not None:
+            progress.update_image(np.clip(work, 0, 255).astype(np.uint8),
+                                  traced)
 
     thresh = config.adaptive_threshold
     # Level 0: big-square corners.
@@ -208,11 +230,15 @@ def render_adaptive(scene, cam, config: RenderConfig, mesh=None):
         eval_pixels(np.concatenate(ex), np.concatenate(ey))
 
     assert (work >= 0).all(), "adaptive fill left unevaluated pixels"
+    img = work.astype(np.uint8)
     print(f"\radaptive done: 100% filled, {traced}/{W * H} pixels traced",
           file=sys.stderr, flush=True)
-    return work.astype(np.uint8), {
+    if progress is not None:
+        progress.update_image(img, traced)
+    return img, {
         "segments": total_segments,
         "traced_pixels": traced,
         "total_pixels": W * H,
-        "mesh": None,
+        "batches": batches,
+        "partition": None if partition is None else partition.shape,
     }

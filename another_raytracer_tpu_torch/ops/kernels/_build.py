@@ -77,19 +77,28 @@ def build(name: str) -> tuple[Path, float]:
     out = library_path(name)
     if out.exists():
         return out, 0.0
+    return out, compile_library(
+        out, [nvcc_path(), *_flags(name)], [CSRC_DIR / TARGETS[name][0]], name)
+
+
+def compile_library(out: Path, compiler: list, sources: list,
+                    what: str) -> float:
+    """Run ``compiler + ["-o", <temporary>] + sources`` and move the result
+    to ``out``, with the compiler's report beside it as ``<out>.log``.
+    Raises RuntimeError with the command and its report when the compiler
+    fails.  Returns the seconds compiling."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *_flags(name), "-o", str(tmp),
-           str(CSRC_DIR / TARGETS[name][0])]
+    cmd = [*compiler, "-o", str(tmp), *map(str, sources)]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     log = f"$ {' '.join(cmd)}\n{res.stdout}{res.stderr}"
     if res.returncode != 0:
-        raise RuntimeError(f"building {name} failed:\n{log}")
+        raise RuntimeError(f"building {what} failed:\n{log}")
     out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    return out, seconds
+    return seconds
 
 
 def build_all() -> dict:

@@ -1,6 +1,6 @@
 """Top-level render driver: pixels x samples -> radiance sums -> pixels (port
 of ``another_raytracer_tpu.ops.render``, single mode; the adaptive mode is
-``ops/adaptive.py``).
+``ops/adaptive.py``, the parallel modes ``parallel/sharding.py``).
 
 Every forward render that ``mega_kernel.enabled`` accepts goes through
 ``mega_kernel.trace_regenerative_mega`` (K1 on sweep scenes, K3 on scenes
@@ -18,9 +18,7 @@ the record instance of K2 or K3 and the replay backward) when
 ``mega_diff.enabled`` accepts the scene and the declared trainable set, and
 otherwise the lockstep autograd path (``integrator.trace``), as in the JAX
 package; there Perlin noise runs through K4 with a zero gradient when the
-declared trainable set cannot reach the noise argument.  Anything not
-ported raises NotImplementedError naming its ROADMAP item — no slower
-fallback path.
+declared trainable set cannot reach the noise argument.
 """
 
 from __future__ import annotations
@@ -231,27 +229,40 @@ def render_radiance(scene, cam, seed, *, width, height, spp, samples_per_pass,
     return acc, segments
 
 
-def render(scene, cam, config: RenderConfig, progress=None):
+def render(scene, cam, config: RenderConfig, progress=None, partition=None):
     """Render to a uint8 image [H, W, 3] (numpy, on the host).
 
     Returns (image, stats dict with 'segments' — the honest bounce-ray count,
     unlike the reference's nominal primary-only kRay/s at main.cpp:50-53).
     The scene and camera decide the device; the image comes back to the host.
+
+    ``progress``: optional sink (``utils/preview.ProgressivePreview``).  The
+    adaptive mode streams its work frame per level, single mode gives one
+    final frame (``utils/preview.render_progressive`` streams per pass);
+    the parallel modes render in one call and refuse a sink.
+    ``partition`` (``parallel/sharding.Partition``): the devices of the
+    parallel modes and of the adaptive mode's batches; the parallel modes
+    default to every visible CUDA device.
     """
     if scene.num_primitives == 0:
         raise ValueError("cannot render empty scene!")
     if config.mode in (RenderMode.PARALLEL_STRIPES, RenderMode.PARALLEL_IMAGES):
-        raise NotImplementedError(
-            f"render mode {config.mode.value!r} is not ported yet "
-            "(ROADMAP M18); use mode 'single' or 'adaptive'")
-    if progress is not None:
-        raise NotImplementedError(
-            "progress sinks (preview / live view) are not ported yet "
-            "(ROADMAP M20)")
+        if progress is not None:
+            raise ValueError(
+                f"mode {config.mode.value} renders in one call and cannot "
+                "stream progress; use --mode single or adaptive with "
+                "--live/--preview")
+        from another_raytracer_tpu_torch.parallel import sharding
+
+        return sharding.render_sharded(scene, cam, config, partition)
     if config.mode == RenderMode.ADAPTIVE:
         from another_raytracer_tpu_torch.ops import adaptive
 
-        return adaptive.render_adaptive(scene, cam, config)
+        return adaptive.render_adaptive(scene, cam, config,
+                                        partition=partition, progress=progress)
+    if partition is not None:
+        raise ValueError("mode single renders on the scene's device; use a "
+                         "parallel mode to render over a partition")
 
     acc, segments = render_radiance(
         scene, cam, config.seed,
@@ -262,4 +273,6 @@ def render(scene, cam, config: RenderConfig, progress=None):
     img = color_lib.to_uint8(torch.stack(tuple(acc), dim=-1),
                              config.samples_per_pixel)
     img = img.cpu().numpy().reshape(config.height, config.width, 3)
+    if progress is not None:  # single mode: one final frame
+        progress.update_image(img, config.samples_per_pixel)
     return img, {"segments": int(segments)}

@@ -1,7 +1,8 @@
-"""Host-side image IO with the stdlib and numpy only, so the port needs no
-image library: a PNG writer (8-bit RGB, no filtering) and a PNG decoder
-(port of the JAX package's ``utils.imageio._decode_png``) that reads the
-port's output and the texture maps of meshes and scenes."""
+"""Host-side image IO, so the port needs no image library: a PNG encoder
+(8-bit RGB, no filtering), a stdlib PNG decoder (port of the JAX package's
+``utils.imageio._decode_png``) and JPEG through the port's native decoder
+(``utils/native.py``); they read the port's output and the texture maps
+of meshes and scenes."""
 
 from __future__ import annotations
 
@@ -17,6 +18,13 @@ _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 def save_png(path, image_uint8) -> None:
     """Write a [h, w, 3] uint8 array as a PNG (reference: output.png,
     main.cpp:57)."""
+    data = encode_png(image_uint8)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def encode_png(image_uint8) -> bytes:
+    """A [h, w, 3] uint8 array as the bytes of a PNG file."""
     img = np.ascontiguousarray(np.asarray(image_uint8, np.uint8))
     h, w = img.shape[:2]
     raw = b"".join(b"\x00" + img[r].tobytes() for r in range(h))
@@ -26,9 +34,8 @@ def save_png(path, image_uint8) -> None:
                 + struct.pack(">I", zlib.crc32(typ + data) & 0xFFFFFFFF))
 
     ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)  # 8-bit truecolor
-    with open(path, "wb") as f:
-        f.write(_SIGNATURE + chunk(b"IHDR", ihdr)
-                + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+    return (_SIGNATURE + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
 
 
 def load_png(path) -> np.ndarray:
@@ -41,19 +48,23 @@ def load_png(path) -> np.ndarray:
 
 def load_image(path) -> "np.ndarray | None":
     """Decode an image file to [h, w, 3] float64 in [0, 1] (the reference's
-    stb_image role).  None for a missing file: callers take the reference's
-    solid-cyan fallback texture (texture.h:91-92).  PNG only: a file of
-    another format that exists raises NotImplementedError (JPEG decoding
-    waits for ROADMAP M20) instead of quietly rendering cyan."""
+    stb_image role): PNG with the stdlib decoder, JPEG with the native one.
+    None for a missing file: callers take the reference's solid-cyan
+    fallback texture (texture.h:91-92).  A file that exists and cannot be
+    decoded raises ValueError instead of quietly rendering cyan."""
     if not os.path.exists(path):
         return None
-    data = open(path, "rb").read()
-    if data[:8] != _SIGNATURE:
-        kind = "JPEG" if data[:2] == b"\xff\xd8" else "this format"
-        raise NotImplementedError(
-            f"{path}: decoding {kind} is not ported yet (ROADMAP M20); "
-            "PNG files are read")
-    return _decode_png(data).astype(np.float64) / 255.0
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] == _SIGNATURE:
+        img = _decode_png(data)
+    elif data[:2] == b"\xff\xd8":
+        from another_raytracer_tpu_torch.utils import native
+
+        img = native.decode_jpeg(path)
+    else:
+        raise ValueError(f"{path}: neither a PNG nor a JPEG file")
+    return img.astype(np.float64) / 255.0
 
 
 def _decode_png(data: bytes) -> np.ndarray:

@@ -1,0 +1,112 @@
+"""Profiling and metrics (port of ``another_raytracer_tpu.utils.profiling``
+on ``torch.profiler``).
+
+  * ``trace(log_dir)`` records a region's CPU activity, and its CUDA
+    activity where a card is visible, into a Chrome trace in ``log_dir``;
+  * ``device_seconds(log_dir)`` sums the device activity of the newest
+    trace there (the counterpart of JAX's ``module_device_seconds``);
+  * ``RayStats`` accumulates honest segment counts (bounce rays included)
+    and derives Mrays/s;
+  * ``timed(label)`` brackets a region with the host clock after
+    synchronising the card, so the bracket holds the device's work; it
+    yields a ``Timing`` that holds the seconds once the region ends.
+
+The CLI times its render with ``timed`` and prints ``RayStats``' Mrays/s.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import glob
+import json
+import os
+import time
+
+import torch
+
+# Chrome-trace categories of device activity: kernels, copies and fills.
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Profile the region and write ``<log_dir>/trace-<ns>.json``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(
+        os.path.join(log_dir, f"trace-{time.time_ns()}.json"))
+
+
+def _sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+@dataclasses.dataclass
+class Timing:
+    seconds: float = 0.0
+
+
+@contextlib.contextmanager
+def timed(label: str, sink=print):
+    """Time the region on the host clock, the card synchronised at both
+    ends; ``sink`` (None: no line) gets ``"<label>: <ms> ms"``."""
+    timing = Timing()
+    _sync()
+    t0 = time.perf_counter()
+    yield timing
+    _sync()
+    timing.seconds = time.perf_counter() - t0
+    if sink is not None:
+        sink(f"{label}: {timing.seconds * 1000:.1f} ms")
+
+
+@dataclasses.dataclass
+class RayStats:
+    """Honest throughput accounting (vs the reference's primary-only
+    ``W*H*spp/ms`` at main.cpp:50-53, which ignores bounces and adaptive
+    skipping)."""
+
+    segments: int = 0
+    seconds: float = 0.0
+
+    def add(self, segments: int, seconds: float):
+        self.segments += int(segments)
+        self.seconds += seconds
+
+    @property
+    def mrays_per_s(self) -> float:
+        return self.segments / self.seconds / 1e6 if self.seconds else 0.0
+
+
+def device_events(log_dir: str) -> list:
+    """The device activity events (``DEVICE_CATEGORIES``) of the newest
+    trace under ``log_dir``."""
+    files = glob.glob(os.path.join(log_dir, "trace-*.json"))
+    if not files:
+        raise FileNotFoundError(f"no profiler trace under {log_dir}")
+    newest = max(files, key=lambda p: int(p.rsplit("-", 1)[1][:-5]))
+    with open(newest) as f:
+        events = json.load(f)["traceEvents"]
+    return [e for e in events
+            if e.get("ph") == "X" and e.get("cat") in DEVICE_CATEGORIES]
+
+
+def device_seconds(log_dir: str) -> float:
+    """Summed duration of the device activity in the newest trace under
+    ``log_dir``.  Raises RuntimeError when the trace holds none (a CPU run,
+    or a profiler that could not trace the card)."""
+    events = device_events(log_dir)
+    if not events:
+        raise RuntimeError(f"the trace under {log_dir} holds no device "
+                           "activity")
+    return sum(float(e["dur"]) for e in events) / 1e6

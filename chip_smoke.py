@@ -70,15 +70,33 @@ PyTorch version:
   its walk, and the times of K3's two instances (at each block size of
   ``BLOCKS``) beside their bounds and the replay's at 485 textures.
 
+* the entry points over the same kernels: the host library
+  (``csrc/host``, built by the host C++ compiler beside the nvcc builds);
+  the README render in the stripes and images modes through the CLI and
+  over ``[cuda:0] x 4`` (4x1, 1x4, 2x2; stripes bit-equal to single mode,
+  images to rtol 1e-5 with < 0.1% of pixels off, K1 once per shard), 1x8
+  at spp 4 (four empty sample shards return zeros) and scene 1 in four
+  stripes through K3 (``modes_phase``); the adaptive mode over 4x1 and 2x2
+  of the card (one K1 launch per traced batch and shard);
+  ``render_progressive`` with a checkpoint, stopped at spp 50
+  and resumed (bit-equal to an uninterrupted run), timed with and without
+  a PNG every pass; the CLI's ``--preview``, ``--checkpoint``,
+  ``--profile-dir`` and ``--live``; JPEG (the committed samples bit-equal
+  to the JAX package's stored native decodes, two with varying chroma, and
+  the tinted ones within the PIL bar of PIL's stored decodes, scene 8 with a JPEG earthmap, a mesh with a JPEG
+  ``map_Kd`` through the native parser); two processes on the card over
+  gloo (``multihost_phase``); and the sharded training step (4x1 fused,
+  1x2 lockstep, one adam update).
+
 The wavefront phases run with ``mega_kernel.MEGA_FORWARD = False``, which
 sends scene 1 to the wavefront + K5 (its auto route is K3).  Every phase
 prints one line with its seconds, and any failure raises (non-zero exit).
-The last lines are the whole run's time, the card's name and power limit
-(nvidia-smi), a JSON object describing each kernel, and
-``{"ok": true, "device": {...}}``.
+The last lines are the whole run's time, the host library's line, the
+card's name and power limit (nvidia-smi), a JSON object describing each
+kernel, and ``{"ok": true, "device": {...}}``.
 
-Exits non-zero without a result when no CUDA device is visible or the port
-package is not beside this script.  Imports no JAX.
+Exits non-zero without a result when no CUDA device is visible or the
+port package is not beside this script.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -114,6 +132,8 @@ CW, CH, CSPP = 180, 135, 4  # the wavefront comparison
 BW, BH, BSPP, BDEPTH = 360, 270, 16, 8  # bench.py (training)
 TW, TH, TSPP, TDEPTH = 180, 135, 8, 6  # scripts/train_demo.py, chip size
 TRAIN_STEPS = 24
+MH_SPP, MH_TIMEOUT = 16, 300  # the multihost phase: spp, s per process
+EW, EH, ESPP, JSPP = 360, 270, 8, 4  # the CLI-entry and JPEG phases
 K3_PLAIN_SPP = 4  # K3's plain version at the README width
 BLOCKS = (64, 128, 256, 384, 512)  # block sizes K1 and K3 are timed at
 # Earlier times (PERF.md, H100 80GB HBM3, 700 W): K1 alone on the README
@@ -1419,6 +1439,590 @@ def media_phases(dev, mesh_dir):
                 gradient=grad)
 
 
+def host_library_phase():
+    """Build the host library (csrc/host) with the host C++ compiler; one
+    line of its own: the path, the compiler and the seconds."""
+    from another_raytracer_tpu_torch.utils import native
+
+    path, secs = native.build()
+    line = {"library": path.name, "compiler": native.compiler(),
+            "flags": list(native.FLAGS), "build_s": round(secs, 1),
+            "sources": [str(s.relative_to(s.parents[2])) for s in
+                        native.SOURCES]}
+    phase("host_library", json.dumps(line))
+    return line
+
+
+def pixels_differ(a, b):
+    """Share of the pixels whose uint8 colours differ."""
+    return float((np.asarray(a) != np.asarray(b)).any(-1).mean())
+
+
+def modes_phase(dev, cornell, cornell_cam, scene1, cam1, tmp):
+    """The README render in the stripes and images modes (through the CLI
+    on the visible devices, and over 4-way splits of the card) against
+    single mode; 8 sample shards at spp 4; scene 1 in 4-way stripes through
+    K3.  Returns {split: stats}."""
+    import torch
+
+    from another_raytracer_tpu_torch.ops import camera as camera_lib
+    from another_raytracer_tpu_torch.ops import render as render_lib
+    from another_raytracer_tpu_torch.parallel import sharding
+
+    out = {}
+    # The user's entry point: the CLI in both parallel modes on the visible
+    # devices, against the CLI's single render.
+    imgs = {}
+    for mode in ("single", "parallel_stripes", "parallel_images"):
+        rc, stdout, imgs[mode], launched = run_cli(6, W, H, SPP, DEPTH, tmp,
+                                                   mode)
+        wall_ms, _, segs = cli_stats(stdout)
+        n_dev = torch.cuda.device_count() if mode != "single" else 1
+        if rc != 0 or launched["K1"] != n_dev or segs <= 0:
+            raise AssertionError(f"CLI {mode}: rc={rc} {launched}\n{stdout}")
+        out[f"cli {mode}"] = {"wall_ms": wall_ms, "segments": segs,
+                              "launches": launched["K1"]}
+    for mode in ("parallel_stripes", "parallel_images"):
+        if out[f"cli {mode}"]["segments"] != out["cli single"]["segments"]:
+            raise AssertionError(f"CLI {mode}: segments differ from single")
+        share = pixels_differ(imgs[mode], imgs["single"])
+        limit = 0.0 if mode == "parallel_stripes" else 1e-3
+        if share > limit:
+            raise AssertionError(f"CLI {mode}: {share:.2e} of the pixels "
+                                 "differ from single mode")
+        out[f"cli {mode}"]["pixels_differ"] = share
+    phase("modes", f"CLI cornell {W}x{H} spp{SPP} depth{DEPTH} on "
+          f"{torch.cuda.device_count()} visible device(s): "
+          f"{json.dumps({k: v for k, v in out.items()})}")
+
+    cam = camera_lib.make_camera(aspect_ratio=W / H, device=dev, **cornell_cam)
+    kw = dict(width=W, height=H, spp=SPP, samples_per_pass=1, max_depth=DEPTH,
+              t_min=1e-3)
+    ref, ref_segs = render_lib.render_radiance(cornell, cam, 0, **kw)
+    ref = torch.stack(tuple(ref), 1)
+    ref_img = color_uint8(ref, SPP)
+    single_ms, single_runs = cuda_ms(
+        lambda: render_lib.render_radiance(cornell, cam, 0, **kw), dev, 5)
+    out["single"] = {"ms": single_ms, "runs": single_runs,
+                     "segments": int(ref_segs)}
+    for n_tile, n_spp in ((4, 1), (1, 4), (2, 2)):
+        part = sharding.hybrid_partition(n_tile, n_spp, devices=[dev] * 4)
+        reset_counts()
+        acc, segs = sharding.render_radiance_sharded(cornell, cam, 0,
+                                                     partition=part, **kw)
+        launched = counts()
+        got = torch.stack(tuple(acc), 1)
+        if launched["K1"] != 4 or int(segs) != int(ref_segs):
+            raise AssertionError(f"{n_tile}x{n_spp}: launches {launched}, "
+                                 f"segments {int(segs)} vs {int(ref_segs)}")
+        if n_spp == 1:
+            ok = torch.equal(got, ref)
+        else:
+            ok = torch.allclose(got, ref, rtol=1e-5, atol=1e-5)
+        share = pixels_differ(color_uint8(got, SPP), ref_img)
+        if not ok or share >= 1e-3:
+            raise AssertionError(f"{n_tile}x{n_spp}: max |diff| "
+                                 f"{float((got - ref).abs().max())}, "
+                                 f"{share:.2e} of the pixels differ")
+        ms, runs = cuda_ms(lambda: sharding.render_radiance_sharded(
+            cornell, cam, 0, partition=part, **kw), dev, 5)
+        out[f"{n_tile}x{n_spp}"] = {
+            "ms": ms, "runs": runs, "vs_single": ms / single_ms,
+            "launches": launched["K1"], "bit_equal": bool(torch.equal(got, ref)),
+            "max_abs_err": float((got - ref).abs().max()),
+            "pixels_differ": share}
+        phase("modes", f"cornell {W}x{H} spp{SPP} over [cuda:0] x 4 as "
+              f"{n_tile}x{n_spp}: {json.dumps(out[f'{n_tile}x{n_spp}'])}; "
+              f"single {single_ms:.3f} ms")
+
+    # 8 sample shards at spp 4: shards 4-7 start past the cap; every lane
+    # is born dead and their sums are zero.
+    kw4 = dict(kw, spp=4)
+    ref4, ref4_segs = render_lib.render_radiance(cornell, cam, 0, **kw4)
+    part = sharding.hybrid_partition(1, 8, devices=[dev] * 8)
+    reset_counts()
+    acc, segs = sharding.render_radiance_sharded(cornell, cam, 0,
+                                                 partition=part, **kw4)
+    launched = counts()
+    pix = torch.arange(W * H, device=dev)
+    empty = []
+    for k in range(4, 8):
+        e_acc, e_segs = render_lib.radiance_batch(
+            cornell, cam, pix, 0, width=W, height=H, sample_start=k,
+            n_samples=1, spp_cap=4, samples_per_pass=1, max_depth=DEPTH,
+            t_min=1e-3)
+        empty.append(int(e_segs) == 0 and all(bool((c == 0).all())
+                                             for c in e_acc))
+    got4 = torch.stack(tuple(acc), 1)
+    ref4 = torch.stack(tuple(ref4), 1)
+    if (launched["K1"] != 8 or int(segs) != int(ref4_segs) or not all(empty)
+            or not torch.allclose(got4, ref4, rtol=1e-5, atol=1e-5)):
+        raise AssertionError(f"1x8 at spp 4: launches {launched}, empty "
+                             f"shards zero {empty}, segments {int(segs)} vs "
+                             f"{int(ref4_segs)}")
+    out["1x8 spp4"] = {"launches": launched["K1"], "empty_shards_zero": empty,
+                       "max_abs_err": float((got4 - ref4).abs().max())}
+    phase("modes", f"cornell {W}x{H} spp4 over 8 sample shards: "
+          f"{json.dumps(out['1x8 spp4'])}")
+
+    # Scene 1 in 4-way stripes through K3 (Morton chunks of the frame).
+    cam1c = camera_lib.make_camera(aspect_ratio=W / H, device=dev, **cam1)
+    ref1, ref1_segs = render_lib.render_radiance(scene1, cam1c, 0, **kw)
+    part = sharding.hybrid_partition(4, 1, devices=[dev] * 4)
+    reset_counts()
+    acc, segs = sharding.render_radiance_sharded(scene1, cam1c, 0,
+                                                 partition=part, **kw)
+    launched = counts()
+    equal = all(torch.equal(a, b) for a, b in zip(acc, ref1))
+    if not equal or launched["K3"] != 4 or int(segs) != int(ref1_segs):
+        raise AssertionError(f"scene 1 stripes: bit-equal {equal}, launches "
+                             f"{launched}, segments {int(segs)}")
+    s1_ms, _ = cuda_ms(lambda: render_lib.render_radiance(scene1, cam1c, 0,
+                                                          **kw), dev, 3)
+    st_ms, _ = cuda_ms(lambda: sharding.render_radiance_sharded(
+        scene1, cam1c, 0, partition=part, **kw), dev, 3)
+    out["scene1 4x1"] = {"launches": launched["K3"], "bit_equal": equal,
+                         "ms": st_ms, "single_ms": s1_ms}
+    phase("modes", f"scene 1 {W}x{H} spp{SPP} in 4 stripes through K3: "
+          f"{json.dumps(out['scene1 4x1'])}")
+    return out
+
+
+def color_uint8(radiance, spp):
+    from another_raytracer_tpu_torch.ops import color as color_lib
+
+    return color_lib.to_uint8(radiance, spp).cpu().numpy()
+
+
+def adaptive_partition_phase(dev, cornell, cornell_cam):
+    """Cornell adaptive at the README size over 4x1 and 2x2 partitions of
+    the card against the one-device adaptive render."""
+    import torch
+
+    from another_raytracer_tpu_torch.config import RenderConfig, RenderMode
+    from another_raytracer_tpu_torch.ops import adaptive
+    from another_raytracer_tpu_torch.ops import camera as camera_lib
+    from another_raytracer_tpu_torch.parallel import sharding
+
+    cam = camera_lib.make_camera(aspect_ratio=W / H, device=dev, **cornell_cam)
+    cfg = RenderConfig(width=W, height=H, samples_per_pixel=SPP,
+                       max_depth=DEPTH, mode=RenderMode.ADAPTIVE)
+    quiet = contextlib.redirect_stderr(io.StringIO())  # per-level progress
+    torch.cuda.synchronize(dev)
+    reset_counts()
+    t = time.perf_counter()
+    with quiet:
+        one, st1 = adaptive.render_adaptive(cornell, cam, cfg)
+    one_ms = (time.perf_counter() - t) * 1e3
+    out = {"one_device_ms": one_ms, "traced": st1["traced_pixels"],
+           "batches": st1["batches"], "launches": counts()["K1"]}
+    # One K1 launch per traced batch on one device, one per shard per batch
+    # over a partition.
+    if out["launches"] != st1["batches"]:
+        raise AssertionError(f"adaptive on one device: {json.dumps(out)}")
+    for n_tile, n_spp in ((4, 1), (2, 2)):
+        part = sharding.hybrid_partition(n_tile, n_spp, devices=[dev] * 4)
+        reset_counts()
+        t = time.perf_counter()
+        with quiet:
+            img, st = adaptive.render_adaptive(cornell, cam, cfg,
+                                               partition=part)
+        ms = (time.perf_counter() - t) * 1e3
+        launched = counts()
+        share = pixels_differ(img, one)
+        out[f"{n_tile}x{n_spp}"] = {"ms": ms, "launches": launched["K1"],
+                                    "pixels_differ": share,
+                                    "traced": st["traced_pixels"],
+                                    "batches": st["batches"]}
+        # Stripes trace each pixel's samples in one lane: the same image.
+        # A sample split adds the shards' float32 sums in another order, so
+        # a work-frame colour on an integer boundary may move by one.
+        if (launched["K1"] != st["batches"] * n_tile * n_spp
+                or st["batches"] != st1["batches"]
+                or (n_spp == 1 and share) or share >= 1e-3):
+            raise AssertionError(f"adaptive over {n_tile}x{n_spp}: "
+                                 f"{json.dumps(out)}")
+    phase("adaptive_partition", f"cornell {W}x{H} spp{SPP} adaptive over "
+          f"the card: {json.dumps(out)}")
+    return out
+
+
+def progressive_phase(dev, cornell, cornell_cam, tmp):
+    """``render_progressive`` at the README size, samples_per_pass 1: an
+    uninterrupted run with a checkpoint, the same to spp 50 and resumed to
+    100 in a new call (bit-equal), against ``render.render``; timed without
+    sinks and with a preview PNG every pass."""
+    import torch
+
+    from another_raytracer_tpu_torch.config import RenderConfig
+    from another_raytracer_tpu_torch.ops import camera as camera_lib
+    from another_raytracer_tpu_torch.ops import render as render_lib
+    from another_raytracer_tpu_torch.utils import imageio, preview
+
+    cam = camera_lib.make_camera(aspect_ratio=W / H, device=dev, **cornell_cam)
+    cfg = RenderConfig(width=W, height=H, samples_per_pixel=SPP,
+                       max_depth=DEPTH, samples_per_pass=1)
+
+    def timed_run(*sinks):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        img, st = preview.render_progressive(cornell, cam, *sinks)
+        return img, st, (time.perf_counter() - t) * 1e3
+
+    with contextlib.redirect_stderr(io.StringIO()):
+        plain, _, plain_ms = timed_run(cfg)
+        png = os.path.join(tmp, "preview.png")
+        prev = preview.ProgressivePreview(png, W, H)
+        with_png, _, png_ms = timed_run(cfg, prev)
+        full = preview.RenderCheckpoint(os.path.join(tmp, "full.npz"))
+        uninterrupted, _, full_ms = timed_run(cfg, None, full)
+        part = preview.RenderCheckpoint(os.path.join(tmp, "part.npz"))
+        reset_counts()
+        _, _, half_ms = timed_run(cfg.replace(samples_per_pixel=SPP // 2),
+                                  None, part)
+        resumed, st, rest_ms = timed_run(cfg, None, part)
+        launched = counts()
+    single, _ = render_lib.render(cornell, cam, cfg)
+    same = (np.array_equal(resumed, uninterrupted)
+            and np.array_equal(part.load()["radiance"],
+                               full.load()["radiance"])
+            and np.array_equal(plain, uninterrupted)
+            and np.array_equal(with_png, uninterrupted)
+            and np.array_equal(imageio.load_png(png), uninterrupted))
+    share = pixels_differ(resumed, single)
+    out = {"plain_ms": plain_ms, "png_every_pass_ms": png_ms,
+           "checkpoint_every_pass_ms": full_ms,
+           "to_half_ms": half_ms, "resumed_ms": rest_ms,
+           "resumed_at_chunk": st["resumed_at_chunk"],
+           "launches": launched["K1"], "bit_equal": same,
+           "pixels_differ_from_render": share, "passes": SPP,
+           "ms_per_pass": plain_ms / SPP,
+           "png_ms_per_pass": (png_ms - plain_ms) / SPP}
+    if (not same or launched["K1"] != SPP or share >= 1e-3
+            or st["resumed_at_chunk"] != SPP // 2):
+        raise AssertionError(f"progressive: {json.dumps(out)}")
+    phase("progressive", f"cornell {W}x{H} spp{SPP} depth{DEPTH}, one pass a "
+          f"call: {json.dumps(out)}")
+    return out
+
+
+def cli_entry_phase(dev, tmp):
+    """The CLI with --preview, --checkpoint and --profile-dir (single), and
+    --live 0 (adaptive); a LiveViewer serving the final frame."""
+    import urllib.request
+
+    from another_raytracer_tpu_torch import cli
+    from another_raytracer_tpu_torch.utils import imageio, profiling
+    from another_raytracer_tpu_torch.utils.liveview import LiveViewer
+
+    cw, ch, cspp = EW, EH, ESPP
+    out, png, ckpt, trace = (os.path.join(tmp, n) for n in
+                             ("cli.png", "cli_preview.png", "cli.npz",
+                              "trace"))
+    buf = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(buf), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc = cli.main(["--scene", "6", "--width", str(cw), "--height",
+                       str(ch), "--spp", str(cspp), "--max-depth", str(DEPTH),
+                       "--mode", "single", "--preview", png, "--checkpoint",
+                       ckpt, "--profile-dir", trace, "--out", out])
+    launched = counts()
+    wall_ms, _, segs = cli_stats(buf.getvalue())
+    img = imageio.load_png(out)
+    events = profiling.device_events(trace)
+    k1_events = [e for e in events if "mega_forward_kernel" in e["name"]]
+    busy_s = profiling.device_seconds(trace)
+    ok = (rc == 0 and launched["K1"] == cspp and os.path.exists(ckpt)
+          and np.array_equal(imageio.load_png(png), img)
+          and len(k1_events) == cspp and busy_s > 0)
+    stats = {"wall_ms": wall_ms, "segments": segs, "launches": launched["K1"],
+             "trace_device_ms": busy_s * 1e3,
+             "trace_k1_ms": sum(e["dur"] for e in k1_events) / 1e3,
+             "trace_k1_events": len(k1_events),
+             "checkpoint_samples": int(np.load(ckpt)["samples_done"])}
+    if not ok:
+        raise AssertionError(f"CLI with sinks: rc={rc} {json.dumps(stats)}\n"
+                             f"{buf.getvalue()}")
+    phase("cli_entry", f"--preview --checkpoint --profile-dir, cornell {cw}x"
+          f"{ch} spp{cspp}: {json.dumps(stats)}")
+
+    # --live 0 in adaptive mode (12 | width and height: EH rounded down).
+    buf = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(buf), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc = cli.main(["--scene", "6", "--width", str(cw), "--height",
+                       str(ch - ch % 12),
+                       "--spp", str(cspp), "--max-depth", str(DEPTH),
+                       "--mode", "adaptive", "--live", "0", "--out", out])
+    launched = counts()
+    if rc != 0 or "live view at http://127.0.0.1:" not in buf.getvalue() \
+            or launched["K1"] < 1:
+        raise AssertionError(f"--live adaptive: rc={rc} {launched}\n"
+                             f"{buf.getvalue()}")
+    live_img = imageio.load_png(out)
+
+    viewer = LiveViewer(port=0)
+    viewer.start()
+    try:
+        viewer.update(live_img, cspp)
+        with urllib.request.urlopen(viewer.url + "frame.png", timeout=10) as r:
+            served = imageio._decode_png(r.read())
+    finally:
+        viewer.stop()
+    if not np.array_equal(served, live_img):
+        raise AssertionError("the live viewer served another frame")
+    stats["live_adaptive_launches"] = launched["K1"]
+    phase("cli_entry", f"--live 0 adaptive {cw}x{ch - ch % 12} spp{cspp}: "
+          f"{cli_stats(buf.getvalue())[0]} ms, K1 launches {launched['K1']}; "
+          f"/frame.png decodes to the final frame")
+    return stats
+
+
+def jpeg_phase(dev, tmp):
+    """The host library's JPEG decoder on the committed samples, scene 8
+    through the CLI with a JPEG earthmap, and a mesh with a JPEG map_Kd
+    through the native parser."""
+    import shutil
+
+    from another_raytracer_tpu_torch.models import library
+    from another_raytracer_tpu_torch.models import mesh as mesh_lib
+    from another_raytracer_tpu_torch.utils import imageio, native
+
+    samples = os.path.join(os.path.dirname(native.__file__), "jpeg_samples")
+    out = {}
+    # Each sample against the JAX package's native decode of it (stored, bit
+    # for bit; the chroma samples vary Cb and Cr, so the 4:2:0 path shows)
+    # and the tinted ones against PIL's (stored, within the PIL bar).
+    for name in ("baseline_420", "progressive", "chroma_420",
+                 "chroma_progressive"):
+        got = native.decode_jpeg(os.path.join(samples, f"{name}.jpg"))
+        ref = imageio.load_png(os.path.join(samples, f"{name}.native.png"))
+        out[name] = {"shape": list(got.shape),
+                     "equals_native": bool(got.shape == ref.shape
+                                           and np.array_equal(got, ref))}
+        pil = os.path.join(samples, f"{name}.png")
+        if os.path.exists(pil):
+            want = imageio.load_png(pil)
+            d = np.abs(got.astype(int) - want.astype(int))
+            out[name].update(max_diff=int(d.max()), mean_diff=float(d.mean()))
+            if d.max() > 4 or d.mean() >= 0.1:
+                raise AssertionError(f"JPEG {name}: {out[name]}")
+        if not out[name]["equals_native"]:
+            raise AssertionError(f"JPEG {name}: {out[name]}")
+    phase("jpeg", f"decodes against the stored native and PIL decodes: "
+          f"{json.dumps(out)}")
+
+    # Scene 8 with the baseline sample as its earthmap, and without (the
+    # cyan fallback): the earth sphere's pixels carry the texture.
+    assets_dir = os.path.join(tmp, "assets")
+    os.makedirs(os.path.join(assets_dir, "textures"))
+    shutil.copy(os.path.join(samples, "baseline_420.jpg"),
+                os.path.join(assets_dir, "textures", "earthmap.jpg"))
+    jw, jh, jspp = EW, EH, JSPP
+    saved = os.environ.get("ARTPU_ASSETS")
+    renders = {}
+    try:
+        for name, root in (("earthmap", assets_dir), ("cyan", None)):
+            if root is None:
+                os.environ.pop("ARTPU_ASSETS", None)
+            else:
+                os.environ["ARTPU_ASSETS"] = root
+            with contextlib.redirect_stderr(io.StringIO()):
+                rc, stdout, img, launched = run_cli(8, jw, jh, jspp, DEPTH,
+                                                    tmp)
+            renders[name] = (img, launched, cli_stats(stdout))
+            if rc != 0 or launched["K5"] < 1 or launched["K4"] < 1:
+                raise AssertionError(f"scene 8 ({name}): rc={rc} {launched}")
+    finally:
+        if saved is None:
+            os.environ.pop("ARTPU_ASSETS", None)
+        else:
+            os.environ["ARTPU_ASSETS"] = saved
+    earth, cyan = renders["earthmap"][0].astype(int), renders["cyan"][0].astype(int)
+    moved = (earth != cyan).any(-1)
+    # Cyan has blue far above red; the tinted earthmap has red above blue.
+    b_minus_r = {k: float((v[..., 2] - v[..., 0])[moved].mean())
+                 for k, v in (("earthmap", earth), ("cyan", cyan))}
+    out["scene8"] = {"wall_ms": renders["earthmap"][2][0],
+                     "segments": renders["earthmap"][2][2],
+                     "launches": {k: renders["earthmap"][1][k]
+                                  for k in ("K5", "K4")},
+                     "pixels_moved": int(moved.sum()),
+                     "blue_minus_red_on_moved": b_minus_r}
+    if moved.mean() < 1e-3 or b_minus_r["earthmap"] >= b_minus_r["cyan"]:
+        raise AssertionError(f"scene 8's earth is not textured: {out['scene8']}")
+    phase("jpeg", f"scene 8 {jw}x{jh} spp{jspp} depth{DEPTH} with a JPEG "
+          f"earthmap: {json.dumps(out['scene8'])}")
+
+    # A mesh whose map_Kd is a JPEG, through the native parser.
+    mesh_dir = os.path.join(tmp, "jpeg_mesh")
+    os.makedirs(mesh_dir)
+    obj = write_capsule(mesh_dir, segments=32, rings=15, texels=16)
+    shutil.copy(os.path.join(samples, "baseline_420.jpg"),
+                os.path.join(mesh_dir, "checker.jpg"))
+    with open(os.path.join(mesh_dir, "capsule.mtl"), "w") as f:
+        f.write("newmtl checker\nKa 0 0 0\nKd 0.8 0.8 0.8\n"
+                "map_Kd checker.jpg\n")
+    got, want = mesh_lib.parse(obj), mesh_lib.parse(obj, native=False)
+    same = (np.array_equal(got.tri_pos, want.tri_pos)
+            and np.array_equal(got.tri_uv, want.tri_uv)
+            and np.array_equal(got.tri_mat, want.tri_mat)
+            and got.materials == want.materials)
+    mesh, _ = library.mesh_scene(obj_path=obj, device=dev)
+    out["mesh"] = {"triangles": got.num_triangles, "native_equals_python": same,
+                   "map_texels": [int(mesh.img_h[0]), int(mesh.img_w[0])]}
+    if not same or out["mesh"]["map_texels"] != [64, 128]:
+        raise AssertionError(f"mesh with a JPEG map: {out['mesh']}")
+    phase("jpeg", f"mesh with a JPEG map_Kd: {json.dumps(out['mesh'])}")
+    return out
+
+
+def multihost_worker(rank, world, port, outdir, device, size):
+    """One of the ``multihost`` phase's processes: its stripes of the
+    Cornell frame at ``size`` (width, height, spp, depth) on ``device``,
+    gathered over gloo."""
+    import torch
+
+    from another_raytracer_tpu_torch.models import library
+    from another_raytracer_tpu_torch.ops import camera as camera_lib
+    from another_raytracer_tpu_torch.parallel import multihost
+
+    width, height, spp, depth = size
+    dev = torch.device(device)
+    multihost.initialize("gloo", f"tcp://127.0.0.1:{port}", world, rank)
+    scene, params = library.cornell_box(device=dev)
+    cam = camera_lib.make_camera(aspect_ratio=width / height, device=dev,
+                                 **params)
+    t = time.perf_counter()
+    frame, segments = multihost.render_radiance_multihost(
+        scene, cam, 0, width=width, height=height, spp=spp,
+        samples_per_pass=1, max_depth=depth, t_min=1e-3)
+    ms = (time.perf_counter() - t) * 1e3
+    np.save(os.path.join(outdir, f"frame_{rank}.npy"), frame)
+    with open(os.path.join(outdir, f"stats_{rank}.json"), "w") as f:
+        json.dump({"segments": segments, "ms": ms}, f)
+    torch.distributed.destroy_process_group()
+
+
+def multihost_phase(dev, cornell, cornell_cam, tmp):
+    """Two processes share the card over gloo; each renders its stripes and
+    both gather the frame, bit-equal to the one-process render."""
+    import multiprocessing
+    import socket
+
+    import torch
+
+    from another_raytracer_tpu_torch.ops import camera as camera_lib
+    from another_raytracer_tpu_torch.ops import render as render_lib
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=multihost_worker,
+                         args=(r, 2, port, tmp, str(dev),
+                               (W, H, MH_SPP, DEPTH))) for r in range(2)]
+    t = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(MH_TIMEOUT)
+            if p.is_alive() or p.exitcode != 0:
+                raise AssertionError(f"multihost rank failed or hung "
+                                     f"(exit code {p.exitcode})")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    frames = [np.load(os.path.join(tmp, f"frame_{r}.npy")) for r in range(2)]
+    stats = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"stats_{r}.json")) as f:
+            stats.append(json.load(f))
+    cam = camera_lib.make_camera(aspect_ratio=W / H, device=dev, **cornell_cam)
+    ref, segs = render_lib.render_radiance(
+        cornell, cam, 0, width=W, height=H, spp=MH_SPP, samples_per_pass=1,
+        max_depth=DEPTH, t_min=1e-3)
+    ref = torch.stack(tuple(ref), 1).cpu().numpy()
+    ok = (np.array_equal(frames[0], frames[1])
+          and np.array_equal(frames[0], ref)
+          and stats[0]["segments"] == stats[1]["segments"] == int(segs))
+    out = {"ranks": 2, "backend": "gloo", "bit_equal": ok,
+           "render_ms": [st["ms"] for st in stats], "wall_ms": wall_ms,
+           "segments": stats[0]["segments"]}
+    if not ok:
+        raise AssertionError(f"multihost: {json.dumps(out)}")
+    phase("multihost", f"cornell {W}x{H} spp{MH_SPP} depth{DEPTH} in two "
+          f"processes on one card: {json.dumps(out)}")
+    return out
+
+
+def sharded_step_phase(dev, cornell, cornell_cam):
+    """The sharded training step at the bench size: over 4x1 (K2 and the
+    replay per shard) against the unsharded fused step, over 1x2 (the
+    lockstep path) against the unsharded lockstep step; one adam update."""
+    import torch
+
+    from another_raytracer_tpu_torch.grad import diff
+    from another_raytracer_tpu_torch.ops import camera as camera_lib
+    from another_raytracer_tpu_torch.parallel import sharding
+
+    cam = camera_lib.make_camera(aspect_ratio=BW / BH, device=dev,
+                                 **cornell_cam)
+    kw = dict(width=BW, height=BH, spp=BSPP, samples_per_pass=1,
+              max_depth=BDEPTH, t_min=1e-3)
+    target = torch.zeros((BW * BH, 3), device=dev)
+    params, _ = diff.split_params(cornell)
+
+    def worst(got, want):
+        """Largest |diff| over each leaf's scale."""
+        return max(float((got[k] - want[k]).abs().max())
+                   / max(float(want[k].abs().max()), 1e-30) for k in want)
+
+    out = {}
+    for (n_tile, n_spp), flag, path in (((4, 1), None, "fused"),
+                                        ((1, 2), False, "lockstep")):
+        part = sharding.hybrid_partition(n_tile, n_spp, devices=[dev] * 4)
+        with fused(flag):
+            loss_u, g_u = diff.render_value_and_grad(params, cornell, cam,
+                                                     target, 0, **kw)
+            reset_counts()
+            loss_s, g_s = diff.render_value_and_grad(
+                params, cornell, cam, target, 0, partition=part, **kw)
+            launched = counts()
+            ms_u, _ = cuda_ms(lambda: diff.render_value_and_grad(
+                params, cornell, cam, target, 0, **kw), dev, 3)
+            ms_s, _ = cuda_ms(lambda: diff.render_value_and_grad(
+                params, cornell, cam, target, 0, partition=part, **kw), dev, 3)
+        loss_rel = abs(float(loss_s) - float(loss_u)) / abs(float(loss_u))
+        grad_rel = worst(g_s, g_u)
+        want = (4, 4) if path == "fused" else (0, 0)
+        stats = {"path": path, "loss_rel": loss_rel, "grad_rel": grad_rel,
+                 "K2": launched["K2"], "replay": launched["replay"],
+                 "ms": ms_s, "unsharded_ms": ms_u}
+        out[f"{n_tile}x{n_spp}"] = stats
+        if ((launched["K2"], launched["replay"]) != want or loss_rel > 1e-5
+                or grad_rel > 1e-5):
+            raise AssertionError(f"sharded step {n_tile}x{n_spp}: "
+                                 f"{json.dumps(stats)}")
+    part = sharding.hybrid_partition(4, 1, devices=[dev] * 4)
+    state, step = diff.make_train_step(cornell, cam, target, partition=part,
+                                       **kw)
+    state, loss = step(state, 0)
+    finite = all(bool(torch.isfinite(v).all()) for v in state.params.values())
+    out["adam"] = {"loss": float(loss), "params_finite": finite}
+    if not finite or not np.isfinite(float(loss)):
+        raise AssertionError(f"sharded adam step: {out['adam']}")
+    phase("sharded_step", f"cornell {BW}x{BH} spp{BSPP} depth{BDEPTH}: "
+          f"{json.dumps(out)}")
+    return out
+
+
 def kernel_entries(log):
     """[(mangled kernel name, registers, spilled bytes)] of a -Xptxas -v
     build report."""
@@ -1430,9 +2034,37 @@ def kernel_entries(log):
     return [(nm,) + kernel_usage(log, nm) for nm in dict.fromkeys(names)]
 
 
-def main() -> int:
+def entry_phases(dev, cornell, cornell_cam, scene1, cam1):
+    """The entry points over the kernels: the parallel modes, the adaptive
+    mode over a partition, the progressive render, the CLI's sinks, JPEG,
+    two processes and the sharded step (each reads its own launch counts).
+    Returns {phase: stats}."""
+    with tempfile.TemporaryDirectory() as tmp:
+        return {
+            "modes": modes_phase(dev, cornell, cornell_cam, scene1, cam1, tmp),
+            "adaptive_partition": adaptive_partition_phase(dev, cornell,
+                                                           cornell_cam),
+            "progressive": progressive_phase(dev, cornell, cornell_cam, tmp),
+            "cli_entry": cli_entry_phase(dev, tmp),
+            "jpeg": jpeg_phase(dev, tmp),
+            "multihost": multihost_phase(dev, cornell, cornell_cam, tmp),
+            "sharded_step": sharded_step_phase(dev, cornell, cornell_cam)}
+
+
+def card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this check needs one "
               "NVIDIA GPU", file=sys.stderr)
@@ -1453,9 +2085,15 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     phase("device", f"{kind}, torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    # 1. Build every target from the checkout's sources, in parallel.
+    # 1. Build every target from the checkout's sources, in parallel, and
+    # the host library (csrc/host) with the host compiler beside them.
     t0 = time.perf_counter()
-    built = _build.build_all()
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(1) as pool:
+        host_build = pool.submit(host_library_phase)
+        built = _build.build_all()
+        host_line = host_build.result()
     for name, (path, secs) in built.items():
         usage = [ln.strip() for ln in _build.build_log(name).splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -2291,6 +2929,10 @@ def main() -> int:
     phase("timing_replay", f"scene 1 {BW}x{BH} spp{BSPP} depth{BDEPTH}, T = "
           f"{rp485['textures']}: {json.dumps(rp485_t)}")
 
+    entry = entry_phases(dev, cornell, cornell_cam, scene1, cam1)
+    modes, jpeg, sharded_step = (entry["modes"], entry["jpeg"],
+                                 entry["sharded_step"])
+
     # Bounds of the earlier kernels from this run's work: segments x the
     # per-segment operations; the bytes a lane reads and writes, the rows,
     # and K2's / the replay's residual rows.
@@ -2302,12 +2944,13 @@ def main() -> int:
     k2_bound_ms, k2_bound_by = bound(st_c["segments"] * seg_ops,
                                      BW * BH * 24 + row_bytes + resid)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip().splitlines()
+    smi = card_line()
     phase("total", f"chip_smoke ran {time.perf_counter() - _T0:.1f} s, builds "
           "included")
-    print(smi[0])
+    print("host library: " + json.dumps({**host_line, "jpeg": {
+        k: jpeg[k] for k in ("baseline_420", "progressive", "chroma_420",
+                             "chroma_progressive", "mesh")}}))
+    print(smi)
     print(json.dumps({"kernels": [
         {"name": "mega_kernel forward instance (K1, forward sweep megakernel)",
          "route": "cuda", "source": SRC + "mega_kernel.cu",
@@ -2323,7 +2966,10 @@ def main() -> int:
          "tail_share": sweep_tal["K1"]["tail_share"],
          "tail_share_per_block_mapping":
              sweep_tal["K1 per-block mapping"]["tail_share"],
-         "segments": segs_k, "mrays_per_s": segs_k / k1_ms / 1e3},
+         "segments": segs_k, "mrays_per_s": segs_k / k1_ms / 1e3,
+         "partitions": {k: v for k, v in modes.items() if k != "scene1 4x1"},
+         **{k: entry[k] for k in ("adaptive_partition", "progressive",
+                                  "cli_entry", "multihost")}},
         {"name": "mega_kernel record instance (K2, fused differentiable primal)",
          "route": "cuda", "source": SRC + "mega_kernel.cu",
          "replaces": JAX_PALLAS + "mega_kernel.py:691",
@@ -2334,7 +2980,8 @@ def main() -> int:
          "registers": k2_regs,
          "loop_simt": tal_k2["loop_simt"], "tail_share": tal_k2["tail_share"],
          "lanes_codes_equal": st_c["lanes_codes_equal"],
-         "bit_equal": st_c["bit_equal"]},
+         "bit_equal": st_c["bit_equal"],
+         "sharded_step": sharded_step},
         {"name": "mega_kernel accel forward instance (K3, megakernel with "
                  "the sphere-BVH walk)",
          "route": "cuda", "source": SRC + "mega_kernel.cu",
@@ -2350,7 +2997,8 @@ def main() -> int:
          "block_ms": k3_block_ms,
          "slab_simt": tal["slab_simt"], "leaf_simt": tal["leaf_simt"],
          "ground_share": tal["ground_share"],
-         "segments": segs_k3, "mrays_per_s": segs_k3 / k3_ms / 1e3},
+         "segments": segs_k3, "mrays_per_s": segs_k3 / k3_ms / 1e3,
+         "stripes_4x1": modes["scene1 4x1"]},
         {"name": "mega_kernel accel record instance (K3, fused "
                  "differentiable primal on a sphere tree)",
          "route": "cuda", "source": SRC + "mega_kernel.cu",
@@ -2375,6 +3023,7 @@ def main() -> int:
          "max_abs_err": replay_stats["max_abs_err"],
          "library_ms": None, **rp4,
          "bit_deterministic": replay_stats["bit_deterministic"],
+         "sharded_step_launches": sharded_step["4x1"]["replay"],
          "large_t": {"launches": train_launched["replay"],
                      "max_abs_err": rp485["max_abs_err"],
                      "library_ms": None, **rp485_t,
@@ -2400,7 +3049,8 @@ def main() -> int:
              "scene8_first_call": media["scene8_first_call"],
              "mesh_first_call": media["mesh_first_call"],
              "device_share_spp1": {k: v["K5_share"]
-                                   for k, v in media["profiles"].items()}}},
+                                   for k, v in media["profiles"].items()}},
+         "scene8_jpeg_earthmap": jpeg["scene8"]},
         {"name": "perlin_kernel (K4, Perlin noise)",
          "route": "cuda", "source": SRC + "perlin_kernel.cu",
          "replaces": JAX_PALLAS + "perlin_kernel.py:136",
@@ -2413,7 +3063,8 @@ def main() -> int:
          "one_block_ms": k4_floor_ms,
          "segments": tex_segments,
          "launches_scene8": media["renders"]["scene 8 single"]["K4"],
-         "device_share_scene8_spp1": media["profiles"][8]["K4_share"]},
+         "device_share_scene8_spp1": media["profiles"][8]["K4_share"],
+         "launches_scene8_jpeg_earthmap": jpeg["scene8"]["launches"]["K4"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -130,9 +130,9 @@ def test_adaptive_contract_errors(tmp_path):
                        mode=RenderMode.ADAPTIVE)
     with pytest.raises(ValueError, match="perfectly fit"):
         trender.render(scene, cam, cfg)
-    with pytest.raises(NotImplementedError, match="M18"):
+    with pytest.raises(TypeError, match="Partition"):
         tadaptive.render_adaptive(scene, cam, cfg.replace(width=48),
-                                  mesh=object())
+                                  partition=object())
     with pytest.raises(SystemExit):
         cli.main(["--scene", "6", "--width", "50", "--height", "36", "--mode",
                   "adaptive", "--device", "cpu", "--out",

@@ -743,3 +743,49 @@ def test_media_gradient_is_finite_on_the_card(dev):
         t_min=1e-3)
     g = grads["med_neg_inv_density"]
     assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+
+
+def test_host_library_builds_and_decodes_a_jpeg(dev):
+    """The host library (csrc/host) builds on the card's machine and decodes
+    the committed samples bit for bit as their stored native decodes, and
+    the tinted ones within the PIL bar of their stored PIL decodes."""
+    from pathlib import Path
+
+    from another_raytracer_tpu_torch.utils import native
+
+    path, _ = native.build()
+    assert path.exists()
+    samples = Path(native.__file__).resolve().parent / "jpeg_samples"
+    for name in ("baseline_420", "progressive", "chroma_420",
+                 "chroma_progressive"):
+        got = native.decode_jpeg(samples / f"{name}.jpg")
+        np.testing.assert_array_equal(
+            got, imageio.load_png(samples / f"{name}.native.png"))
+        if (samples / f"{name}.png").exists():
+            d = np.abs(got.astype(int)
+                       - imageio.load_png(samples / f"{name}.png").astype(int))
+            assert d.max() <= 4 and d.mean() < 0.1, name
+
+
+def test_stripes_over_one_card_equal_one_launch(dev):
+    """K1 over [cuda:0] x 4 stripes: each shard one launch, the radiance bit
+    for bit the single launch's; an all-dead sample shard returns zeros."""
+    from another_raytracer_tpu_torch.parallel import sharding
+
+    scene, params = library.cornell_box(device=dev)
+    cam = camera.make_camera(aspect_ratio=W / H, device=dev, **params)
+    kw = dict(width=W, height=H, spp=4, samples_per_pass=1, max_depth=8,
+              t_min=1e-3)
+    ref, ref_segs = render.render_radiance(scene, cam, 2, **kw)
+    before = mega_kernel.trace_regenerative_mega.launches
+    part = sharding.hybrid_partition(4, 1, devices=[dev] * 4)
+    acc, segs = sharding.render_radiance_sharded(scene, cam, 2, partition=part,
+                                                 **kw)
+    assert mega_kernel.trace_regenerative_mega.launches == before + 4
+    assert all(torch.equal(a, b) for a, b in zip(acc, ref))
+    assert int(segs) == int(ref_segs)
+    out, seg = render.radiance_batch(
+        scene, cam, torch.arange(W * H, device=dev), 2, width=W, height=H,
+        sample_start=4, n_samples=1, spp_cap=4, samples_per_pass=1,
+        max_depth=8, t_min=1e-3)
+    assert int(seg) == 0 and all(bool((c == 0).all()) for c in out)

@@ -15,7 +15,7 @@ import torch
 torch.set_num_threads(1)
 import chip_smoke
 from another_raytracer_tpu_torch import bench, cli
-from another_raytracer_tpu_torch.config import RenderConfig
+from another_raytracer_tpu_torch.config import RenderConfig, RenderMode
 from another_raytracer_tpu_torch.grad import diff
 from another_raytracer_tpu_torch.models import library
 from another_raytracer_tpu_torch.models import bvh as bvh_lib
@@ -23,7 +23,9 @@ from another_raytracer_tpu_torch.ops import bvh, camera, integrator, render, sha
 from another_raytracer_tpu_torch.ops.kernels import (_build, bvh_kernel,
                                                      mega_diff, mega_kernel,
                                                      perlin_kernel)
-from another_raytracer_tpu_torch.utils import assets
+from another_raytracer_tpu_torch.parallel import multihost, sharding
+from another_raytracer_tpu_torch.utils import (assets, imageio, liveview,
+                                               native, preview, profiling)
 
 scene, params = library.cornell_box(device="cpu")
 cam = camera.make_camera(aspect_ratio=1.0, device="cpu", **params)
@@ -44,6 +46,17 @@ for alias in (1, 3):
         scene, cam, RenderConfig(width=8, height=8, samples_per_pixel=1,
                                  max_depth=4))
     assert img.shape == (8, 8, 3) and st["segments"] > 0, st
+# The new entry points: stripes over two CPU shards, a progressive render,
+# the host library's parser.
+img2, st2 = render.render(
+    scene, cam, RenderConfig(width=12, height=12, samples_per_pixel=1,
+                             mode=RenderMode.PARALLEL_STRIPES),
+    partition=sharding.hybrid_partition(devices=["cpu", "cpu"]))
+assert img2.shape == (12, 12, 3) and st2["partition"] == {"tile": 2, "spp": 1}
+img3, _ = preview.render_progressive(
+    scene, cam, RenderConfig(width=12, height=12, samples_per_pixel=2))
+assert img3.shape == (12, 12, 3)
+assert native.library_path().name.startswith("host-")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "flax", "jaxlib",
                                     "another_raytracer_tpu")

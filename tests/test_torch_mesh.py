@@ -134,9 +134,10 @@ def tiny_obj(tmp_path):
 
 
 def test_parse_and_builder_match_jax(tiny_obj):
-    """Against the JAX package's pure-Python parser: its ``parse`` takes the
-    native parser where that is built, which reads a corner ``-5/-4`` as
-    more than one vertex (a port of that parser waits for ROADMAP M20)."""
+    """The port's ``parse`` (its native parser) against the JAX package's
+    pure-Python parser: JAX's ``parse`` takes its native parser where that
+    is built, which reads a corner ``-5/-4`` as more than one vertex
+    (tests/test_torch_native.py)."""
     got = tmesh.parse(tiny_obj)
     want = jmesh.MeshData(*jmesh._parse_obj_python(tiny_obj),
                           work_dir=tiny_obj.parent)
@@ -179,24 +180,25 @@ def test_load_image_matches_jax(tmp_path, color_type, filters):
 
 
 def test_load_image_refuses_what_it_cannot_decode(tmp_path):
+    """A missing file is the cyan fallback; a file that exists and cannot be
+    decoded raises instead of rendering cyan, in a mesh's map and as the
+    earthmap (scenes 4 and 8) alike."""
     assert imageio.load_image(tmp_path / "missing.png") is None
     (tmp_path / "x.jpg").write_bytes(b"\xff\xd8\xff\xe0" + bytes(64))
-    with pytest.raises(NotImplementedError, match="JPEG.*M20"):
+    with pytest.raises(ValueError, match="JPEG"):
         imageio.load_image(tmp_path / "x.jpg")
-    # A found JPEG map refuses the mesh instead of rendering cyan.
     (tmp_path / "j.mtl").write_text("newmtl t\nmap_Kd x.jpg\n")
     (tmp_path / "j.obj").write_text("mtllib j.mtl\nv 0 0 0\nv 1 0 0\n"
                                     "v 0 1 0\nusemtl t\nf 1 2 3\n")
-    with pytest.raises(NotImplementedError, match="M20"):
+    with pytest.raises(ValueError, match="JPEG"):
         tlib.mesh_scene(obj_path=tmp_path / "j.obj", device="cpu")
-    # So does a found earthmap (scenes 4 and 8).
     os.makedirs(tmp_path / "textures")
     (tmp_path / "textures" / "earthmap.jpg").write_bytes(b"\xff\xd8")
     mp = pytest.MonkeyPatch()
     mp.setenv("ARTPU_ASSETS", str(tmp_path))
     try:
         assert assets.earthmap_path() is not None
-        with pytest.raises(NotImplementedError, match="M20"):
+        with pytest.raises(ValueError, match="JPEG"):
             tlib.final_scene(device="cpu")
     finally:
         mp.undo()

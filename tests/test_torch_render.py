@@ -1,5 +1,5 @@
-"""Port vs JAX: single-mode render end to end, the CLI, and the gates of
-what is not ported yet.  On the CPU the JAX render runs the XLA wavefront
+"""Port vs JAX: single-mode render end to end, the CLI, and what the CLI
+refuses.  On the CPU the JAX render runs the XLA wavefront
 (integrator.trace_regenerative at spp > 1, the lockstep scan at spp 1) and
 the port runs the megakernel's plain version; the bar is that of
 tests/test_mega.py:37-45 on the radiance sums, plus >= 98% of uint8 channels
@@ -24,6 +24,7 @@ from another_raytracer_tpu_torch.models.scene import SceneBuilder
 from another_raytracer_tpu_torch.ops import camera as tcam
 from another_raytracer_tpu_torch.ops import render as trender
 from another_raytracer_tpu_torch.ops import vec3 as tvec3
+from another_raytracer_tpu_torch.parallel import sharding
 from another_raytracer_tpu_torch.utils import imageio
 
 torch.set_num_threads(1)
@@ -69,13 +70,22 @@ def test_cli_writes_png(tmp_path, capsys):
 
 
 def test_unported_paths_raise(tmp_path, monkeypatch):
+    """What used to be refused (the parallel modes, the progress sinks,
+    --live, media) now renders; what stays refused is what the JAX package
+    refuses too."""
     scene, params = tlib.cornell_box(device="cpu")
     cam = tcam.make_camera(aspect_ratio=W / H, device="cpu", **params)
-    for mode, item in [(RenderMode.PARALLEL_STRIPES, "M18"),
-                       (RenderMode.PARALLEL_IMAGES, "M18")]:
-        with pytest.raises(NotImplementedError, match=item):
-            trender.render(scene, cam, RenderConfig(width=W, height=H,
-                                                    mode=mode))
+    single, _ = trender.render(scene, cam, RenderConfig(width=W, height=H,
+                                                        samples_per_pixel=2))
+    for mode in (RenderMode.PARALLEL_STRIPES, RenderMode.PARALLEL_IMAGES):
+        cfg = RenderConfig(width=W, height=H, samples_per_pixel=2, mode=mode)
+        part = sharding.default_partition(mode, devices=["cpu"] * 2)
+        img, stats = trender.render(scene, cam, cfg, partition=part)
+        assert (img != single).mean() < 0.001 and stats["segments"] > 0
+        # The parallel modes render in one call and take no progress sink
+        # (JAX: ops/render.py:283-288).
+        with pytest.raises(ValueError, match="cannot stream progress"):
+            trender.render(scene, cam, cfg, progress=object(), partition=part)
     # Media are ported: forward and differentiable renders of a scene with
     # a medium trace (they raised NotImplementedError naming M15 before).
     b = SceneBuilder(background=(0.5, 0.6, 0.8), seed=3)
@@ -99,21 +109,31 @@ def test_unported_paths_raise(tmp_path, monkeypatch):
     with pytest.raises(FileNotFoundError):
         tlib.build(9, device="cpu")
     out = str(tmp_path / "x.png")
-    # The JAX CLI's defaults (scene 9, adaptive) need the mesh; the parallel
-    # modes and --live are not ported yet.
+    # The JAX CLI's defaults (scene 9, adaptive) need the mesh; a sink with
+    # a parallel mode and --checkpoint outside single mode are refused, as
+    # in the JAX CLI.
     for argv, error in (([], FileNotFoundError),
                         (["--mode", "adaptive", "--scene", "9"],
                          FileNotFoundError),
                         (["--mode", "single", "--scene", "9", "--obj",
                           str(tmp_path / "x.obj")], FileNotFoundError),
-                        (["--mode", "parallel_stripes", "--scene", "6"],
-                         SystemExit),
-                        (["--mode", "single", "--scene", "6", "--live"],
+                        (["--mode", "parallel_stripes", "--scene", "6",
+                          "--live"], SystemExit),
+                        (["--mode", "adaptive", "--scene", "6",
+                          "--checkpoint", str(tmp_path / "c.npz")],
                          SystemExit)):
         with pytest.raises(error):
             cli.main(argv + ["--width", "12", "--height", "12", "--spp", "1",
                              "--device", "cpu", "--out", out])
     assert not os.path.exists(out)
+    # The parallel modes and --live render through the CLI.
+    for argv in (["--mode", "parallel_stripes"], ["--mode", "parallel_images"],
+                 ["--mode", "single", "--live"]):
+        rc = cli.main(argv + ["--scene", "6", "--width", "12", "--height",
+                              "12", "--spp", "2", "--max-depth", "3",
+                              "--device", "cpu", "--out", out])
+        assert rc == 0 and imageio.load_png(out).shape == (12, 12, 3)
+        os.remove(out)
 
 
 def test_cuda_device_without_card_raises(tmp_path):
