@@ -53,8 +53,8 @@ def render_loss(params, scene, cam, target, seed, *, width, height, spp,
     the JAX package's ``dryrun_multichip`` — the scanline pixels in
     contiguous chunks over ``tile``, the samples over ``spp``, the shards'
     sums reduced before the loss (its psums).  A ``tile``-only partition
-    keeps the fused path on each shard (K2 + the replay) where the chunks
-    need no padding; an ``spp`` split takes the lockstep path, as in JAX."""
+    keeps the fused path on each shard (K2 + the replay), a short last
+    chunk included; an ``spp`` split takes the lockstep path, as in JAX."""
     s = merge_params(scene, params)
     pixel_ids = torch.arange(width * height, dtype=torch.int64,
                              device=s.device)
@@ -106,16 +106,17 @@ class TrainState(NamedTuple):
     opt_state: torch.optim.Adam
 
 
-def _adam(params, learning_rate):
+def _adam(params, learning_rate, eps=ADAM_EPS):
     return torch.optim.Adam(list(params.values()), lr=learning_rate,
-                            betas=ADAM_BETAS, eps=ADAM_EPS)
+                            betas=ADAM_BETAS, eps=eps)
 
 
 def make_train_step(scene, cam, target, *, width, height, spp,
                     samples_per_pass, max_depth, t_min=1e-3,
                     learning_rate=1e-2, trainable=DEFAULT_TRAINABLE,
-                    partition=None):
-    """Build (init_state, step_fn) for inverse rendering with adam.
+                    partition=None, eps=ADAM_EPS):
+    """Build (init_state, step_fn) for inverse rendering with adam
+    (``eps``: optax's ``adam(learning_rate, eps=)``).
 
     step_fn(state, seed) -> (state, loss): one forward + backward through
     ``render_loss`` (over ``partition`` where given) and one adam update of
@@ -124,7 +125,8 @@ def make_train_step(scene, cam, target, *, width, height, spp,
     params, _ = split_params(scene, trainable)
     params = {k: v.detach().clone().requires_grad_(True)
               for k, v in params.items()}
-    state = TrainState(params=params, opt_state=_adam(params, learning_rate))
+    state = TrainState(params=params,
+                       opt_state=_adam(params, learning_rate, eps))
 
     def step(state: TrainState, seed):
         opt = state.opt_state

@@ -25,7 +25,9 @@ Where the pixels do not divide over ``tile``, the last chunks are padded
 with born-dead lanes (``lane_mask``): they trace nothing and count no
 segments, so the segments equal single mode's at every size.  (The JAX
 package pads by repeating the first pixels, whose lanes are traced again
-and counted.)
+and counted.)  A differentiable render pads nothing: a short chunk is
+traced as it is and an empty one not at all, so each tile shard keeps
+the fused path, which takes any lane count and refuses pad lanes.
 """
 
 from __future__ import annotations
@@ -107,7 +109,9 @@ def radiance_pixels(scene, cam, pixel_ids, seed, *, partition: Partition,
                     width, height, spp, samples_per_pass, max_depth, t_min,
                     differentiable=False, trainable=None):
     """Radiance sums of a pixel batch at full spp over ``partition``: the
-    pixels in contiguous chunks over ``tile`` (padded with born-dead lanes),
+    pixels in contiguous chunks over ``tile`` (a forward render pads a
+    short chunk with born-dead lanes; a differentiable one traces it
+    unpadded and skips an empty one),
     shard k on ``spp`` tracing samples [k*ceil(spp/n_spp), (k+1)*...) ∩
     [0, spp), each shard one ``render.radiance_batch`` call.
 
@@ -134,7 +138,9 @@ def radiance_pixels(scene, cam, pixel_ids, seed, *, partition: Partition,
     for t, row in enumerate(partition.devices):
         lo, hi = stripe(n, t, partition.n_tile)
         ids, mask = pixel_ids[lo:hi], None
-        if hi - lo < chunk:
+        if differentiable and hi == lo:
+            continue
+        if hi - lo < chunk and not differentiable:
             pad = chunk - (hi - lo)
             ids = torch.cat([ids, ids.new_zeros(pad)])
             mask = torch.arange(chunk, device=ids.device) < hi - lo
@@ -152,7 +158,8 @@ def radiance_pixels(scene, cam, pixel_ids, seed, *, partition: Partition,
             acc = part if acc is None else acc + part
             segments = segments + segs.to(out_dev)
         tiles.append(acc)
-    acc = torch.cat(tiles)
+    acc = (torch.cat(tiles) if tiles
+           else torch.zeros((0, 3), dtype=torch.float32, device=out_dev))
     return V3(acc[:, 0], acc[:, 1], acc[:, 2]), segments
 
 

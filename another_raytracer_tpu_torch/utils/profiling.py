@@ -9,7 +9,9 @@ on ``torch.profiler``).
     and derives Mrays/s;
   * ``timed(label)`` brackets a region with the host clock after
     synchronising the card, so the bracket holds the device's work; it
-    yields a ``Timing`` that holds the seconds once the region ends.
+    yields a ``Timing`` that holds the seconds once the region ends;
+  * ``card_line()`` is the card's name and power limit, written beside
+    every time taken on it.
 
 The CLI times its render with ``timed`` and prints ``RayStats``' Mrays/s.
 """
@@ -21,6 +23,7 @@ import dataclasses
 import glob
 import json
 import os
+import subprocess
 import time
 
 import torch
@@ -110,3 +113,12 @@ def device_seconds(log_dir: str) -> float:
         raise RuntimeError(f"the trace under {log_dir} holds no device "
                            "activity")
     return sum(float(e["dur"]) for e in events) / 1e6
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]

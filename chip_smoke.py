@@ -85,8 +85,11 @@ PyTorch version:
   to the JAX package's stored native decodes, two with varying chroma, and
   the tinted ones within the PIL bar of PIL's stored decodes, scene 8 with a JPEG earthmap, a mesh with a JPEG
   ``map_Kd`` through the native parser); two processes on the card over
-  gloo (``multihost_phase``); and the sharded training step (4x1 fused,
-  1x2 lockstep, one adam update).
+  gloo (``multihost_phase``); the sharded training step (4x1 fused, the
+  ragged 7x1 fused, 1x2 lockstep, one adam update); and the two
+  inverse-rendering demos of ``train_demo`` at their chip configuration
+  and criteria (``train_demo_phase``: Cornell's 400 steps through its entry
+  point, K2 and the replay; the atlas's 400 on the lockstep path).
 
 The wavefront phases run with ``mega_kernel.MEGA_FORWARD = False``, which
 sends scene 1 to the wavefront + K5 (its auto route is K3).  Every phase
@@ -132,6 +135,7 @@ CW, CH, CSPP = 180, 135, 4  # the wavefront comparison
 BW, BH, BSPP, BDEPTH = 360, 270, 16, 8  # bench.py (training)
 TW, TH, TSPP, TDEPTH = 180, 135, 8, 6  # scripts/train_demo.py, chip size
 TRAIN_STEPS = 24
+DEMO_STEPS = 400  # the demos (train_demo_phase): the scripts' steps
 MH_SPP, MH_TIMEOUT = 16, 300  # the multihost phase: spp, s per process
 EW, EH, ESPP, JSPP = 360, 270, 8, 4  # the CLI-entry and JPEG phases
 K3_PLAIN_SPP = 4  # K3's plain version at the README width
@@ -1105,38 +1109,16 @@ def plain_wavefront():
 
 def reset_counts():
     """Every kernel's launch count to 0."""
-    from another_raytracer_tpu_torch.ops.kernels import (bvh_kernel, mega_diff,
-                                                         mega_kernel,
-                                                         perlin_kernel)
+    from another_raytracer_tpu_torch.ops import kernels
 
-    mega_kernel.trace_regenerative_mega.launches = 0
-    mega_kernel.trace_regenerative_mega.record_launches = 0
-    mega_kernel.trace_regenerative_mega.accel_launches = 0
-    mega_kernel.trace_regenerative_mega.accel_record_launches = 0
-    mega_kernel.trace_regenerative_mega.accel_global_launches = 0
-    mega_kernel.trace_regenerative_mega.accel_record_global_launches = 0
-    mega_diff.replay_backward.launches = 0
-    bvh_kernel.bvh_closest_hit.launches.clear()
-    perlin_kernel.perlin_noise.launches = 0
-    perlin_kernel.perlin_noise.points = 0
+    kernels.reset_launch_counts()
 
 
 def counts():
-    from another_raytracer_tpu_torch.ops.kernels import (bvh_kernel, mega_diff,
-                                                         mega_kernel,
-                                                         perlin_kernel)
+    """{kernel: launches} since the last ``reset_counts``."""
+    from another_raytracer_tpu_torch.ops import kernels
 
-    return dict(K1=mega_kernel.trace_regenerative_mega.launches,
-                K2=mega_kernel.trace_regenerative_mega.record_launches,
-                K3=mega_kernel.trace_regenerative_mega.accel_launches,
-                K3_record=mega_kernel.trace_regenerative_mega.accel_record_launches,
-                K3_global=mega_kernel.trace_regenerative_mega.accel_global_launches,
-                K3_record_global=(mega_kernel.trace_regenerative_mega
-                                  .accel_record_global_launches),
-                replay=mega_diff.replay_backward.launches,
-                K5=bvh_kernel.bvh_closest_hit.launches.total(),
-                K5_by_tree=dict(bvh_kernel.bvh_closest_hit.launches),
-                K4=perlin_kernel.perlin_noise.launches)
+    return kernels.launch_counts()
 
 
 def run_cli(scene, width, height, spp, depth, tmp, mode="single", obj=None):
@@ -1964,8 +1946,10 @@ def multihost_phase(dev, cornell, cornell_cam, tmp):
 
 def sharded_step_phase(dev, cornell, cornell_cam):
     """The sharded training step at the bench size: over 4x1 (K2 and the
-    replay per shard) against the unsharded fused step, over 1x2 (the
-    lockstep path) against the unsharded lockstep step; one adam update."""
+    replay per shard) and the ragged 7x1 (97,200 pixels: six chunks of
+    13,886 and one of 13,884, each on the fused path, unpadded) against the
+    unsharded fused step, over 1x2 (the lockstep path) against the
+    unsharded lockstep step; one adam update."""
     import torch
 
     from another_raytracer_tpu_torch.grad import diff
@@ -1986,8 +1970,10 @@ def sharded_step_phase(dev, cornell, cornell_cam):
 
     out = {}
     for (n_tile, n_spp), flag, path in (((4, 1), None, "fused"),
+                                        ((7, 1), None, "fused"),
                                         ((1, 2), False, "lockstep")):
-        part = sharding.hybrid_partition(n_tile, n_spp, devices=[dev] * 4)
+        part = sharding.hybrid_partition(n_tile, n_spp,
+                                         devices=[dev] * (n_tile * n_spp))
         with fused(flag):
             loss_u, g_u = diff.render_value_and_grad(params, cornell, cam,
                                                      target, 0, **kw)
@@ -2001,7 +1987,7 @@ def sharded_step_phase(dev, cornell, cornell_cam):
                 params, cornell, cam, target, 0, partition=part, **kw), dev, 3)
         loss_rel = abs(float(loss_s) - float(loss_u)) / abs(float(loss_u))
         grad_rel = worst(g_s, g_u)
-        want = (4, 4) if path == "fused" else (0, 0)
+        want = (n_tile, n_tile) if path == "fused" else (0, 0)
         stats = {"path": path, "loss_rel": loss_rel, "grad_rel": grad_rel,
                  "K2": launched["K2"], "replay": launched["replay"],
                  "ms": ms_s, "unsharded_ms": ms_u}
@@ -2023,6 +2009,52 @@ def sharded_step_phase(dev, cornell, cornell_cam):
     return out
 
 
+def train_demo_phase(dev):
+    """The inverse-rendering demos at the chip configuration, to the
+    scripts' chip criteria: Cornell for DEMO_STEPS steps through its entry
+    point (the ``main`` of ``python -m another_raytracer_tpu_torch.
+    train_demo``; K2 and the replay once a step and once for the floor),
+    then the atlas's DEMO_STEPS steps through ``atlas_demo`` and ``run`` at
+    samples_per_pass = spp (the scripts' samples in one pass, on the
+    lockstep path: no kernel).  Returns {demo: {"record": its record,
+    "launches": every kernel's launches over the demo, as checked}}."""
+    from another_raytracer_tpu_torch import train_demo
+
+    def cornell():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = train_demo.main(["--steps", str(DEMO_STEPS)])
+        return rc, json.loads(buf.getvalue().strip().splitlines()[-1])
+
+    def atlas():
+        demo = train_demo.atlas_demo(
+            dev, samples_per_pass=train_demo.ATLAS["chip"][2])
+        return 0, train_demo.run(demo, DEMO_STEPS, False, log=lambda *a: None)
+
+    out = {}
+    for name, drive in (("cornell", cornell), ("atlas", atlas)):
+        reset_counts()
+        rc, rec = drive()
+        launched = {k: v for k, v in counts().items() if k != "K5_by_tree"}
+        want = {k: 0 for k in launched}
+        if name == "cornell":
+            want.update(K2=DEMO_STEPS + 1, replay=DEMO_STEPS + 1)
+        if rc != 0 or not rec["passed"] or launched != want:
+            raise AssertionError(f"train_demo {name}: rc {rc}, launches "
+                                 f"{json.dumps(launched)}, record "
+                                 f"{json.dumps(rec)}")
+        out[name] = {"record": rec, "launches": launched}
+        phase("train_demo", f"{name}: {rec['config']}, samples_per_pass "
+              f"{rec['samples_per_pass']}, {DEMO_STEPS} steps in "
+              f"{rec['seconds']:.2f} s ({rec['ms_per_step']:.3f} ms a "
+              f"step); loss {rec['loss_curve'][0][1]:.6g} -> "
+              f"{rec['loss_curve'][-1][1]:.6g} (floor "
+              f"{rec['mc_noise_floor_at_true_params']:.6g}); "
+              f"{json.dumps({k: v for k, v in rec.items() if 'err' in k})}; "
+              f"launches {json.dumps(launched)}; {rec['card']}")
+    return out
+
+
 def kernel_entries(log):
     """[(mangled kernel name, registers, spilled bytes)] of a -Xptxas -v
     build report."""
@@ -2037,7 +2069,8 @@ def kernel_entries(log):
 def entry_phases(dev, cornell, cornell_cam, scene1, cam1):
     """The entry points over the kernels: the parallel modes, the adaptive
     mode over a partition, the progressive render, the CLI's sinks, JPEG,
-    two processes and the sharded step (each reads its own launch counts).
+    two processes, the sharded step and the two demos (each reads its own
+    launch counts).
     Returns {phase: stats}."""
     with tempfile.TemporaryDirectory() as tmp:
         return {
@@ -2048,14 +2081,8 @@ def entry_phases(dev, cornell, cornell_cam, scene1, cam1):
             "cli_entry": cli_entry_phase(dev, tmp),
             "jpeg": jpeg_phase(dev, tmp),
             "multihost": multihost_phase(dev, cornell, cornell_cam, tmp),
-            "sharded_step": sharded_step_phase(dev, cornell, cornell_cam)}
-
-
-def card_line():
-    """The card's name and power limit, as nvidia-smi gives them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+            "sharded_step": sharded_step_phase(dev, cornell, cornell_cam),
+            "train_demo": train_demo_phase(dev)}
 
 
 def main(argv=None) -> int:
@@ -2079,7 +2106,7 @@ def main(argv=None) -> int:
     from another_raytracer_tpu_torch.ops.kernels import (_build, mega_diff,
                                                          mega_kernel)
     from another_raytracer_tpu_torch.ops.vec3 import V3
-    from another_raytracer_tpu_torch.utils import imageio
+    from another_raytracer_tpu_torch.utils import imageio, profiling
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -2930,8 +2957,9 @@ def main(argv=None) -> int:
           f"{rp485['textures']}: {json.dumps(rp485_t)}")
 
     entry = entry_phases(dev, cornell, cornell_cam, scene1, cam1)
-    modes, jpeg, sharded_step = (entry["modes"], entry["jpeg"],
-                                 entry["sharded_step"])
+    modes, jpeg, sharded_step, demos = (entry["modes"], entry["jpeg"],
+                                        entry["sharded_step"],
+                                        entry["train_demo"])
 
     # Bounds of the earlier kernels from this run's work: segments x the
     # per-segment operations; the bytes a lane reads and writes, the rows,
@@ -2944,7 +2972,7 @@ def main(argv=None) -> int:
     k2_bound_ms, k2_bound_by = bound(st_c["segments"] * seg_ops,
                                      BW * BH * 24 + row_bytes + resid)
 
-    smi = card_line()
+    smi = profiling.card_line()
     phase("total", f"chip_smoke ran {time.perf_counter() - _T0:.1f} s, builds "
           "included")
     print("host library: " + json.dumps({**host_line, "jpeg": {
@@ -2981,7 +3009,12 @@ def main(argv=None) -> int:
          "loop_simt": tal_k2["loop_simt"], "tail_share": tal_k2["tail_share"],
          "lanes_codes_equal": st_c["lanes_codes_equal"],
          "bit_equal": st_c["bit_equal"],
-         "sharded_step": sharded_step},
+         "sharded_step": sharded_step,
+         "train_demo": {
+             "launches": demos["cornell"]["launches"]["K2"],
+             **{k: demos["cornell"]["record"][k] for k in (
+                 "steps", "ms_per_step", "loss_curve", "tex_ca_mean_abs_err",
+                 "mc_noise_floor_at_true_params")}}},
         {"name": "mega_kernel accel forward instance (K3, megakernel with "
                  "the sphere-BVH walk)",
          "route": "cuda", "source": SRC + "mega_kernel.cu",
@@ -3023,7 +3056,9 @@ def main(argv=None) -> int:
          "max_abs_err": replay_stats["max_abs_err"],
          "library_ms": None, **rp4,
          "bit_deterministic": replay_stats["bit_deterministic"],
-         "sharded_step_launches": sharded_step["4x1"]["replay"],
+         "sharded_step_launches": {k: sharded_step[k]["replay"]
+                                   for k in ("4x1", "7x1")},
+         "train_demo_launches": demos["cornell"]["launches"]["replay"],
          "large_t": {"launches": train_launched["replay"],
                      "max_abs_err": rp485["max_abs_err"],
                      "library_ms": None, **rp485_t,

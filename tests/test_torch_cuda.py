@@ -789,3 +789,43 @@ def test_stripes_over_one_card_equal_one_launch(dev):
         sample_start=4, n_samples=1, spp_cap=4, samples_per_pass=1,
         max_depth=8, t_min=1e-3)
     assert int(seg) == 0 and all(bool((c == 0).all()) for c in out)
+
+
+def test_cornell_demo_matches_plain_versions(dev):
+    """The Cornell demo's first 3 steps at its chip configuration: on the
+    card (one K2 and one replay launch a step) against the same on the
+    CPU's plain versions.  The floor and each step's loss, each leaf's
+    gradient at each step, and after the steps each leaf's change from its
+    start, agree within 1e-3 of their scale.  The gradients are held
+    themselves, since adam's update hardly depends on a gradient's scale.
+    The bar is above rounding's: the card's and the CPU's math functions
+    may differ by an ulp, which can part a grazing path, and one pixel of
+    the 24,300 is ~4e-5 of the loss (an H100 gave 3.9e-5 for a loss,
+    1.8e-4 for a gradient and 2.7e-4 for the change); a kernel that is
+    wrong anywhere shows at O(1)."""
+    from another_raytracer_tpu_torch import train_demo
+    from another_raytracer_tpu_torch.ops import kernels
+
+    def worst(got, want):
+        return max(float((got[k].detach().cpu() - want[k]).abs().max())
+                   / max(float(want[k].abs().max()), 1e-30) for k in want)
+
+    card = train_demo.cornell_demo(dev)
+    plain = train_demo.cornell_demo("cpu")
+    start = {k: v.detach().clone() for k, v in plain.params.items()}
+    seen = {"floor": abs(card.floor - plain.floor) / plain.floor}
+    kernels.reset_launch_counts()
+    for k in range(3):
+        got, want = float(card.step(k)), float(plain.step(k))
+        seen[f"loss {k}"] = abs(got - want) / abs(want)
+        seen[f"grad {k}"] = worst(
+            {n: p.grad for n, p in card.params.items()},
+            {n: p.grad for n, p in plain.params.items()})
+    launched = kernels.launch_counts()
+    seen["change"] = worst({n: card.params[n].detach().cpu() - start[n]
+                            for n in start},
+                           {n: plain.params[n].detach() - start[n]
+                            for n in start})
+    print("card vs plain, over scale:", seen)  # shown by pytest -rP
+    assert (launched["K2"], launched["replay"]) == (3, 3)
+    assert max(seen.values()) <= 1e-3, seen

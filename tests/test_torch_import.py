@@ -14,7 +14,7 @@ sys.modules["flax"] = None
 import torch
 torch.set_num_threads(1)
 import chip_smoke
-from another_raytracer_tpu_torch import bench, cli
+from another_raytracer_tpu_torch import bench, cli, train_demo
 from another_raytracer_tpu_torch.config import RenderConfig, RenderMode
 from another_raytracer_tpu_torch.grad import diff
 from another_raytracer_tpu_torch.models import library
@@ -57,6 +57,11 @@ img3, _ = preview.render_progressive(
     scene, cam, RenderConfig(width=12, height=12, samples_per_pixel=2))
 assert img3.shape == (12, 12, 3)
 assert native.library_path().name.startswith("host-")
+# The demos' atlas scene, on the committed JPEG sample.
+texels, _ = train_demo.atlas_image()
+atlas = train_demo.atlas_scene(train_demo.box_down(texels, 16, 16), "cpu")
+n_texels = (texels.shape[0] // 16) * (texels.shape[1] // 16)
+assert tuple(atlas.atlas.shape) == (n_texels, 3), atlas.atlas.shape
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "flax", "jaxlib",
                                     "another_raytracer_tpu")

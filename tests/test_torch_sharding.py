@@ -164,13 +164,18 @@ def test_adaptive_over_a_partition(n_tile, n_spp):
         tadaptive.render_adaptive(scene, cam, cfg, partition=object())
 
 
-@pytest.mark.parametrize("n_tile,n_spp,fused_calls", [(4, 1, 4), (1, 2, 0)])
+@pytest.mark.parametrize("n_tile,n_spp,fused_calls",
+                         [(4, 1, 4), (1, 2, 0), (5, 1, 5), (7, 1, 7),
+                          (25, 1, 24)])
 def test_sharded_train_step_matches_jax(monkeypatch, n_tile, n_spp,
                                         fused_calls):
     """The sharded step (``dryrun_multichip``'s): a tile partition takes the
     fused path per shard (K2 + the replay's plain versions here), an spp
     split the lockstep path; loss and gradients against JAX's unsharded
-    ``render_value_and_grad`` (its lockstep path on the CPU)."""
+    ``render_value_and_grad`` (its lockstep path on the CPU).  192 pixels
+    over 5 tiles leave a short last chunk (36 of 39), over 7 one of 24 of
+    28, over 25 an empty one (24 chunks of 8): one fused call per non-empty
+    shard, no pad lanes."""
     w, h, spp, depth = 16, 12, 4, 4  # tests/test_torch_diff.py's cornell
     kw = dict(width=w, height=h, spp=spp, samples_per_pass=1, max_depth=depth,
               t_min=1e-3)
@@ -208,6 +213,47 @@ def test_sharded_train_step_matches_jax(monkeypatch, n_tile, n_spp,
     np.testing.assert_allclose(float(loss1), float(loss_w), rtol=1e-5)
     assert all(bool(torch.isfinite(v).all()) for v in state.params.values())
     assert not torch.equal(state.params["tex_ca"], before["tex_ca"])
+
+
+def test_ragged_differentiable_render_matches_jax():
+    """``render_radiance_sharded(differentiable=True)`` over 5 tiles of 192
+    pixels (a short last chunk, on the fused path) against JAX's over
+    ``hybrid_mesh(5, 1)``: the per-channel sums, and the gradient of their
+    total in ``tex_ca``."""
+    w, h, spp, depth = 16, 12, 4, 4
+    kw = dict(width=w, height=h, spp=spp, samples_per_pass=1, max_depth=depth,
+              t_min=1e-3)
+    jscene, params = jlib.cornell_box()
+    jcamera = jcam.make_camera(aspect_ratio=w / h, **params)
+    mesh = jsharding.hybrid_mesh(5, 1)
+
+    def jtotal(tex_ca):
+        acc, _ = jsharding.render_radiance_sharded(
+            jscene.replace(tex_ca=tex_ca), jcamera, jnp.uint32(0), mesh=mesh,
+            differentiable=True, **kw)
+        sums = jnp.stack([acc.x.sum(), acc.y.sum(), acc.z.sum()])
+        return sums.sum(), sums
+
+    import jax
+
+    (_, want_sums), want_g = jax.value_and_grad(jtotal, has_aux=True)(
+        jscene.tex_ca)
+
+    scene, _ = tlib.cornell_box(device="cpu")
+    cam = tcam.make_camera(aspect_ratio=w / h, device="cpu", **params)
+    tex_ca = scene.tex_ca.detach().clone().requires_grad_(True)
+    with torch.enable_grad():
+        acc, _ = sharding.render_radiance_sharded(
+            scene.replace(tex_ca=tex_ca), cam, 0, partition=cpus(5, 1),
+            differentiable=True, trainable=diff.DEFAULT_TRAINABLE, **kw)
+        sums = torch.stack([c.sum() for c in acc])
+        (g,) = torch.autograd.grad(sums.sum(), [tex_ca])
+    np.testing.assert_allclose(sums.detach().numpy(), np.asarray(want_sums),
+                               rtol=1e-5)
+    want_g = np.asarray(want_g)
+    scale = max(np.abs(want_g).max(), 1e-9)
+    np.testing.assert_allclose(g.numpy(), want_g, atol=2e-4 * scale,
+                               rtol=2e-4)
 
 
 def test_partition_shapes():
