@@ -113,7 +113,7 @@ def _radiance_batch_diff(scene, cam, pixel_ids, seed, *, width, height,
             raise ValueError(
                 "lane_mask is not supported on the fused differentiable path "
                 "(ROADMAP F2); pass the real pixels only, as "
-                "sharding.radiance_pixels does for a differentiable render")
+                "sharding.radiance_pixels does")
         acc, segments = mega_diff.radiance_fused(
             scene, cam, pix, samp_offsets, seed, width=width, height=height,
             sample_stride=spass, spp_cap=spp_cap, max_depth=max_depth,

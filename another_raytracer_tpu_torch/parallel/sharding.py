@@ -21,13 +21,12 @@ scene.  The RNG keys on absolute (pixel, sample) ids, so stripes give the
 single-mode radiance bit for bit, and images give it up to the order of
 the float additions.
 
-Where the pixels do not divide over ``tile``, the last chunks are padded
-with born-dead lanes (``lane_mask``): they trace nothing and count no
-segments, so the segments equal single mode's at every size.  (The JAX
-package pads by repeating the first pixels, whose lanes are traced again
-and counted.)  A differentiable render pads nothing: a short chunk is
-traced as it is and an empty one not at all, so each tile shard keeps
-the fused path, which takes any lane count and refuses pad lanes.
+Where the pixels do not divide over ``tile``, the last chunks are short or
+empty: a short chunk is traced as it is and an empty one not at all, so
+the segments equal single mode's at every size, and each tile shard of a
+differentiable render keeps the fused path, which takes any lane count.
+(The JAX package pads by repeating the first pixels, whose lanes are
+traced again and counted.)
 """
 
 from __future__ import annotations
@@ -109,11 +108,10 @@ def radiance_pixels(scene, cam, pixel_ids, seed, *, partition: Partition,
                     width, height, spp, samples_per_pass, max_depth, t_min,
                     differentiable=False, trainable=None):
     """Radiance sums of a pixel batch at full spp over ``partition``: the
-    pixels in contiguous chunks over ``tile`` (a forward render pads a
-    short chunk with born-dead lanes; a differentiable one traces it
-    unpadded and skips an empty one),
-    shard k on ``spp`` tracing samples [k*ceil(spp/n_spp), (k+1)*...) ∩
-    [0, spp), each shard one ``render.radiance_batch`` call.
+    pixels in contiguous chunks over ``tile`` (a short chunk traced as it
+    is, an empty one skipped), shard k on ``spp`` tracing samples
+    [k*ceil(spp/n_spp), (k+1)*...) ∩ [0, spp), each shard one
+    ``render.radiance_batch`` call.
 
     Returns (radiance_sum V3 of [Np] on the scene's device, segments int64
     scalar tensor), differentiable where ``differentiable`` is."""
@@ -122,7 +120,6 @@ def radiance_pixels(scene, cam, pixel_ids, seed, *, partition: Partition,
                         f"{type(partition).__name__}")
     out_dev = scene.device
     n = pixel_ids.shape[0]
-    chunk = -(-n // partition.n_tile) if n else 0
     spp_local = -(-spp // partition.n_spp)
     placed = {}
 
@@ -137,13 +134,9 @@ def radiance_pixels(scene, cam, pixel_ids, seed, *, partition: Partition,
     segments = torch.zeros((), dtype=torch.int64, device=out_dev)
     for t, row in enumerate(partition.devices):
         lo, hi = stripe(n, t, partition.n_tile)
-        ids, mask = pixel_ids[lo:hi], None
-        if differentiable and hi == lo:
+        if hi == lo:
             continue
-        if hi - lo < chunk and not differentiable:
-            pad = chunk - (hi - lo)
-            ids = torch.cat([ids, ids.new_zeros(pad)])
-            mask = torch.arange(chunk, device=ids.device) < hi - lo
+        ids = pixel_ids[lo:hi]
         acc = None
         for k, dev in enumerate(row):
             s, c = on(dev)
@@ -152,9 +145,8 @@ def radiance_pixels(scene, cam, pixel_ids, seed, *, partition: Partition,
                 sample_start=k * spp_local, n_samples=spp_local, spp_cap=spp,
                 samples_per_pass=samples_per_pass, max_depth=max_depth,
                 t_min=t_min, differentiable=differentiable,
-                trainable=trainable,
-                lane_mask=None if mask is None else mask.to(dev))
-            part = torch.stack(tuple(part), dim=1)[:hi - lo].to(out_dev)
+                trainable=trainable)
+            part = torch.stack(tuple(part), dim=1).to(out_dev)
             acc = part if acc is None else acc + part
             segments = segments + segs.to(out_dev)
         tiles.append(acc)

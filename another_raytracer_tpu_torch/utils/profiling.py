@@ -1,8 +1,9 @@
 """Profiling and metrics (port of ``another_raytracer_tpu.utils.profiling``
 on ``torch.profiler``).
 
-  * ``trace(log_dir)`` records a region's CPU activity, and its CUDA
-    activity where a card is visible, into a Chrome trace in ``log_dir``;
+  * ``trace(log_dir)`` records a region's CPU activity (unless
+    ``host=False``), and its CUDA activity where a card is visible, into a
+    Chrome trace in ``log_dir``;
   * ``device_seconds(log_dir)`` sums the device activity of the newest
     trace there (the counterpart of JAX's ``module_device_seconds``);
   * ``RayStats`` accumulates honest segment counts (bounce rays included)
@@ -33,11 +34,13 @@ DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 @contextlib.contextmanager
-def trace(log_dir: str):
-    """Profile the region and write ``<log_dir>/trace-<ns>.json``."""
+def trace(log_dir: str, host: bool = True):
+    """Profile the region and write ``<log_dir>/trace-<ns>.json``.
+    ``host=False`` records the card's activity alone: the host's operators
+    are most of a long trace's events and of the profiler's cost."""
     from torch.profiler import ProfilerActivity, profile
 
-    activities = [ProfilerActivity.CPU]
+    activities = [ProfilerActivity.CPU] if host else []
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
@@ -91,9 +94,10 @@ class RayStats:
         return self.segments / self.seconds / 1e6 if self.seconds else 0.0
 
 
-def device_events(log_dir: str) -> list:
-    """The device activity events (``DEVICE_CATEGORIES``) of the newest
-    trace under ``log_dir``."""
+def device_events(log_dir: str, categories=DEVICE_CATEGORIES) -> list:
+    """The complete events of ``categories`` (default the device activity,
+    ``DEVICE_CATEGORIES``; ``("cpu_op",)`` the host's operators) of the
+    newest trace under ``log_dir``."""
     files = glob.glob(os.path.join(log_dir, "trace-*.json"))
     if not files:
         raise FileNotFoundError(f"no profiler trace under {log_dir}")
@@ -101,7 +105,7 @@ def device_events(log_dir: str) -> list:
     with open(newest) as f:
         events = json.load(f)["traceEvents"]
     return [e for e in events
-            if e.get("ph") == "X" and e.get("cat") in DEVICE_CATEGORIES]
+            if e.get("ph") == "X" and e.get("cat") in categories]
 
 
 def device_seconds(log_dir: str) -> float:

@@ -89,7 +89,15 @@ PyTorch version:
   ragged 7x1 fused, 1x2 lockstep, one adam update); and the two
   inverse-rendering demos of ``train_demo`` at their chip configuration
   and criteria (``train_demo_phase``: Cornell's 400 steps through its entry
-  point, K2 and the replay; the atlas's 400 on the lockstep path).
+  point, K2 and the replay; the atlas's 400 on the lockstep path);
+* the JAX repo's last entry points (``bench_extra_phase``): every row of
+  ``bench_extra.CONFIGS`` whose input exists (the capsule rows on
+  ``write_capsule``'s mesh) at a reduced size through the kernels against
+  the same through their plain versions, then once at its full size
+  (``BX_SPP_CUTS``' rows with spp cut) through ``bench_extra.measure``,
+  its record printed and its route held to ``BX_ROUTES``; and the scaling
+  harness over ``[cuda:0] x 4``, its 1-device and 4-shard renders
+  bit-equal.
 
 The wavefront phases run with ``mega_kernel.MEGA_FORWARD = False``, which
 sends scene 1 to the wavefront + K5 (its auto route is K3).  Every phase
@@ -2055,6 +2063,167 @@ def train_demo_phase(dev):
     return out
 
 
+# The bench_extra phase: every row's card-vs-plain check at BX_SIZE (W, H,
+# spp, depth; 12 | W and H for the adaptive rows), and the kernels each
+# row's call launches on the card (its route, ``bench_extra``'s
+# ``kernels``; K3 and K3_record on either table route).
+BX_SIZE = (72, 36, 2, 4)
+BX_ROUTES = {
+    "sphere_ground": {"K1"}, "random": {"K3"}, "textures": {"K4"},
+    "cornell": {"K1"}, "mesh": {"K5"}, "final": {"K5", "K4"},
+    "mesh_hd": {"K5"}, "mesh_grad": {"K5"},
+    "sphere_ground_grad": {"K2", "replay"},
+    "metal_diel_grad": {"K2", "replay"}, "mesh_grad_bench": {"K5"},
+    "random_grad": {"K3_record", "replay"},
+    "final_grad_bench": {"K5"}, "textures_grad": set(),
+    "reference_default": {"K5"}}
+# (The gradient rows train tri_v* too, which ``render.noise_value_only``
+# takes as reaching the noise's argument, so their Perlin noise runs with
+# its gradient in the point, on the autograd path and not through K4.)
+# The rows whose calls take a second or more run here at their full width
+# with spp cut, one timed and one profiled call each, to keep the script
+# within its time; ``python -m another_raytracer_tpu_torch.bench_extra``
+# runs them whole.
+BX_SPP_CUTS = {"textures": 4, "mesh": 4, "final": 2, "textures_grad": 4,
+               "final_grad_bench": 2, "mesh_grad_bench": 4,
+               "reference_default": 4}
+BX_PROTOCOL = dict(reps=1, profiled_reps=1)
+ROUTE_KERNELS = ("K1", "K2", "K3", "K3_record", "replay", "K4", "K5")
+
+
+def route(launched):
+    """The kernels a launch-count dict shows, K3 and K3_record on either
+    table route."""
+    n = dict(launched)
+    n["K3"] += n["K3_global"]
+    n["K3_record"] += n["K3_record_global"]
+    return {k for k in ROUTE_KERNELS if n[k]}
+
+
+def bench_extra_phase(dev, tmp):
+    """Every ``bench_extra`` row on the card, the capsule rows on
+    ``write_capsule``'s mesh: (a) at BX_SIZE through the kernels against
+    the same through their plain versions (forward rows to the bar of
+    tests/test_mega.py:37-45, the adaptive row's image too; gradient rows:
+    the loss to 1e-5 relative, each gradient to 1e-3 of its leaf's scale);
+    (b) each row once at its full size through ``bench_extra.measure``
+    (BX_SPP_CUTS' rows with spp cut and BX_PROTOCOL's reps), its record
+    printed and its route held to BX_ROUTES, the counts set to 0 just
+    before and read just after; (c) the scaling harness over ``[cuda:0] x
+    4``, its 1-device and 4-shard renders bit-equal.  Returns {"rows": {row: record}, "launches":
+    {kernel: {row: launches}}, "compare": {row: stats}, "scaling": ...}."""
+    import torch
+
+    from another_raytracer_tpu_torch import bench_extra, scaling_harness
+    from another_raytracer_tpu_torch.ops.vec3 import V3
+    from another_raytracer_tpu_torch.parallel import sharding
+
+    obj = write_capsule(tmp)
+    out = {"rows": {}, "launches": {k: {} for k in ROUTE_KERNELS},
+           "compare": {}, "cuts": {}}
+    bad = []
+
+    def as_v3(img):
+        flat = torch.from_numpy(img.reshape(-1, 3) / 255.0)
+        return V3(*flat.unbind(1))
+
+    for name, (_, *size, mode) in bench_extra.CONFIGS.items():
+        try:
+            wl = bench_extra.setup(name, dev, obj, BX_SIZE)
+        except FileNotFoundError as e:
+            phase("bench_extra", f"skip {name}: {e}")
+            continue
+        what = f"bench_extra {name} {wl.config}"
+        call = bench_extra.CALLS[mode]
+        got = call(wl)()
+        reset_counts()
+        with plain_versions(), plain_wavefront():
+            ref = call(wl)()
+        if route(counts()):
+            raise AssertionError(f"{what}: the plain versions launched "
+                                 f"{counts()}")
+        if mode == "single":
+            st = forward_bar(got[0], ref[0], got[1], ref[1], what)
+        elif mode == "adaptive":
+            st = forward_bar(as_v3(got[0]), as_v3(ref[0]),
+                             got[1]["segments"], ref[1]["segments"], what)
+            st["traced_pixels"] = got[1]["traced_pixels"]
+            if got[1]["traced_pixels"] != ref[1]["traced_pixels"]:
+                raise AssertionError(f"{what}: traced pixels {got[1]} vs "
+                                     f"{ref[1]}")
+        else:
+            (loss, grads), (loss_p, grads_p) = got, ref
+            st = {"loss": float(loss), "loss_rel": abs(
+                float(loss) - float(loss_p)) / abs(float(loss_p)),
+                  "grad_rel": max(leaf_rel(grads[k], grads_p[k])
+                                  for k in grads)}
+            if st["loss_rel"] > 1e-5 or st["grad_rel"] > 1e-3:
+                raise AssertionError(f"{what}: card vs plain {st}")
+        out["compare"][name] = st
+        phase("bench_extra", f"{what}, card vs plain: {json.dumps(st)}")
+
+        full, protocol = tuple(size), {}
+        if name in BX_SPP_CUTS:
+            full = (size[0], size[1], BX_SPP_CUTS[name], size[3])
+            protocol = BX_PROTOCOL
+            out["cuts"][name] = {"spp": full[2], "row_spp": size[2],
+                                 **protocol}
+            phase("bench_extra", f"{name}: spp cut from {size[2]} to "
+                  f"{full[2]} here, {json.dumps(protocol)} (its full size "
+                  "runs through python -m another_raytracer_tpu_torch."
+                  "bench_extra)")
+        wl = bench_extra.setup(name, dev, obj, full)
+        reset_counts()
+        rec, _ = bench_extra.measure(wl, **protocol)
+        launched = counts()
+        out["rows"][name] = rec
+        for k in ROUTE_KERNELS:
+            n = launched[k] + launched.get(k + "_global", 0)
+            if n:
+                out["launches"][k][name] = n
+        phase("bench_extra", json.dumps(rec))
+        if route(rec["kernels"]) != BX_ROUTES[name]:
+            bad.append(f"{name}: launched {sorted(route(rec['kernels']))}, "
+                       f"expected {sorted(BX_ROUTES[name])}")
+    missing = [k for k, rows in out["launches"].items() if not rows]
+    if bad or missing:
+        raise AssertionError(f"bench_extra routes: {bad}; kernels never "
+                             f"launched: {missing}")
+
+    devices = ",".join([str(dev)] * 4)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = scaling_harness.main(["--devices", devices])
+    lines = buf.getvalue().strip().splitlines()
+    rates = [float(re.search(r"([\d.]+) Mrays/s", ln).group(1))
+             for ln in lines if ln.startswith("devices=")]
+    args = scaling_harness.parse_args(["--devices", devices])
+    wl = bench_extra.setup("cornell", dev, size=(args.width, args.height,
+                                                 args.spp, args.depth))
+    one, four = (scaling_harness.render_fn(wl.scene, wl.cam, args, part)()
+                 for part in (sharding.hybrid_partition(1, 1, devices=[dev]),
+                              sharding.hybrid_partition(4, 1,
+                                                        devices=[dev] * 4)))
+    equal = (all(torch.equal(a, b) for a, b in zip(one[0], four[0]))
+             and int(one[1]) == int(four[1]))
+    out["scaling"] = {"lines": lines, "mrays_per_s": rates,
+                      "bit_equal_1_vs_4": equal}
+    phase("bench_extra", "scaling harness over [cuda:0] x 4: "
+          + " | ".join(lines) + f"; 1-device and 4-shard renders bit-equal: "
+          f"{equal}")
+    if rc != 0 or len(rates) != 3 or not equal:
+        raise AssertionError(f"scaling harness: {out['scaling']}")
+    return out
+
+
+def leaf_rel(got, want):
+    """max |got - want| over want's scale (0 for an empty leaf)."""
+    if not want.numel():
+        return 0.0
+    return (float((got - want).abs().max())
+            / max(float(want.abs().max()), 1e-30))
+
+
 def kernel_entries(log):
     """[(mangled kernel name, registers, spilled bytes)] of a -Xptxas -v
     build report."""
@@ -2069,8 +2238,8 @@ def kernel_entries(log):
 def entry_phases(dev, cornell, cornell_cam, scene1, cam1):
     """The entry points over the kernels: the parallel modes, the adaptive
     mode over a partition, the progressive render, the CLI's sinks, JPEG,
-    two processes, the sharded step and the two demos (each reads its own
-    launch counts).
+    two processes, the sharded step, the two demos and the bench_extra
+    rows with the scaling harness (each reads its own launch counts).
     Returns {phase: stats}."""
     with tempfile.TemporaryDirectory() as tmp:
         return {
@@ -2082,7 +2251,8 @@ def entry_phases(dev, cornell, cornell_cam, scene1, cam1):
             "jpeg": jpeg_phase(dev, tmp),
             "multihost": multihost_phase(dev, cornell, cornell_cam, tmp),
             "sharded_step": sharded_step_phase(dev, cornell, cornell_cam),
-            "train_demo": train_demo_phase(dev)}
+            "train_demo": train_demo_phase(dev),
+            "bench_extra": bench_extra_phase(dev, tmp)}
 
 
 def main(argv=None) -> int:
@@ -2960,6 +3130,7 @@ def main(argv=None) -> int:
     modes, jpeg, sharded_step, demos = (entry["modes"], entry["jpeg"],
                                         entry["sharded_step"],
                                         entry["train_demo"])
+    bx = entry["bench_extra"]["launches"]
 
     # Bounds of the earlier kernels from this run's work: segments x the
     # per-segment operations; the bytes a lane reads and writes, the rows,
@@ -2995,6 +3166,7 @@ def main(argv=None) -> int:
          "tail_share_per_block_mapping":
              sweep_tal["K1 per-block mapping"]["tail_share"],
          "segments": segs_k, "mrays_per_s": segs_k / k1_ms / 1e3,
+         "bench_extra_launches": bx["K1"],
          "partitions": {k: v for k, v in modes.items() if k != "scene1 4x1"},
          **{k: entry[k] for k in ("adaptive_partition", "progressive",
                                   "cli_entry", "multihost")}},
@@ -3009,6 +3181,7 @@ def main(argv=None) -> int:
          "loop_simt": tal_k2["loop_simt"], "tail_share": tal_k2["tail_share"],
          "lanes_codes_equal": st_c["lanes_codes_equal"],
          "bit_equal": st_c["bit_equal"],
+         "bench_extra_launches": bx["K2"],
          "sharded_step": sharded_step,
          "train_demo": {
              "launches": demos["cornell"]["launches"]["K2"],
@@ -3031,6 +3204,7 @@ def main(argv=None) -> int:
          "slab_simt": tal["slab_simt"], "leaf_simt": tal["leaf_simt"],
          "ground_share": tal["ground_share"],
          "segments": segs_k3, "mrays_per_s": segs_k3 / k3_ms / 1e3,
+         "bench_extra_launches": bx["K3"],
          "stripes_4x1": modes["scene1 4x1"]},
         {"name": "mega_kernel accel record instance (K3, fused "
                  "differentiable primal on a sphere tree)",
@@ -3048,7 +3222,8 @@ def main(argv=None) -> int:
          "slab_simt": tal_b["slab_simt"], "leaf_simt": tal_b["leaf_simt"],
          "lanes_codes_equal": st_k3r["lanes_codes_equal"],
          "bit_equal": st_k3r["bit_equal"],
-         "bit_equal_device_memory_walk": st_k3rg["bit_equal"]},
+         "bit_equal_device_memory_walk": st_k3rg["bit_equal"],
+         "bench_extra_launches": bx["K3_record"]},
         {"name": "mega_replay (replay backward of the fused path)",
          "route": "cuda", "source": SRC + "mega_replay.cu",
          "replaces": JAX_PALLAS + "mega_diff.py:266",
@@ -3059,6 +3234,7 @@ def main(argv=None) -> int:
          "sharded_step_launches": {k: sharded_step[k]["replay"]
                                    for k in ("4x1", "7x1")},
          "train_demo_launches": demos["cornell"]["launches"]["replay"],
+         "bench_extra_launches": bx["replay"],
          "large_t": {"launches": train_launched["replay"],
                      "max_abs_err": rp485["max_abs_err"],
                      "library_ms": None, **rp485_t,
@@ -3085,7 +3261,8 @@ def main(argv=None) -> int:
              "mesh_first_call": media["mesh_first_call"],
              "device_share_spp1": {k: v["K5_share"]
                                    for k, v in media["profiles"].items()}},
-         "scene8_jpeg_earthmap": jpeg["scene8"]},
+         "scene8_jpeg_earthmap": jpeg["scene8"],
+         "bench_extra_launches": bx["K5"]},
         {"name": "perlin_kernel (K4, Perlin noise)",
          "route": "cuda", "source": SRC + "perlin_kernel.cu",
          "replaces": JAX_PALLAS + "perlin_kernel.py:136",
@@ -3099,7 +3276,8 @@ def main(argv=None) -> int:
          "segments": tex_segments,
          "launches_scene8": media["renders"]["scene 8 single"]["K4"],
          "device_share_scene8_spp1": media["profiles"][8]["K4_share"],
-         "launches_scene8_jpeg_earthmap": jpeg["scene8"]["launches"]["K4"]},
+         "launches_scene8_jpeg_earthmap": jpeg["scene8"]["launches"]["K4"],
+         "bench_extra_launches": bx["K4"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

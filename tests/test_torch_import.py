@@ -1,5 +1,7 @@
 """The port must import and render with JAX and flax unavailable — the
-machine with the GPU has neither — and must not load the JAX package."""
+machine with the GPU has neither — and must not load the JAX package
+(its modules, ``bench_extra``, ``trace_scene`` and ``scaling_harness``
+included)."""
 
 import os
 import subprocess
@@ -14,7 +16,9 @@ sys.modules["flax"] = None
 import torch
 torch.set_num_threads(1)
 import chip_smoke
-from another_raytracer_tpu_torch import bench, cli, train_demo
+from another_raytracer_tpu_torch import (bench, bench_extra, cli,
+                                         scaling_harness, train_demo,
+                                         trace_scene)
 from another_raytracer_tpu_torch.config import RenderConfig, RenderMode
 from another_raytracer_tpu_torch.grad import diff
 from another_raytracer_tpu_torch.models import library
@@ -62,6 +66,14 @@ texels, _ = train_demo.atlas_image()
 atlas = train_demo.atlas_scene(train_demo.box_down(texels, 16, 16), "cpu")
 n_texels = (texels.shape[0] // 16) * (texels.shape[1] // 16)
 assert tuple(atlas.atlas.shape) == (n_texels, 3), atlas.atlas.shape
+# The entry points of the JAX repo's scripts: a bench_extra row and its
+# trace at a tiny size on the CPU.
+rec, _ = bench_extra.measure(bench_extra.setup("cornell", "cpu",
+                                               size=(12, 12, 1, 3)))
+assert rec["segments"] > 0 and rec["backend"] == "cpu", rec
+s = trace_scene.trace("sphere_ground", "cpu", size=(12, 12, 1, 3))
+assert s["top"], s
+assert scaling_harness.sizes(3) == [1, 2, 3]
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "flax", "jaxlib",
                                     "another_raytracer_tpu")

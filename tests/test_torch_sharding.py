@@ -98,9 +98,9 @@ def test_empty_sample_shards_trace_nothing(cornell):
         assert all(bool((c == 0).all()) for c in acc)
 
 
-def test_ragged_pixels_pad_with_dead_lanes():
-    """36x18 = 648 pixels over 5 stripes: the port pads the last stripe
-    with born-dead lanes and counts single mode's segments; JAX pads by
+def test_ragged_pixels_trace_unpadded():
+    """36x18 = 648 pixels over 5 stripes: the port traces the short last
+    stripe as it is and counts single mode's segments; JAX pads by
     repeating the first pixels, traces them again and counts more."""
     w, h = 36, 18
     kw = dict(KW, width=w, height=h)
