@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from another_raytracer_tpu_torch.ops import render as render_lib
+from another_raytracer_tpu_torch.utils import profiling
 
 # Scene leaves that are trainable by default: everything shading-related.
 DEFAULT_TRAINABLE = (
@@ -129,22 +130,27 @@ def make_train_step(scene, cam, target, *, width, height, spp,
                        opt_state=_adam(params, learning_rate, eps))
 
     def step(state: TrainState, seed):
-        opt = state.opt_state
-        opt.zero_grad(set_to_none=False)
-        with torch.enable_grad():
-            loss = render_loss(state.params, scene, cam, target, seed,
-                               width=width, height=height, spp=spp,
-                               samples_per_pass=samples_per_pass,
-                               max_depth=max_depth, t_min=t_min,
-                               partition=partition)
-            loss.backward()
-        # A leaf the loss does not reach keeps a zero gradient (optax sees
-        # zeros there too), so adam's moments decay alike in both.
-        for p in state.params.values():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        opt.step()
-        return state, loss.detach()
+        with profiling.span("train.step"):
+            opt = state.opt_state
+            opt.zero_grad(set_to_none=False)
+            with torch.enable_grad():
+                with profiling.span("train.forward"):
+                    loss = render_loss(state.params, scene, cam, target, seed,
+                                       width=width, height=height, spp=spp,
+                                       samples_per_pass=samples_per_pass,
+                                       max_depth=max_depth, t_min=t_min,
+                                       partition=partition)
+                with profiling.span("train.backward"):
+                    loss.backward()
+            with profiling.span("train.adam"):
+                # A leaf the loss does not reach keeps a zero gradient (optax
+                # sees zeros there too), so adam's moments decay alike in
+                # both.
+                for p in state.params.values():
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                opt.step()
+            return state, loss.detach()
 
     return state, step
 

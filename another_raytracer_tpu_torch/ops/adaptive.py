@@ -40,6 +40,7 @@ import torch
 
 from another_raytracer_tpu_torch.config import RenderConfig
 from another_raytracer_tpu_torch.ops import render as render_lib
+from another_raytracer_tpu_torch.utils import profiling
 
 SUBDIVIDE_THRESH = 100  # engine.h:98
 
@@ -164,18 +165,21 @@ def render_adaptive(scene, cam, config: RenderConfig, partition=None,
         batches += 1
         kw = dict(width=W, height=H, samples_per_pass=spass,
                   max_depth=config.max_depth, t_min=config.t_min)
-        pixels = torch.from_numpy(flat).to(dev)
-        if partition is None:
-            acc, segments = render_lib.radiance_batch(
-                scene, cam, pixels, config.seed, sample_start=0,
-                n_samples=spp, spp_cap=spp, **kw)
-        else:
-            acc, segments = sharding.radiance_pixels(
-                scene, cam, pixels, config.seed, partition=partition,
-                spp=spp, **kw)
-        total_segments += int(segments)
-        # float32, as the JAX package converts it.
-        rad = torch.stack(tuple(acc), dim=1).cpu().numpy()
+        with profiling.span("adaptive.level", level=level[0],
+                            lanes=len(flat) * min(spass, spp)):
+            pixels = torch.from_numpy(flat).to(dev)
+            if partition is None:
+                acc, segments = render_lib.radiance_batch(
+                    scene, cam, pixels, config.seed, sample_start=0,
+                    n_samples=spp, spp_cap=spp, **kw)
+            else:
+                acc, segments = sharding.radiance_pixels(
+                    scene, cam, pixels, config.seed, partition=partition,
+                    spp=spp, **kw)
+            with profiling.span("adaptive.wait"):
+                total_segments += int(segments)
+                # float32, as the JAX package converts it.
+                rad = torch.stack(tuple(acc), dim=1).cpu().numpy()
         work[flat // W, flat % W] = _to_int_color(rad, spp)
 
     level = [0]

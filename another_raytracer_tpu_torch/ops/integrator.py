@@ -36,6 +36,7 @@ import torch
 from another_raytracer_tpu_torch.ops import camera as camera_lib
 from another_raytracer_tpu_torch.ops import intersect, rng, shade, vec3
 from another_raytracer_tpu_torch.ops.vec3 import V3
+from another_raytracer_tpu_torch.utils import profiling
 
 # Staged tail compaction of the regenerating wavefront (the JAX package's
 # values): when the alive count drops to half the next stage's width, the
@@ -195,7 +196,9 @@ def _regen_loop_parts(scene, cam, pix_ids, seed, width, height,
         next_sample = torch.where(ended, (sample + sample_stride) & rng.MASK32,
                                   sample)
         regen = ended & (next_sample < limit)
-        if bool(regen.any()):
+        with profiling.span("wavefront.wait", what="regen"):
+            any_regen = bool(regen.any())
+        if any_regen:
             o2, d2, time2 = cam_rays(next_sample)
             o = vec3.where(regen, o2, o)
             d = vec3.where(regen, d2, d)
@@ -234,6 +237,33 @@ def _stage_widths(B: int) -> list:
     return widths
 
 
+def _compact(state, pix, cap, survivors):
+    """Gather the ``survivors`` alive lanes of the carry ``state`` (and
+    their pixels ``pix``) into a buffer of ``cap`` lanes.  Returns (state,
+    pix, (the parent's totals, the survivors' lane ids)) for the
+    scatter-back."""
+    with profiling.span("wavefront.compact", survivors=survivors):
+        (o, d, time, throughput, total, path_rad, alive, sample, bounce,
+         segments) = state
+        with profiling.span("wavefront.wait", what="compact"):
+            src = torch.nonzero(alive).squeeze(1)
+        count = src.shape[0]
+        padded = torch.cat([src, src.new_zeros(cap - count)])
+        valid = torch.arange(cap, device=src.device) < count
+
+        def take(a):
+            return a.index_select(0, padded)
+
+        zeros = V3.zeros_like(valid.to(total.x.dtype))
+        state = (o.map(take), d.map(take), take(time), throughput.map(take),
+                 # Child totals continue the gathered lanes' running sums;
+                 # the scatter-back replaces the parent's entries.
+                 vec3.where(valid, total.map(take), zeros),
+                 vec3.where(valid, path_rad.map(take), zeros),
+                 valid, take(sample), take(bounce), segments)
+        return state, take(pix), (total, src)
+
+
 def trace_regenerative(scene, cam, pixel_ids, sample_ids0, seed, *,
                        width: int, height: int, sample_stride: int,
                        sample_end, spp_cap, max_depth: int, t_min: float):
@@ -247,9 +277,11 @@ def trace_regenerative(scene, cam, pixel_ids, sample_ids0, seed, *,
     (sample, bounce) order with the same draws.
 
     Staged tail compaction: each stage runs while the alive count is above
-    half the next stage's width; then the survivors (with their running
-    totals) are gathered into the narrower buffer, and at the end every
-    stage's totals are scattered back to the lanes they came from.
+    half the next stage's width (the last stage while any lane is alive);
+    then the survivors (with their running totals) are gathered into the
+    narrower buffer, and at the end every stage's totals are scattered back
+    to the lanes they came from.  The alive count is the one read of the
+    card a loop step makes besides ``body``'s own.
 
     ``pixel_ids`` / ``sample_ids0`` are int64 [B] tensors of uint32 values.
     Returns (radiance V3 [B] per-lane sums, segments int64 scalar tensor).
@@ -258,50 +290,37 @@ def trace_regenerative(scene, cam, pixel_ids, sample_ids0, seed, *,
     limit = min(int(sample_end), int(spp_cap), rng.MASK32)
     B = pixel_ids.shape[0]
     widths = _stage_widths(B)
+    with profiling.span("wavefront", lanes=B, stages=len(widths)):
+        cam_rays, body = _regen_loop_parts(scene, cam, pixel_ids, seed, width,
+                                           height, sample_stride, limit,
+                                           max_depth, t_min)
+        state = _regen_initial_state(cam_rays, sample_ids0 & rng.MASK32,
+                                     limit)
+        pix = pixel_ids
+        backmaps = []  # (parent totals V3, survivor lane ids)
+        for i, stage_width in enumerate(widths):
+            if i:
+                state, pix, backmap = _compact(state, pix, stage_width,
+                                               alive_count)
+                backmaps.append(backmap)
+                _, body = _regen_loop_parts(scene, cam, pix, seed, width,
+                                            height, sample_stride, limit,
+                                            max_depth, t_min)
+            # The alive count only shrinks (a lane that has spent its
+            # samples never re-arms), so it is <= the floor on exit.
+            floor = widths[i + 1] // 2 if i + 1 < len(widths) else 0
+            while True:
+                with profiling.span("wavefront.wait", what="alive"):
+                    alive_count = int(state[6].sum())
+                if alive_count <= floor:
+                    break
+                with profiling.span("wavefront.iteration", width=stage_width,
+                                    alive=alive_count):
+                    state = body(state)
 
-    cam_rays, body = _regen_loop_parts(scene, cam, pixel_ids, seed, width,
-                                       height, sample_stride, limit,
-                                       max_depth, t_min)
-    state = _regen_initial_state(cam_rays, sample_ids0 & rng.MASK32, limit)
-    pix = pixel_ids
-    backmaps = []  # (parent totals V3, survivor lane ids)
-    for i in range(len(widths)):
-        if i:
-            _, body = _regen_loop_parts(scene, cam, pix, seed, width, height,
-                                        sample_stride, limit, max_depth, t_min)
-        if i + 1 < len(widths):
-            cap = widths[i + 1]
-            # The alive count only shrinks (a lane that has spent its samples
-            # never re-arms), so it is <= cap // 2 on exit.
-            while int(state[6].sum()) > cap // 2:
-                state = body(state)
-            (o, d, time, throughput, total, path_rad, alive, sample, bounce,
-             segments) = state
-            src = torch.nonzero(alive).squeeze(1)
+        total, segments = state[4], state[9]
+        for parent, src in reversed(backmaps):
             count = src.shape[0]
-            padded = torch.cat([src, src.new_zeros(cap - count)])
-            valid = torch.arange(cap, device=src.device) < count
-
-            def take(a, padded=padded):
-                return a.index_select(0, padded)
-
-            zeros = V3.zeros_like(valid.to(total.x.dtype))
-            state = (o.map(take), d.map(take), take(time),
-                     throughput.map(take),
-                     # Child totals continue the gathered lanes' running sums;
-                     # the scatter-back replaces the parent's entries.
-                     vec3.where(valid, total.map(take), zeros),
-                     vec3.where(valid, path_rad.map(take), zeros),
-                     valid, take(sample), take(bounce), segments)
-            backmaps.append((total, src))
-            pix = take(pix)
-        else:
-            while bool(state[6].any()):
-                state = body(state)
-
-    total, segments = state[4], state[9]
-    for parent, src in reversed(backmaps):
-        count = src.shape[0]
-        total = V3(*(p.index_copy(0, src, c[:count])
-                     for p, c in zip(parent, total)))
+            total = V3(*(p.index_copy(0, src, c[:count])
+                         for p, c in zip(parent, total)))
     return total, segments

@@ -88,6 +88,7 @@ from another_raytracer_tpu_torch.ops import bvh as bvh_ops
 from another_raytracer_tpu_torch.ops import rng, vec3
 from another_raytracer_tpu_torch.ops.kernels import bvh_kernel
 from another_raytracer_tpu_torch.ops.vec3 import V3
+from another_raytracer_tpu_torch.utils import profiling
 
 BIG = 3e37
 NEAR_ZERO_EPS = 1e-8  # vec3.h:51
@@ -512,62 +513,69 @@ def prepare_launch(scene, cam, pixel_ids, sample_ids0, seed, *, width,
         raise ValueError("tally counts a forward launch, without record_iters")
     lib = _lib("count" if tally else "record" if record_iters else "forward")
     accel = scene.n_sph_bvh_nodes > 0
-    block, fetch = launch_shape(scene, record_iters, lane_fetch, block)
-    if accel:
-        # K3: the widened leaf rows (all of them, pad rows included: the
-        # material columns) and the walk's compact tables, copied into each
-        # block's shared memory where they fit.
-        rows = pack_accel_rows(scene)
-        tab = pack_accel_tables(scene)
-        smem = accel_smem_bytes(scene) if accel_walk(scene) == "shared" else 0
-        geometry = (rows, rows.shape[0], 0, tab, scene.n_sph_bvh_nodes,
-                    scene.bvh_leaf_size, smem)
-    else:
-        # The sweep: its compact tables (copied into each block's shared
-        # memory) and the rows, read for the winner's material columns.
-        rows = pack_rows(scene)
-        geometry = (rows, scene.n_spheres, scene.n_rects,
-                    pack_sweep_tables(scene, rows), 0, 0, 0)
-    camc = pack_camera(scene, cam)
-    limit = min(int(sample_end), int(spp_cap), rng.MASK32)
-    pix = _u32_bits(pixel_ids)
-    samp = _u32_bits(sample_ids0)
-    B = pixel_ids.shape[0]
-    if record_iters * B >= 2**31:
-        raise ValueError("record_iters * lanes must stay below 2**31")
-    out = [torch.empty(B, dtype=torch.float32, device=dev) for _ in range(3)]
-    seg = torch.empty(B, dtype=torch.int32, device=dev)
-    args = (*geometry, camc, pix, samp, B,
-            int(seed) & rng.MASK32, limit, int(sample_stride), int(width),
-            int(height), int(max_depth), float(t_min), _flags(scene, cam),
-            int(block), *out, seg)
-    # The launch zeroes the counter itself.
-    counter = (torch.empty(1, dtype=torch.int32, device=dev) if fetch
-               else None)
-    if record_iters:
-        # The kernel writes every residual element (rows past a lane's end
-        # as zeros), so the buffers need no clearing.
-        codes = torch.empty((record_iters, B), dtype=torch.int32, device=dev)
-        tprev = torch.empty((3, record_iters, B), dtype=torch.float32,
-                            device=dev)
-        entry = lib.art_mega_record
-        args += (int(record_iters), scene.tex_kind.shape[0], codes, tprev)
-        outputs = (out, seg, codes, tprev)
-    elif tally:
-        totals = torch.zeros(len(TALLIES), dtype=torch.int64, device=dev)
-        times = torch.zeros((-(-B // int(block)), 2), dtype=torch.int64,
-                            device=dev)
-        entry = lib.art_mega_count
-        args += (counter, _ground_node(scene) if accel else -1, totals, times)
-        outputs = (out, seg, totals, times)
-    else:
-        entry = lib.art_mega_forward
-        args += (counter,)
-        outputs = (out, seg)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = tuple(a.data_ptr() if isinstance(a, torch.Tensor) else a
-                 for a in args) + (stream,)
+    with profiling.span("mega.prepare",
+                        instance="K3" if accel else "K2" if record_iters
+                        else "K1", lanes=pixel_ids.shape[0]):
+        block, fetch = launch_shape(scene, record_iters, lane_fetch, block)
+        if accel:
+            # K3: the widened leaf rows (all of them, pad rows included:
+            # the material columns) and the walk's compact tables, copied
+            # into each block's shared memory where they fit.
+            rows = pack_accel_rows(scene)
+            tab = pack_accel_tables(scene)
+            smem = (accel_smem_bytes(scene)
+                    if accel_walk(scene) == "shared" else 0)
+            geometry = (rows, rows.shape[0], 0, tab, scene.n_sph_bvh_nodes,
+                        scene.bvh_leaf_size, smem)
+        else:
+            # The sweep: its compact tables (copied into each block's shared
+            # memory) and the rows, read for the winner's material columns.
+            rows = pack_rows(scene)
+            geometry = (rows, scene.n_spheres, scene.n_rects,
+                        pack_sweep_tables(scene, rows), 0, 0, 0)
+        camc = pack_camera(scene, cam)
+        limit = min(int(sample_end), int(spp_cap), rng.MASK32)
+        pix = _u32_bits(pixel_ids)
+        samp = _u32_bits(sample_ids0)
+        B = pixel_ids.shape[0]
+        if record_iters * B >= 2**31:
+            raise ValueError("record_iters * lanes must stay below 2**31")
+        out = [torch.empty(B, dtype=torch.float32, device=dev)
+               for _ in range(3)]
+        seg = torch.empty(B, dtype=torch.int32, device=dev)
+        args = (*geometry, camc, pix, samp, B,
+                int(seed) & rng.MASK32, limit, int(sample_stride), int(width),
+                int(height), int(max_depth), float(t_min), _flags(scene, cam),
+                int(block), *out, seg)
+        # The launch zeroes the counter itself.
+        counter = (torch.empty(1, dtype=torch.int32, device=dev) if fetch
+                   else None)
+        if record_iters:
+            # The kernel writes every residual element (rows past a lane's
+            # end as zeros), so the buffers need no clearing.
+            codes = torch.empty((record_iters, B), dtype=torch.int32,
+                                device=dev)
+            tprev = torch.empty((3, record_iters, B), dtype=torch.float32,
+                                device=dev)
+            entry = lib.art_mega_record
+            args += (int(record_iters), scene.tex_kind.shape[0], codes, tprev)
+            outputs = (out, seg, codes, tprev)
+        elif tally:
+            totals = torch.zeros(len(TALLIES), dtype=torch.int64, device=dev)
+            times = torch.zeros((-(-B // int(block)), 2), dtype=torch.int64,
+                                device=dev)
+            entry = lib.art_mega_count
+            args += (counter, _ground_node(scene) if accel else -1, totals,
+                     times)
+            outputs = (out, seg, totals, times)
+        else:
+            entry = lib.art_mega_forward
+            args += (counter,)
+            outputs = (out, seg)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+        ptrs = tuple(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                     for a in args) + (stream,)
 
     def run(_inputs=args):  # the default keeps the tensors behind ptrs alive
         return entry(*ptrs)
@@ -580,7 +588,7 @@ def _launch(scene, cam, pixel_ids, sample_ids0, seed, *, block, record_iters,
     run, outputs = prepare_launch(
         scene, cam, pixel_ids, sample_ids0, seed, block=block,
         record_iters=record_iters, **kw)
-    with torch.cuda.device(pixel_ids.device):
+    with torch.cuda.device(pixel_ids.device), profiling.span("mega.launch"):
         err = run()
     if err != 0:
         raise RuntimeError(f"mega_kernel launch failed: CUDA error {err}")
@@ -656,14 +664,10 @@ def walk_tallies(scene, cam, pixel_ids, sample_ids0, seed, *, width, height,
         scene, cam, pixel_ids, sample_ids0, seed, width=width, height=height,
         sample_stride=sample_stride, sample_end=sample_end, spp_cap=spp_cap,
         max_depth=max_depth, t_min=t_min, block=block, lane_fetch=False)
-    walk_tallies.launches += 1
     t.update(slab_simt=t["slab_active"] / max(32 * t["slab_steps"], 1),
              leaf_simt=t["leaf_active"] / max(32 * t["leaf_steps"], 1),
              ground_share=t["ground_tests"] / max(t["sphere_tests"], 1))
     return rad, segs, t
-
-
-walk_tallies.launches = 0
 
 
 def sweep_tallies(scene, cam, pixel_ids, sample_ids0, seed, *, width, height,
@@ -682,13 +686,9 @@ def sweep_tallies(scene, cam, pixel_ids, sample_ids0, seed, *, width, height,
         scene, cam, pixel_ids, sample_ids0, seed, width=width, height=height,
         sample_stride=sample_stride, sample_end=sample_end, spp_cap=spp_cap,
         max_depth=max_depth, t_min=t_min, block=block, lane_fetch=lane_fetch)
-    sweep_tallies.launches += 1
     t["rows_per_segment"] = ((t["sphere_tests"] + t["rect_tests"])
                              / max(int(segs), 1))
     return rad, segs, t
-
-
-sweep_tallies.launches = 0
 
 
 def threefry_words_cuda(seed: int, key1: int, pixel, sample):

@@ -35,6 +35,7 @@ from another_raytracer_tpu_torch.ops import color as color_lib
 from another_raytracer_tpu_torch.ops import integrator, rng, shade, vec3
 from another_raytracer_tpu_torch.ops.kernels import mega_diff, mega_kernel
 from another_raytracer_tpu_torch.ops.vec3 import V3
+from another_raytracer_tpu_torch.utils import profiling
 
 
 def radiance_batch(scene, cam, pixel_ids, seed, *, width, height,
@@ -68,13 +69,14 @@ def radiance_batch(scene, cam, pixel_ids, seed, *, width, height,
     spass = min(samples_per_pass, n_samples)
     dev = pixel_ids.device
 
-    pix = pixel_ids.repeat(spass)
-    samp0 = (torch.arange(spass, dtype=torch.int64, device=dev)
-             .repeat_interleave(n_pixels) + int(sample_start))
-    if lane_mask is not None:
-        # Pad lanes start past every sample limit -> born dead.
-        samp0 = torch.where(lane_mask.repeat(spass), samp0,
-                            torch.full_like(samp0, rng.MASK32))
+    with profiling.span("render.pixels", lanes=n_pixels * spass):
+        pix = pixel_ids.repeat(spass)
+        samp0 = (torch.arange(spass, dtype=torch.int64, device=dev)
+                 .repeat_interleave(n_pixels) + int(sample_start))
+        if lane_mask is not None:
+            # Pad lanes start past every sample limit -> born dead.
+            samp0 = torch.where(lane_mask.repeat(spass), samp0,
+                                torch.full_like(samp0, rng.MASK32))
     trace_fn = (mega_kernel.trace_regenerative_mega
                 if mega_kernel.enabled(scene, cam)
                 else integrator.trace_regenerative)
@@ -212,11 +214,13 @@ def render_radiance(scene, cam, seed, *, width, height, spp, samples_per_pass,
     others in scanline order, as in the JAX package.
     """
     dev = scene.device
-    if scene.has_accel:
-        order, inv = morton_order(width, height)
-        pixel_ids = torch.from_numpy(order.astype(np.int64)).to(dev)
-    else:
-        pixel_ids = torch.arange(width * height, dtype=torch.int64, device=dev)
+    with profiling.span("render.pixels", lanes=width * height):
+        if scene.has_accel:
+            order, inv = morton_order(width, height)
+            pixel_ids = torch.from_numpy(order.astype(np.int64)).to(dev)
+        else:
+            pixel_ids = torch.arange(width * height, dtype=torch.int64,
+                                     device=dev)
     acc, segments = radiance_batch(
         scene, cam, pixel_ids, seed, width=width, height=height,
         sample_start=0, n_samples=spp, spp_cap=spp,
@@ -224,8 +228,9 @@ def render_radiance(scene, cam, seed, *, width, height, spp, samples_per_pass,
         differentiable=differentiable, trainable=trainable,
     )
     if scene.has_accel:
-        inv_t = torch.from_numpy(inv.astype(np.int64)).to(dev)
-        acc = acc.map(lambda c: c.index_select(0, inv_t))
+        with profiling.span("render.pixels", lanes=width * height):
+            inv_t = torch.from_numpy(inv.astype(np.int64)).to(dev)
+            acc = acc.map(lambda c: c.index_select(0, inv_t))
     return acc, segments
 
 
@@ -244,6 +249,12 @@ def render(scene, cam, config: RenderConfig, progress=None, partition=None):
     parallel modes and of the adaptive mode's batches; the parallel modes
     default to every visible CUDA device.
     """
+    with profiling.span("render", mode=config.mode.value, width=config.width,
+                        height=config.height, spp=config.samples_per_pixel):
+        return _render(scene, cam, config, progress, partition)
+
+
+def _render(scene, cam, config, progress, partition):
     if scene.num_primitives == 0:
         raise ValueError("cannot render empty scene!")
     if config.mode in (RenderMode.PARALLEL_STRIPES, RenderMode.PARALLEL_IMAGES):
@@ -270,9 +281,11 @@ def render(scene, cam, config: RenderConfig, progress=None, partition=None):
         samples_per_pass=config.samples_per_pass, max_depth=config.max_depth,
         t_min=config.t_min,
     )
-    img = color_lib.to_uint8(torch.stack(tuple(acc), dim=-1),
-                             config.samples_per_pixel)
-    img = img.cpu().numpy().reshape(config.height, config.width, 3)
+    with profiling.span("render.wait"):
+        img = color_lib.to_uint8(torch.stack(tuple(acc), dim=-1),
+                                 config.samples_per_pixel)
+        img = img.cpu().numpy().reshape(config.height, config.width, 3)
+        segments = int(segments)
     if progress is not None:  # single mode: one final frame
         progress.update_image(img, config.samples_per_pixel)
-    return img, {"segments": int(segments)}
+    return img, {"segments": segments}

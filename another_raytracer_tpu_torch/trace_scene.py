@@ -1,38 +1,56 @@
-"""Profiler trace of one ``bench_extra`` row, summarised by kernel category
-and by op (the counterpart of the JAX package's ``scripts/trace_scene.py``
-with ``trace_probe.summarize`` and ``summarize_ops``).
+"""Profiler trace of one ``bench_extra`` row, summarised by kernel category,
+by op and by the port's spans (the counterpart of the JAX package's
+``scripts/trace_scene.py`` with ``trace_probe.summarize`` and
+``summarize_ops``).
 
     python -m another_raytracer_tpu_torch.trace_scene NAME [--obj PATH]
-        [--log-dir DIR] [--cpu]
+        [--size W H SPP DEPTH] [--entry] [--log-dir DIR] [--cpu]
 
 Runs the row's call once to warm up (kernel builds, table packing), then
 traces ``RUNS`` calls with ``torch.profiler`` (``utils.profiling.trace``):
 the render of a forward or adaptive row, the fwd+bwd step of a gradient
-row.  Prints the device time a run by category (the port's kernels by
-name, elementwise and reduce ops, copies and fills, the rest), the
-``TOP`` ops by device time, and the device's busy share of the wall.  On
-the CPU (``--cpu``) the same tables hold the host's top-level operators
-(no device time exists there).  The trace is written under ``--log-dir``
-where given, else into a temporary directory that is removed.  Runs on the
-card unless ``--cpu`` is given, and raises when no CUDA device is visible.
-On the card the trace records the card's activity alone, which keeps the
-profiler's own cost on the host out of the wall.
+row; ``--entry`` takes the port's entry points instead (``ops.render.render``
+with the uint8 image on the host for a forward row, an adam step of
+``diff.make_train_step`` for a gradient row) and ``--size`` the row's size.
+Prints the device time a run by category (the port's kernels by name,
+elementwise and reduce ops, copies and fills, the rest), the ``TOP`` ops by
+device time, and the device's busy share of the wall.  Then the spans the
+port recorded (``utils.profiling.span``): calls and host ms a run, the same
+over ``RUNS`` calls without a profiler (inside ``profiling.recording()``;
+the profiler slows every launch), the device's idle ms a run in each span
+(a gap between the card's activities goes to the innermost span open at its
+middle) and the ``GAPS`` longest gaps.  On the CPU (``--cpu``) the tables
+hold the host's top-level operators (no device time exists there, nor idle
+time).  The trace is written under ``--log-dir`` where given, else into a
+temporary directory that is removed.  Runs on the card unless ``--cpu`` is
+given, and raises when no CUDA device is visible.  On the card the trace
+records the card's activity alone, which keeps the profiler's own cost on
+the host out of the wall, and starts with a marker kernel launched at a
+known time of the host's clock, which puts the card's activity on the
+spans' clock.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
 import sys
 import tempfile
 import time
+from typing import Callable
 
 import torch
 
 from another_raytracer_tpu_torch import bench_extra
+from another_raytracer_tpu_torch.config import RenderConfig, RenderMode
+from another_raytracer_tpu_torch.grad import diff
+from another_raytracer_tpu_torch.ops import render as render_lib
 from another_raytracer_tpu_torch.utils import profiling
 
-RUNS, TOP = 3, 24
+RUNS, TOP, GAPS = 3, 24, 10
+MARKER = "spin_kernel"  # torch.cuda._sleep's kernel
+OUTSIDE = "(no span)"  # idle time while no span is open
 # The port's kernels by (a part of) their CUDA names.  K1 and K2 are one
 # template instance in two builds, as are K3 and its record instance.
 PORT_KERNELS = (
@@ -101,28 +119,143 @@ def summarize(events, runs, wall_s) -> dict:
             "top": [(name, ms, count[name] / runs) for name, ms in top]}
 
 
-def trace(name, device, obj_path=None, size=None, log_dir=None) -> dict:
-    """Warm up, trace RUNS calls of row ``name`` and summarise them."""
+def entry_call(wl) -> Callable:
+    """Row ``wl`` through the port's entry points: a render through
+    ``ops.render.render`` in the row's mode (the uint8 image on the host),
+    or for a gradient row an adam step of ``diff.make_train_step`` towards a
+    black image."""
+    w, h, spp, depth = wl.size
+    if wl.mode != "grad":
+        mode = (RenderMode.ADAPTIVE if wl.mode == "adaptive"
+                else RenderMode.SINGLE)
+        cfg = RenderConfig(width=w, height=h, samples_per_pixel=spp,
+                           max_depth=depth, seed=bench_extra.SEED,
+                           t_min=bench_extra.T_MIN, mode=mode)
+        return lambda: render_lib.render(wl.scene, wl.cam, cfg)
+    target = torch.zeros((w * h, 3), dtype=torch.float32,
+                         device=wl.scene.device)
+    state, step = diff.make_train_step(
+        wl.scene, wl.cam, target, trainable=bench_extra.GRAD_TRAINABLE,
+        **bench_extra._kw(wl.size))
+    return lambda: step(state, bench_extra.SEED)
+
+
+def _mark(dev) -> float:
+    """Launch the marker kernel and return the host time of its launch, in
+    us on ``perf_counter_ns``.  One op runs to its end first: the first
+    launch under a profiler starts late, and the marker must not."""
+    torch.ones(1, device=dev).add_(1)
+    torch.cuda.synchronize(dev)
+    host_us = time.perf_counter_ns() / 1e3
+    torch.cuda._sleep(1000)
+    return host_us
+
+
+def on_host_clock(events, host_us) -> list:
+    """The device events that start after the marker, their ``ts`` moved
+    onto the host's clock (the marker's start is ``host_us``)."""
+    mark = min(float(e["ts"]) for e in events if MARKER in e["name"])
+    return [dict(e, ts=float(e["ts"]) - mark + host_us) for e in events
+            if float(e["ts"]) > mark]
+
+
+def innermost(spans):
+    """(times, names): ``names[i]`` is the innermost span open from
+    ``times[i]`` to ``times[i + 1]`` (None where none is)."""
+    times, names, open_ = [], [], []
+
+    def edge(t):
+        times.append(t)
+        names.append(open_[-1][1] if open_ else None)
+
+    for s in sorted(spans, key=lambda s: (s.start, -s.end)):
+        while open_ and open_[-1][0] <= s.start:
+            edge(open_.pop()[0])
+        open_.append((s.end, s.name))
+        edge(s.start)
+    while open_:
+        edge(open_.pop()[0])
+    return times, names
+
+
+def span_table(spans, runs, events=None, bare=None) -> dict:
+    """By span name: calls and host ms a run (``bare``: the spans of
+    ``runs`` calls without a profiler, whose ms go beside); with ``events``
+    (the card's activity on the host's clock) the device's idle ms a run,
+    each gap between its activities, from the first root span's start to
+    the last one's end, going to the innermost span open at its middle
+    (``OUTSIDE`` where none is), and the ``GAPS`` longest gaps."""
+    table = collections.defaultdict(
+        lambda: {"calls": 0.0, "ms": 0.0, "bare_ms": None, "idle_ms": None})
+    for s in spans:
+        table[s.name]["calls"] += 1 / runs
+        table[s.name]["ms"] += (s.end - s.start) / 1e3 / runs
+    for s in bare or ():
+        row = table[s.name]
+        row["bare_ms"] = (row["bare_ms"] or 0.0) + (s.end - s.start) / 1e3 / runs
+    out = {"spans": dict(table), "gaps": None}
+    roots = [s for s in spans if s.parent < 0]
+    if events is None or not roots:
+        return out
+    lo, hi = min(s.start for s in roots), max(s.end for s in roots)
+    times, names = innermost(spans)
+    gaps, edge = [], lo
+    for e in sorted(events, key=lambda e: e["ts"]) + [{"ts": hi, "dur": 0}]:
+        start, end = max(e["ts"], lo), min(e["ts"] + float(e["dur"]), hi)
+        if start > edge:
+            mid = (start + edge) / 2
+            i = bisect.bisect_right(times, mid) - 1
+            gaps.append(((names[i] if i >= 0 else None) or OUTSIDE,
+                         (start - edge) / 1e3))
+        edge = max(edge, end)
+        if edge >= hi:
+            break
+    for name, ms in gaps:
+        row = table[name]
+        row["idle_ms"] = (row["idle_ms"] or 0.0) + ms / runs
+    if OUTSIDE in table:
+        table[OUTSIDE].update(calls=None, ms=None)
+    out["spans"] = dict(table)
+    out["gaps"] = sorted(gaps, key=lambda g: -g[1])[:GAPS]
+    out["idle_ms"] = sum(ms for _, ms in gaps) / runs
+    return out
+
+
+def trace(name, device, obj_path=None, size=None, log_dir=None,
+          entry=False) -> dict:
+    """Warm up, trace RUNS calls of row ``name`` (through ``entry_call``
+    where ``entry``), time RUNS more without a profiler, summarise them."""
     wl = bench_extra.setup(name, device, obj_path, size)
     dev = wl.scene.device
-    call = bench_extra.CALLS[wl.mode](wl)
+    call = (entry_call if entry else bench_extra.CALLS[wl.mode])(wl)
     call()
+    with profiling.recording():
+        first = len(profiling.spans())
+        for _ in range(RUNS):
+            call()
+        bare = profiling.spans()[first:]
+    profiling.clear_spans()
     with tempfile.TemporaryDirectory() as tmp:
         log_dir = log_dir or tmp
         with profiling.trace(log_dir, host=dev.type == "cpu"):
+            mark = _mark(dev) if dev.type == "cuda" else None
+            first = len(profiling.spans())
             t0 = time.perf_counter()
             for _ in range(RUNS):
                 call()
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             wall_s = time.perf_counter() - t0
+            spans = profiling.spans()[first:]
         if dev.type == "cuda":
-            events = profiling.device_events(log_dir)
+            events = on_host_clock(profiling.device_events(log_dir), mark)
         else:
             events = top_level(profiling.device_events(log_dir,
                                                        ("cpu_op",)))
     return {"scene": name, "config": wl.config, "device": dev.type,
-            **summarize(events, RUNS, wall_s)}
+            "entry": entry, **summarize(events, RUNS, wall_s),
+            **span_table(spans, RUNS,
+                         events if dev.type == "cuda" else None, bare)}
 
 
 def report(s: dict, out=print) -> None:
@@ -137,6 +270,20 @@ def report(s: dict, out=print) -> None:
     out("--- top individual ops ---")
     for name, ms, n in s["top"]:
         out(f"   {ms:10.3f} ms/run x{n:6.0f}  {name[:110]}")
+    out("--- spans, a run: calls, host ms traced, host ms unprofiled, "
+        "device idle ms ---")
+    for name, row in sorted(s["spans"].items(),
+                            key=lambda kv: -(kv[1]["ms"] or 0.0)):
+        cols = [f"{'-' if row[k] is None else format(row[k], f):>{w}}"
+                for k, f, w in (("calls", ".1f", 8), ("ms", ".3f", 10),
+                                ("bare_ms", ".3f", 10),
+                                ("idle_ms", ".3f", 10))]
+        out(f"   {'  '.join(cols)}  {name}")
+    if s["gaps"] is not None:
+        out(f"--- the {len(s['gaps'])} longest idle gaps of "
+            f"{s['idle_ms']:.3f} ms a run, by innermost span ---")
+        for name, ms in s["gaps"]:
+            out(f"   {ms:10.3f} ms  {name}")
 
 
 def main(argv=None) -> int:
@@ -144,6 +291,12 @@ def main(argv=None) -> int:
     p.add_argument("name", choices=list(bench_extra.CONFIGS))
     p.add_argument("--obj", default=None, metavar="PATH",
                    help="the .obj of the mesh-scene rows")
+    p.add_argument("--size", type=int, nargs=4, default=None,
+                   metavar=("W", "H", "SPP", "DEPTH"),
+                   help="trace at this size in place of the row's")
+    p.add_argument("--entry", action="store_true",
+                   help="trace the port's entry point: ops.render.render, "
+                        "or an adam step of diff.make_train_step")
     p.add_argument("--log-dir", default=None,
                    help="keep the Chrome trace here")
     p.add_argument("--cpu", action="store_true",
@@ -156,7 +309,8 @@ def main(argv=None) -> int:
                            "the plain PyTorch versions on the CPU)")
     else:
         device = torch.device("cuda", torch.cuda.current_device())
-    report(trace(args.name, device, args.obj, log_dir=args.log_dir))
+    report(trace(args.name, device, args.obj, args.size, args.log_dir,
+                 args.entry))
     return 0
 
 

@@ -12,7 +12,11 @@ on ``torch.profiler``).
     synchronising the card, so the bracket holds the device's work; it
     yields a ``Timing`` that holds the seconds once the region ends;
   * ``card_line()`` is the card's name and power limit, written beside
-    every time taken on it.
+    every time taken on it;
+  * ``span(name, **attrs)`` records a span of the host's time at a layer
+    boundary of the program (``Span``), while a ``torch.profiler`` session
+    is active in the process or inside ``recording()``; ``spans()`` returns
+    them and ``clear_spans()`` forgets them.
 
 The CLI times its render with ``timed`` and prints ``RayStats``' Mrays/s.
 """
@@ -37,17 +41,23 @@ DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 def trace(log_dir: str, host: bool = True):
     """Profile the region and write ``<log_dir>/trace-<ns>.json``.
     ``host=False`` records the card's activity alone: the host's operators
-    are most of a long trace's events and of the profiler's cost."""
+    are most of a long trace's events and of the profiler's cost.  The
+    profiler turns span recording on; the spans recorded in the region are
+    dropped at its end, so a caller that reads them does so inside it."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU] if host else []
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
+    first = len(_spans)
+    try:
+        with profile(activities=activities) as prof:
+            yield prof
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+    finally:
+        del _spans[first:]
     prof.export_chrome_trace(
         os.path.join(log_dir, f"trace-{time.time_ns()}.json"))
 
@@ -126,3 +136,103 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
+
+
+# --------------------------------------------------------------------------
+# Spans
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(slots=True)
+class Span:
+    """One recorded span: ``start`` and ``end`` in microseconds on
+    ``time.perf_counter_ns() / 1e3`` (the clock the benchmark puts the
+    card's activity on), ``parent`` the index in ``spans()`` of the span it
+    opened inside (-1 for a root), ``request`` shared by every span under
+    one root, ``attrs`` its counts (lanes, widths)."""
+
+    name: str
+    start: float
+    end: float
+    parent: int
+    request: int
+    attrs: dict
+
+
+_spans: list = []  # every recorded Span, in the order they opened
+_open: list = []  # the open spans (_On), innermost last
+_forced = 0  # depth of the open ``recording()`` blocks
+_requests = 0  # request ids handed out
+_profiler_on = torch._C._autograd._profiler_enabled
+
+
+class _Off:
+    """The span while recording is off: one shared instance, no work."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _On:
+    __slots__ = ("record", "index")
+
+    def __init__(self, name, attrs):
+        self.record = Span(name, 0.0, 0.0, -1, -1, attrs)
+
+    def __enter__(self):
+        global _requests
+        rec = self.record
+        if _open:
+            up = _open[-1]
+            rec.parent, rec.request = up.index, up.record.request
+        else:
+            rec.request = _requests
+            _requests += 1
+        self.index = len(_spans)
+        _spans.append(rec)
+        _open.append(self)
+        rec.start = time.perf_counter_ns() / 1e3
+        return self
+
+    def __exit__(self, *exc):
+        self.record.end = time.perf_counter_ns() / 1e3
+        _open.pop()
+        return False
+
+
+def span(name: str, **attrs):
+    """A context manager that records the span ``name`` with ``attrs``
+    (counts) while a ``torch.profiler`` session is active in the process or
+    inside ``recording()``; otherwise one shared context manager that does
+    nothing.  It launches nothing on the card and reads nothing from it."""
+    if _forced or _profiler_on():
+        return _On(name, attrs)
+    return _OFF
+
+
+@contextlib.contextmanager
+def recording():
+    """Record spans inside the block, with or without a profiler."""
+    global _forced
+    _forced += 1
+    try:
+        yield
+    finally:
+        _forced -= 1
+
+
+def spans() -> list:
+    """The recorded spans (``Span``), in the order they opened."""
+    return list(_spans)
+
+
+def clear_spans() -> None:
+    _spans.clear()
