@@ -21,7 +21,10 @@ megakernel does not take (BVH scenes, noise / image / barycentric textures,
 triangles, media): each lane re-arms with its next sample the moment its path
 ends, and the alive lanes are compacted into narrower buffers as the tail
 thins out.  Its bounces run the kernels K5 (BVH closest hit) and K4 (Perlin
-noise) on CUDA tensors.
+noise) on CUDA tensors.  On the card it replays each stage's loop body from
+CUDA graphs (``_Stage``; the host's ~1,200 small ops an iteration become two
+graph launches), captured once a key per stage width, the same ops and
+bits as the eager body the CPU runs.
 
 Left out on purpose (ROADMAP M21): the XLA schedule arguments ``remat`` and
 ``unroll``, the dead-lane parking ``_park_dead`` / ``DEAD_PARK`` and the
@@ -30,6 +33,8 @@ either way.
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -155,20 +160,23 @@ def trace(scene, o: V3, d: V3, time, pixel_ids, sample_ids, seed,
 # --------------------------------------------------------------------------
 
 
-def _regen_loop_parts(scene, cam, pix_ids, seed, width, height,
+def _regen_step_parts(scene, cam, pix_ids, seed, width, height,
                       sample_stride, limit, max_depth, t_min):
-    """(cam_rays, body) of the regenerating wavefront, bound to one
-    lane -> pixel assignment; a compaction stage rebinds to the gathered
-    survivors' pixels.  ``body`` maps the 10-tuple carry (o, d, time,
-    throughput, total, path_rad, alive, sample, bounce, segments) to the
-    next."""
+    """(cam_rays, step, rearm) of the regenerating wavefront, bound to one
+    lane -> pixel assignment: the loop body split at its one read of the
+    card.  ``step`` maps the 10-tuple carry (o, d, time, throughput, total,
+    path_rad, alive, sample, bounce, segments) to (the carry with the ended
+    lanes' next samples and the re-armed lanes alive, ``regen``: the lanes
+    to re-arm); ``rearm(carry, regen)`` gives those lanes their next
+    sample's primary ray.  ``seed`` is an int or a 0-d int64 tensor (the
+    same bits)."""
     needs_time = scene.has_motion
 
     def cam_rays(sample_ids):
         return camera_lib.generate_rays(cam, pix_ids, sample_ids, width,
                                         height, seed, needs_time=needs_time)
 
-    def body(state):
+    def step(state):
         (o, d, time, throughput, total, path_rad, alive, sample, bounce,
          segments) = state
         delta, hit_p, new_dir, attenuation, scattered = _advance(
@@ -192,24 +200,49 @@ def _regen_loop_parts(scene, cam, pix_ids, seed, width, height,
         total = total + vec3.where(ended, path_rad, zeros)
         path_rad = vec3.where(ended, zeros, path_rad)
 
-        # Re-arm ended lanes with their next sample's primary ray.
+        # Ended lanes with samples left re-arm with their next sample.
         next_sample = torch.where(ended, (sample + sample_stride) & rng.MASK32,
                                   sample)
         regen = ended & (next_sample < limit)
-        with profiling.span("wavefront.wait", what="regen"):
-            any_regen = bool(regen.any())
-        if any_regen:
-            o2, d2, time2 = cam_rays(next_sample)
-            o = vec3.where(regen, o2, o)
-            d = vec3.where(regen, d2, d)
-            time = torch.where(regen, time2, time)
-            one = torch.ones_like(throughput.x)
-            throughput = vec3.where(regen, V3(one, one, one), throughput)
-            bounce = torch.where(regen, 0, bounce)
         alive_next = alive_next | regen
         segments = segments + regen.sum()
         return (o, d, time, throughput, total, path_rad, alive_next,
-                next_sample, bounce, segments)
+                next_sample, bounce, segments), regen
+
+    def rearm(state, regen):
+        (o, d, time, throughput, total, path_rad, alive, sample, bounce,
+         segments) = state
+        o2, d2, time2 = cam_rays(sample)
+        o = vec3.where(regen, o2, o)
+        d = vec3.where(regen, d2, d)
+        time = torch.where(regen, time2, time)
+        one = torch.ones_like(throughput.x)
+        throughput = vec3.where(regen, V3(one, one, one), throughput)
+        bounce = torch.where(regen, 0, bounce)
+        return (o, d, time, throughput, total, path_rad, alive, sample, bounce,
+                segments)
+
+    return cam_rays, step, rearm
+
+
+def _regen_loop_parts(scene, cam, pix_ids, seed, width, height,
+                      sample_stride, limit, max_depth, t_min):
+    """(cam_rays, body) of the regenerating wavefront, bound to one
+    lane -> pixel assignment; a compaction stage rebinds to the gathered
+    survivors' pixels.  ``body`` maps the 10-tuple carry to the next: the
+    ``step`` of ``_regen_step_parts``, the host's read of whether any lane
+    re-arms, and the ``rearm`` where one does."""
+    cam_rays, step, rearm = _regen_step_parts(
+        scene, cam, pix_ids, seed, width, height, sample_stride, limit,
+        max_depth, t_min)
+
+    def body(state):
+        state, regen = step(state)
+        with profiling.span("wavefront.wait", what="regen"):
+            any_regen = bool(regen.any())
+        if any_regen:
+            state = rearm(state, regen)
+        return state
 
     return cam_rays, body
 
@@ -264,6 +297,206 @@ def _compact(state, pix, cap, survivors):
         return state, take(pix), (total, src)
 
 
+# --------------------------------------------------------------------------
+# CUDA graphs of the loop body
+# --------------------------------------------------------------------------
+
+
+def _cuda_graphs(device):
+    """A capture step over one fresh memory pool on ``device``:
+    ``capture(fn)`` records ``fn``'s launches into a CUDA graph, on a side
+    stream and without running them, and returns ``replay``, which launches
+    the graph on the current stream and returns the tensors ``fn`` returned
+    at capture (the graph writes them anew)."""
+    pool = torch.cuda.graph_pool_handle()
+
+    def capture(fn):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(device):
+            main = torch.cuda.current_stream(device)
+            side = torch.cuda.Stream(device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                graph.capture_begin(pool=pool)
+                try:
+                    out = fn()
+                finally:
+                    graph.capture_end()
+            main.wait_stream(side)
+
+        def replay():
+            graph.replay()
+            return out
+
+        return replay
+
+    return capture
+
+
+# The capture step by device type (``_cuda_graphs``); a device type not
+# named here runs the loop body eagerly, as the CPU does.
+GRAPHS = {"cuda": _cuda_graphs}
+# Stages whose graphs are kept, least recently used first out; an evicted
+# stage frees its buffers and its graphs' memory pool.
+GRAPH_CACHE_SIZE = 8
+_stages = collections.OrderedDict()  # key -> _Stage
+
+
+def _flatten(state) -> list:
+    """The carry's 20 tensors (each V3 as its three)."""
+    return [t for part in state
+            for t in (part if isinstance(part, V3) else (part,))]
+
+
+def _unflatten(flat) -> tuple:
+    it = iter(flat)
+    return tuple(V3(next(it), next(it), next(it)) if i in _V3_PARTS
+                 else next(it) for i in range(10))
+
+
+_V3_PARTS = (0, 1, 3, 4, 5)  # o, d, throughput, total, path_rad
+
+
+def _copy_into(dst, src) -> None:
+    """Copy each tensor of ``src`` into the buffer at its place in ``dst``,
+    one foreach copy a dtype, leaving out those that are the buffer."""
+    groups = {}
+    for b, t in zip(dst, src):
+        if b is not t:
+            pair = groups.setdefault(b.dtype, ([], []))
+            pair[0].append(b)
+            pair[1].append(t)
+    for bufs, ts in groups.values():
+        torch._foreach_copy_(bufs, ts)
+
+
+def _counted(capture, fn):
+    """``capture(fn)``'s replay, which adds the K5 and K4 launches its graph
+    holds to their wrappers' counts: a wrapper counts its launch when it
+    runs, once at capture, when nothing reaches the card, and not on a
+    replay."""
+    from another_raytracer_tpu_torch.ops.kernels import (bvh_kernel,
+                                                         perlin_kernel)
+
+    k5, k4 = bvh_kernel.bvh_closest_hit, perlin_kernel.perlin_noise
+    k5_before = collections.Counter(k5.launches)
+    k4_before = k4.launches, k4.points
+    replay = capture(fn)
+    k5_graph = k5.launches - k5_before
+    k4_graph = k4.launches - k4_before[0], k4.points - k4_before[1]
+    k5.launches.clear()
+    k5.launches.update(k5_before)
+    k4.launches, k4.points = k4_before
+
+    def counted():
+        out = replay()
+        k5.launches.update(k5_graph)
+        k4.launches += k4_graph[0]
+        k4.points += k4_graph[1]
+        return out
+
+    return counted
+
+
+class _Stage:
+    """One compaction stage's graphs and the buffers they read and write,
+    for one key (``_stage``).  The carry, the stage's pixels and the seed
+    live in the buffers; graph A (``step``) is the loop body up to its read
+    of the card, ending in ``regen.any()``, and graph B (``rearm``) the
+    re-arm, each writing the carry back in place.  The key's first
+    iteration runs eagerly (``ran``); its second captures both graphs, and
+    every later one replays them."""
+
+    def __init__(self, device, parts_args):
+        self.device = device
+        self.parts_args = parts_args  # (scene, cam, width, ..., t_min)
+        self.ran = 0
+        self.bufs = self.seed = self.capture = None
+        self.step = self.rearm = self.regen = self._rearm = None
+
+    @property
+    def mode(self) -> str:
+        if self.step is not None:
+            return "replay"
+        return "capture" if self.ran else "eager"
+
+    def load(self, state, pix, seed):
+        """Copy the carry and the pixels into the buffers and the render's
+        seed into its own; returns the carry of buffers."""
+        flat = _flatten(state) + [pix]
+        if self.bufs is None:
+            self.bufs = [torch.empty_like(t) for t in flat]
+            self.seed = torch.empty((), dtype=torch.int64, device=self.device)
+        _copy_into(self.bufs, flat)
+        self.seed.fill_(seed)
+        return _unflatten(self.bufs[:-1])
+
+    def iterate(self):
+        """One iteration of the loop body over the buffers: replay A, read
+        whether any lane re-arms, and replay B where one does."""
+        state = _unflatten(self.bufs[:-1])
+        if self.step is None:
+            self._capture(state)
+        self.regen, any_regen = self.step()
+        if self.rearm is None:
+            self._capture_rearm(state)
+        with profiling.span("wavefront.wait", what="regen"):
+            any_regen = bool(any_regen)
+        if any_regen:
+            self.rearm()
+        return state
+
+    def _capture(self, state):
+        scene, cam, *rest = self.parts_args
+        self.capture = GRAPHS[self.device.type](self.device)
+        _, step, self._rearm = _regen_step_parts(
+            scene, cam, self.bufs[-1], self.seed, *rest)
+
+        def run_step():
+            new, regen = step(state)
+            _copy_into(self.bufs, _flatten(new))
+            return regen, regen.any()
+
+        with profiling.span("wavefront.capture", what="step"):
+            self.step = _counted(self.capture, run_step)
+
+    def _capture_rearm(self, state):
+        def run_rearm():
+            _copy_into(self.bufs, _flatten(self._rearm(state, self.regen)))
+
+        with profiling.span("wavefront.capture", what="rearm"):
+            self.rearm = _counted(self.capture, run_rearm)
+
+
+def _knobs() -> tuple:
+    """The module values the loop body reads when it runs: the fold gates
+    (with the stage's width they fix which K5 variant runs), the sweeps'
+    chunk and the RNG's rounds.  A graph keeps what they were at capture."""
+    return (intersect.FOLD_TRI_RECORD, intersect.FOLD_RECORD_MIN_B,
+            intersect.FOLD_FULL_RECORD, intersect.FOLD_SPH_RECORD,
+            intersect.FOLD_SPH_MIN_B, intersect.PRECOMP_TRI,
+            intersect.PRIM_CHUNK, rng.ROUNDS)
+
+
+def _stage(device, stage_width, parts_args):
+    """The stage of ``stage_width`` lanes for the loop parts' arguments
+    (scene and camera by identity), or None on a device without a capture
+    step.  The least recently used stage past ``GRAPH_CACHE_SIZE`` goes."""
+    if device.type not in GRAPHS:
+        return None
+    scene, cam, *fixed = parts_args
+    key = (id(scene), id(cam), device, stage_width, *fixed, _knobs())
+    stage = _stages.get(key)
+    if stage is None:
+        # The stage holds the scene and camera, so their ids stay theirs.
+        stage = _stages[key] = _Stage(device, parts_args)
+        while len(_stages) > GRAPH_CACHE_SIZE:
+            _stages.popitem(last=False)
+    else:
+        _stages.move_to_end(key)
+    return stage
+
+
 def trace_regenerative(scene, cam, pixel_ids, sample_ids0, seed, *,
                        width: int, height: int, sample_stride: int,
                        sample_end, spp_cap, max_depth: int, t_min: float):
@@ -283,6 +516,16 @@ def trace_regenerative(scene, cam, pixel_ids, sample_ids0, seed, *,
     to the lanes they came from.  The alive count is the one read of the
     card a loop step makes besides ``body``'s own.
 
+    CUDA graphs: on a device that ``GRAPHS`` names, each stage's loop body
+    is replayed from two CUDA graphs (``_Stage``) once its key (scene and
+    camera, the fixed arguments, the stage's width, ``_knobs``) has run
+    one iteration eagerly, so the host issues two graph launches and its
+    two reads an iteration instead of the body's ~1,200 ops.  The ops are
+    the eager body's, so images and segments are the same bits; a stage of
+    one iteration never captures.  Fixed widths replay across renders
+    (single, shards, progressive passes); data-dependent widths (adaptive
+    levels) capture once a level.
+
     ``pixel_ids`` / ``sample_ids0`` are int64 [B] tensors of uint32 values.
     Returns (radiance V3 [B] per-lane sums, segments int64 scalar tensor).
     Not differentiable: the loop's trip count depends on the data.
@@ -290,22 +533,24 @@ def trace_regenerative(scene, cam, pixel_ids, sample_ids0, seed, *,
     limit = min(int(sample_end), int(spp_cap), rng.MASK32)
     B = pixel_ids.shape[0]
     widths = _stage_widths(B)
+    parts_args = (scene, cam, width, height, sample_stride, limit, max_depth,
+                  t_min)
     with profiling.span("wavefront", lanes=B, stages=len(widths)):
-        cam_rays, body = _regen_loop_parts(scene, cam, pixel_ids, seed, width,
-                                           height, sample_stride, limit,
-                                           max_depth, t_min)
+        cam_rays, body = _regen_loop_parts(scene, cam, pixel_ids, seed,
+                                           *parts_args[2:])
         state = _regen_initial_state(cam_rays, sample_ids0 & rng.MASK32,
                                      limit)
         pix = pixel_ids
         backmaps = []  # (parent totals V3, survivor lane ids)
         for i, stage_width in enumerate(widths):
+            stage = _stage(pixel_ids.device, stage_width, parts_args)
             if i:
                 state, pix, backmap = _compact(state, pix, stage_width,
                                                alive_count)
                 backmaps.append(backmap)
-                _, body = _regen_loop_parts(scene, cam, pix, seed, width,
-                                            height, sample_stride, limit,
-                                            max_depth, t_min)
+                _, body = _regen_loop_parts(scene, cam, pix, seed,
+                                            *parts_args[2:])
+            in_bufs = False  # the carry lives in the stage's graph buffers
             # The alive count only shrinks (a lane that has spent its
             # samples never re-arms), so it is <= the floor on exit.
             floor = widths[i + 1] // 2 if i + 1 < len(widths) else 0
@@ -314,11 +559,24 @@ def trace_regenerative(scene, cam, pixel_ids, sample_ids0, seed, *,
                     alive_count = int(state[6].sum())
                 if alive_count <= floor:
                     break
+                mode = "eager" if stage is None else stage.mode
                 with profiling.span("wavefront.iteration", width=stage_width,
-                                    alive=alive_count):
-                    state = body(state)
+                                    alive=alive_count, graph=mode):
+                    if mode == "eager":
+                        state = body(state)
+                        if stage is not None:
+                            stage.ran += 1
+                    else:
+                        if not in_bufs:
+                            state = stage.load(state, pix, seed)
+                            in_bufs = True
+                        state = stage.iterate()
 
         total, segments = state[4], state[9]
+        if in_bufs:  # nothing returned may alias a graph's buffer
+            segments = segments.clone()
+            if not backmaps:
+                total = total.map(torch.clone)
         for parent, src in reversed(backmaps):
             count = src.shape[0]
             total = V3(*(p.index_copy(0, src, c[:count])

@@ -242,8 +242,10 @@ def _triangle_t(scene, sl, o: V3, d: V3, t_min, t_max):
 def _maximum(x, c):
     """``jnp.maximum(x, c)`` for a Python float ``c``: ``torch.maximum``
     splits the gradient evenly at a tie, as JAX does (``clamp`` would pass
-    all of it to ``x``)."""
-    return torch.maximum(x, x.new_tensor(c))
+    all of it to ``x``).  The constant is a fill on ``x``'s device, not a
+    copy from the host, so a CUDA graph can capture it."""
+    return torch.maximum(x, torch.full((), c, dtype=x.dtype,
+                                       device=x.device))
 
 
 def _medium_interval(scene, o: V3, d: V3):

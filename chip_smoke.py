@@ -1102,17 +1102,21 @@ def plain_k5(nodes, rows, o, d, init_t, init_idx, *, leaf_size, t_min=1e-3,
 @contextlib.contextmanager
 def plain_wavefront():
     """Run the wavefront's bounces through K5's and K4's plain versions (on
-    the card)."""
-    from another_raytracer_tpu_torch.ops import shade
+    the card), eagerly: the plain walk reads the card, which no CUDA graph
+    may capture."""
+    from another_raytracer_tpu_torch.ops import integrator, shade
     from another_raytracer_tpu_torch.ops.kernels import bvh_kernel, perlin_kernel
 
-    saved = bvh_kernel.bvh_closest_hit, perlin_kernel.perlin_noise
+    saved = (bvh_kernel.bvh_closest_hit, perlin_kernel.perlin_noise,
+             integrator.GRAPHS)
     bvh_kernel.bvh_closest_hit = plain_k5
     perlin_kernel.perlin_noise = shade.perlin_noise
+    integrator.GRAPHS = {}
     try:
         yield
     finally:
-        bvh_kernel.bvh_closest_hit, perlin_kernel.perlin_noise = saved
+        (bvh_kernel.bvh_closest_hit, perlin_kernel.perlin_noise,
+         integrator.GRAPHS) = saved
 
 
 def reset_counts():

@@ -797,6 +797,86 @@ def test_media_gradient_is_finite_on_the_card(dev):
     assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
 
 
+GRAPH_SCENES = ("random_scene", "two_spheres", "two_perlin_spheres", "earth",
+                "simple_light", "cornell_box", "cornell_smoke", "final_scene",
+                "mesh")
+
+
+@pytest.mark.parametrize("name", GRAPH_SCENES)
+def test_wavefront_graphs_equal_eager(name, capsule_obj, dev, monkeypatch):
+    """Every scene of the library and the capsule through the wavefront's
+    CUDA graphs, in stages of 13,824, 1,792 and 256 lanes (the first with
+    K5's folded record): the same images, segments and launch counts as
+    the eager body, on the render that captures, on renders with another
+    seed that replay, and after an eviction."""
+    import collections
+
+    from another_raytracer_tpu_torch.ops import integrator, intersect
+    from another_raytracer_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(integrator, "REGEN_COMPACT_MIN_B", 1024)
+    monkeypatch.setattr(intersect, "FOLD_RECORD_MIN_B", 8192)
+    monkeypatch.setattr(intersect, "FOLD_SPH_MIN_B", 8192)
+    monkeypatch.setattr(integrator, "_stages", collections.OrderedDict())
+    widths = integrator._stage_widths(2 * W * H)
+    assert widths == [13824, 1792, 256]
+    scenes = dict(_media_scenes(capsule_obj),
+                  **{k: getattr(library, k) for k in GRAPH_SCENES[:-1]})
+    scene, params = scenes[name](device=dev)
+    cam = camera.make_camera(aspect_ratio=W / H, device=dev, **params)
+    # Lane s * W * H + p: pixel p from sample s, stride 2, four samples.
+    pix = torch.arange(W * H, device=dev).repeat(2)
+    samp0 = torch.arange(2, device=dev).repeat_interleave(W * H)
+
+    def run(seed):
+        chip_smoke.reset_counts()
+        profiling.clear_spans()
+        with profiling.recording():
+            acc, segs = integrator.trace_regenerative(
+                scene, cam, pix, samp0, seed, width=W, height=H,
+                sample_stride=2, sample_end=4, spp_cap=4, max_depth=8,
+                t_min=1e-3)
+        modes = [(s.attrs["width"], s.attrs["graph"])
+                 for s in profiling.spans() if s.name == "wavefront.iteration"]
+        profiling.clear_spans()
+        counts = dict(chip_smoke.counts(),
+                      K4_points=perlin_kernel.perlin_noise.points)
+        return torch.stack(tuple(acc)), int(segs), counts, modes
+
+    with monkeypatch.context() as m:
+        m.setattr(integrator, "GRAPHS", {})
+        want = {seed: run(seed) for seed in (5, 6)}
+    # The Cornell box's paths all run to the depth cap: its survivors die
+    # at once and no later stage iterates.
+    ran = {w for w, _ in want[5][3]}
+    assert widths[0] in ran and (len(ran) >= 2 or name == "cornell_box")
+
+    def same(got, seed):
+        img, segs, counts, _ = want[seed]
+        assert torch.equal(got[0], img) and got[1] == segs
+        assert got[2] == counts
+
+    first = run(5)
+    same(first, 5)
+    assert {m for _, m in first[3]} == {"eager", "capture", "replay"}
+    kept = first[0].clone()
+    # A stage that ran one iteration on the first render captures on the
+    # second; by the third every stage replays.
+    for seed, modes in ((6, {"capture", "replay"}), (5, {"replay"})):
+        got = run(seed)
+        same(got, seed)
+        seen = {m for _, m in got[3]}
+        assert seen <= modes and "replay" in seen
+    assert torch.equal(first[0], kept)
+
+    monkeypatch.setattr(integrator, "GRAPH_CACHE_SIZE", 1)
+    integrator._stages.clear()
+    got = run(6)
+    same(got, 6)
+    assert "capture" in {m for _, m in got[3]}
+    assert len(integrator._stages) == 1
+
+
 def test_host_library_builds_and_decodes_a_jpeg(dev):
     """The host library (csrc/host) builds on the card's machine and decodes
     the committed samples bit for bit as their stored native decodes, and

@@ -1,0 +1,210 @@
+"""The regenerating wavefront's graph path (``integrator._Stage``) on the
+CPU, with the capture step injected: a capture that records nothing and
+whose replay runs the captured function again, so the buffers, the
+compaction's copies, the seed buffer, the capture rule and the cache run as
+on the card.  The card's own graphs are tested in ``test_torch_cuda.py``.
+
+* The graph path gives the eager path's images and segments bit for bit:
+  on the render that captures, on a render with another seed that replays,
+  after an eviction, across every compaction stage; what it returns does
+  not alias a buffer.
+* A key's first iteration runs eagerly, its second captures (graphs A and
+  B), every later one replays; a stage that ends after one iteration never
+  captures.  The cache keeps ``GRAPH_CACHE_SIZE`` stages.
+* A replay adds the launches its graph holds to the kernels' counts.
+"""
+
+import collections
+
+import pytest
+import torch
+
+from another_raytracer_tpu_torch.models import library
+from another_raytracer_tpu_torch.ops import camera, integrator, render
+from another_raytracer_tpu_torch.utils import profiling
+
+torch.set_num_threads(1)
+
+W, H = 24, 24
+
+
+class FakeGraphs:
+    """The capture step for the CPU: counts its captures; the replay is the
+    captured function itself."""
+
+    def __init__(self):
+        self.captures = 0
+
+    def __call__(self, device):
+        assert device.type == "cpu"
+
+        def capture(fn):
+            self.captures += 1
+            return fn
+
+        return capture
+
+
+@pytest.fixture
+def graphs(monkeypatch):
+    """The graph path on the CPU over an empty cache; stages of 1152, 256
+    and 128 lanes."""
+    fake = FakeGraphs()
+    monkeypatch.setitem(integrator.GRAPHS, "cpu", fake)
+    monkeypatch.setattr(integrator, "_stages", collections.OrderedDict())
+    monkeypatch.setattr(integrator, "REGEN_COMPACT_MIN_B", 64)
+    assert integrator._stage_widths(W * H * 2) == [W * H * 2, 256, 128]
+    profiling.clear_spans()
+    yield fake
+    profiling.clear_spans()
+
+
+def _scene(name):
+    scene, params = getattr(library, name)(device="cpu")
+    return scene, camera.make_camera(aspect_ratio=W / H, device="cpu",
+                                     **params)
+
+
+def _radiance(scene, cam, seed, n_samples=4, spass=2, max_depth=8,
+              pixels=W * H):
+    """Radiance sums and segments over ``pixels`` pixels, with the
+    ``graph`` count of each iteration span as (width, graph)."""
+    profiling.clear_spans()
+    with profiling.recording():
+        acc, segs = render.radiance_batch(
+            scene, cam, torch.arange(pixels), seed, width=W, height=H,
+            sample_start=0, n_samples=n_samples, spp_cap=n_samples,
+            samples_per_pass=spass, max_depth=max_depth, t_min=1e-3)
+    modes = [(s.attrs["width"], s.attrs["graph"]) for s in profiling.spans()
+             if s.name == "wavefront.iteration"]
+    profiling.clear_spans()
+    return torch.stack(tuple(acc)), int(segs), modes
+
+
+def _assert_captured_anew(modes):
+    """Each stage of a new key: eager, capture, then replays."""
+    for w in {w for w, _ in modes}:
+        seq = [m for v, m in modes if v == w]
+        assert seq[:2] == ["eager", "capture"][:len(seq)], (w, seq)
+        assert set(seq[2:]) <= {"replay"}
+
+
+def _eager(scene, cam, seed, monkeypatch, **kw):
+    with monkeypatch.context() as m:
+        m.delitem(integrator.GRAPHS, "cpu")
+        return _radiance(scene, cam, seed, **kw)
+
+
+@pytest.mark.parametrize("name", ["two_perlin_spheres", "cornell_smoke"])
+def test_graph_path_equals_eager(name, graphs, monkeypatch):
+    scene, cam = _scene(name)
+    want = {seed: _eager(scene, cam, seed, monkeypatch) for seed in (5, 6)}
+    assert all(m == "eager" for _, _, modes in want.values()
+               for _, m in modes)
+
+    first = _radiance(scene, cam, 5)  # captures
+    widths = {w for w, _ in first[2]}
+    assert W * H * 2 in widths and len(widths) >= 2  # a compaction or two
+    _assert_captured_anew(first[2])
+    kept = first[0].clone()
+    second = _radiance(scene, cam, 6)  # replays with another seed
+    third = _radiance(scene, cam, 5)
+    for got, seed in ((first, 5), (second, 6), (third, 5)):
+        assert torch.equal(got[0], want[seed][0]) and got[1] == want[seed][1]
+    assert {m for _, m in third[2]} == {"replay"}
+    # Nothing returned aliases a buffer that a later render overwrites.
+    assert torch.equal(first[0], kept)
+    assert graphs.captures == 2 * len(widths)
+
+    # A cache of one stage: each stage evicts the last, and captures again.
+    monkeypatch.setattr(integrator, "GRAPH_CACHE_SIZE", 1)
+    integrator._stages.clear()
+    for seed in (6, 5):
+        got = _radiance(scene, cam, seed)
+        assert torch.equal(got[0], want[seed][0]) and got[1] == want[seed][1]
+        _assert_captured_anew(got[2])
+    assert len(integrator._stages) == 1
+
+
+def test_graph_path_equals_eager_adaptive(graphs, monkeypatch):
+    """The adaptive mode over the graph path: one key per level's width."""
+    from another_raytracer_tpu_torch.config import RenderConfig, RenderMode
+
+    scene, cam = _scene("two_perlin_spheres")
+    cfg = RenderConfig(width=W, height=H, samples_per_pixel=4,
+                       samples_per_pass=2, max_depth=8, seed=3,
+                       mode=RenderMode.ADAPTIVE)
+    with monkeypatch.context() as m:
+        m.delitem(integrator.GRAPHS, "cpu")
+        want_img, want_stats = render.render(scene, cam, cfg)
+    for _ in range(2):
+        img, stats = render.render(scene, cam, cfg)
+        assert (img == want_img).all() and stats == want_stats
+    assert graphs.captures > 0
+
+
+def test_one_iteration_never_captures(graphs, monkeypatch):
+    """Depth 1 and one sample: every path ends in the first iteration, so
+    the render's one stage never captures; the key's next render captures
+    at its first iteration and the one after replays."""
+    monkeypatch.setattr(integrator, "REGEN_COMPACT_MIN_B", 1 << 20)
+    scene, cam = _scene("two_perlin_spheres")
+    kw = dict(n_samples=1, spass=1, max_depth=1)
+    want = _eager(scene, cam, 4, monkeypatch, **kw)
+    for mode, captures in (("eager", 0), ("capture", 2), ("replay", 2)):
+        got = _radiance(scene, cam, 4, **kw)
+        assert got[2] == [(W * H, mode)]
+        assert graphs.captures == captures
+        assert torch.equal(got[0], want[0]) and got[1] == want[1]
+
+
+def test_cache_keeps_the_newest_stages(graphs, monkeypatch):
+    """One stage a width; a cache of two keeps the two used last, and a
+    width it dropped starts eager again."""
+    monkeypatch.setattr(integrator, "REGEN_COMPACT_MIN_B", 1 << 20)
+    monkeypatch.setattr(integrator, "GRAPH_CACHE_SIZE", 2)
+    scene, cam = _scene("two_perlin_spheres")
+
+    def first_mode(pixels):
+        return _radiance(scene, cam, 2, pixels=pixels)[2][0][1]
+
+    assert [first_mode(p) for p in (64, 96, 64)] == ["eager"] * 2 + ["replay"]
+    # A stage's width: two lanes a pixel.
+    assert [k[3] for k in integrator._stages] == [192, 128]
+    assert first_mode(128) == "eager"  # evicts 96
+    assert [k[3] for k in integrator._stages] == [128, 256]
+    assert first_mode(96) == "eager"
+    assert first_mode(64) == "eager"
+
+
+def test_replay_adds_the_graphs_launches(monkeypatch):
+    """At capture the kernels' wrappers count launches that do not run; the
+    counts return to what they were, and each replay adds them."""
+    from another_raytracer_tpu_torch.ops.kernels import (bvh_kernel,
+                                                         perlin_kernel)
+
+    k5, k4 = bvh_kernel.bvh_closest_hit, perlin_kernel.perlin_noise
+    monkeypatch.setattr(k5, "launches",
+                        collections.Counter({"rect/shared": 3}))
+    monkeypatch.setattr(k4, "launches", 1)
+    monkeypatch.setattr(k4, "points", 10)
+
+    def body():  # what the wrappers count when the body runs
+        k5.launches["planar/global"] += 1
+        k5.launches["rect/shared"] += 2
+        k4.launches += 1
+        k4.points += 100
+        return "out"
+
+    replays = []
+
+    def capture(fn):  # a graph's capture runs the Python, not the card
+        fn()
+        return lambda: replays.append(1) or "out"
+
+    replay = integrator._counted(capture, body)
+    assert k5.launches == {"rect/shared": 3}
+    assert (k4.launches, k4.points) == (1, 10)
+    assert replay() == replay() == "out" and len(replays) == 2
+    assert k5.launches == {"rect/shared": 7, "planar/global": 2}
+    assert (k4.launches, k4.points) == (3, 210)

@@ -7,7 +7,7 @@ train paths, on the CPU at small sizes.
   child inside its parent, one request id, all inside a host-clock bracket
   taken around the call.
 * The wavefront's iteration spans count ``body``'s calls and carry the
-  alive lanes it started from.
+  alive lanes it started from, and ``graph``: ``eager`` on the CPU.
 * Recording changes no image and no segment count.
 """
 
@@ -132,6 +132,19 @@ def test_iterations_match_a_counting_body(narrow_stages, monkeypatch):
     assert [s.attrs["survivors"] for s in spans
             if s.name == "wavefront.compact"] == [
         a for (w, _), (w2, a) in zip(calls, calls[1:]) if w2 != w]
+
+
+@pytest.mark.parametrize("mode", [RenderMode.SINGLE, RenderMode.ADAPTIVE])
+def test_iterations_run_eagerly_on_the_cpu(mode, narrow_stages):
+    """The CPU has no capture step: every iteration's ``graph`` count reads
+    ``eager``, twice over the same key, and nothing is captured."""
+    for _ in range(2):
+        _, spans, _ = _traced_render("wavefront", mode=mode)
+        profiling.clear_spans()
+        its = [s for s in spans if s.name == "wavefront.iteration"]
+        assert its and {s.attrs["graph"] for s in its} == {"eager"}
+        assert "wavefront.capture" not in {s.name for s in spans}
+    assert "cpu" not in integrator.GRAPHS
 
 
 @pytest.mark.parametrize("kind,mode", [
