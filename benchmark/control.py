@@ -37,8 +37,8 @@ def readings(c: harness.Cell, seed: int, device, root: Path = harness.ROOT):
     with tempfile.TemporaryDirectory() as files_dir:
         ctx = harness.Context(cell=c, seed=seed, device=torch.device(device),
                               files_dir=files_dir)
-        meshes = inputs.write_meshes(cfg, files_dir)
-        sc = ref_scene.build(cfg, meshes, ctx.device, dtype=dtype)
+        files = inputs.write_inputs(cfg, files_dir)
+        sc = ref_scene.build(cfg, files, ctx.device, dtype=dtype)
         cam = ref_tracer.camera(cfg["camera"], tr["width"], tr["height"])
         if tr["entry"] == "train":
             target = inputs.target_image(seed, tr["width"], tr["height"],
@@ -62,7 +62,7 @@ def readings(c: harness.Cell, seed: int, device, root: Path = harness.ROOT):
             (img, segments), traced = ref_tracer.render(
                 sc, cam, seed=rseed, **kw), None
         record = {"image": img, "segments": segments, "traced": traced}
-        return entry.check(ctx, [(0, record)], meshes)
+        return entry.check(ctx, [(0, record)], files)
 
 
 def main(argv=None) -> int:

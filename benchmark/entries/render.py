@@ -27,7 +27,7 @@ class State:
     scene: object
     cam: object
     config: object
-    meshes: list
+    files: list  # the input files (``inputs.write_inputs``)
 
 
 def setup(ctx):
@@ -39,14 +39,14 @@ def setup(ctx):
         _build.build_all()  # every target at once; a built one is kept
     ctx.note("kernels built or found")
     tr = ctx.traffic
-    meshes = inputs.write_meshes(ctx.config, ctx.files_dir)
-    scene, cam = scenes.build(ctx.config, meshes, tr["width"], tr["height"],
+    files = inputs.write_inputs(ctx.config, ctx.files_dir)
+    scene, cam = scenes.build(ctx.config, files, tr["width"], tr["height"],
                               ctx.device)
     config = RenderConfig(width=tr["width"], height=tr["height"],
                           samples_per_pixel=tr["spp"],
                           max_depth=tr["max_depth"],
                           mode=RenderMode(tr["mode"]))
-    state = State(render_lib.render, scene, cam, config, meshes)
+    state = State(render_lib.render, scene, cam, config, files)
     ctx.note("input files and scene")
     request(state, inputs.WARM_UP, ctx)
     ctx.note("warm-up render")
@@ -67,14 +67,14 @@ def counts(state) -> dict:
 
 
 def release(state) -> list:
-    return state.meshes
+    return state.files
 
 
-def check(ctx, kept, meshes) -> list:
+def check(ctx, kept, files) -> list:
     tr = ctx.traffic
     kw = dict(width=tr["width"], height=tr["height"], spp=tr["spp"],
               max_depth=tr["max_depth"])
-    sc = ref_scene.build(ctx.config, meshes, ctx.device)
+    sc = ref_scene.build(ctx.config, files, ctx.device)
     cam = ref_tracer.camera(ctx.config["camera"], tr["width"], tr["height"])
     worst = {}
     for i, record in kept:

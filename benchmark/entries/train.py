@@ -47,7 +47,7 @@ def setup(ctx):
         _build.build_all()  # every target at once; a built one is kept
     ctx.note("kernels built or found")
     tr, cfg = ctx.traffic, ctx.config
-    scene, cam = scenes.build(cfg, inputs.write_meshes(cfg, ctx.files_dir),
+    scene, cam = scenes.build(cfg, inputs.write_inputs(cfg, ctx.files_dir),
                               tr["width"], tr["height"], ctx.device)
     ctx.note("scene")
     target = inputs.target_image(ctx.seed, tr["width"], tr["height"],
@@ -98,7 +98,7 @@ def release(state) -> State:
 
 def check(ctx, kept, state) -> list:
     tr, cfg = ctx.traffic, ctx.config
-    sc = ref_scene.build(cfg, inputs.write_meshes(cfg, ctx.files_dir),
+    sc = ref_scene.build(cfg, inputs.write_inputs(cfg, ctx.files_dir),
                          ctx.device)
     cam = ref_tracer.camera(cfg["camera"], tr["width"], tr["height"])
     leaves = {k: sc.leaves[k] for k in cfg["trainable"]}

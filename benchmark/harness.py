@@ -162,6 +162,15 @@ class Run:
     traced_records: list = dataclasses.field(default_factory=list)  # no image
 
 
+def traced_spans(ctx: Context) -> list:
+    """The traced requests' spans as (label, start us, end us): the
+    benchmark's (``request`` and an entry's own) and the program's."""
+    from benchmark import spans as spans_lib
+
+    program = spans_lib.recorded() or []
+    return ctx.spans + [(s.name, s.start, s.end) for s in program]
+
+
 def process_age() -> float:
     """Seconds since this process started (0 where /proc cannot say)."""
     try:
@@ -295,7 +304,8 @@ def measure(argv, started: float, age: float = 0.0, device=None,
                   counts=entry.counts(state),
                   traced_records=traced)
         if prof is not None and prof.events is not None:
-            run.traced = trace_lib.read(prof.events, ctx.spans, n_trace)
+            run.traced = trace_lib.read(prof.events, traced_spans(ctx),
+                                        n_trace)
         metrics = {}
         for m in (c.per_layer if args.trace else c.end_to_end):
             value = readers[m["name"]].read(run)

@@ -1,6 +1,6 @@
 """What the benchmark makes from ``--seed`` and from a configuration: the
 seed of each request, a training step's target image, and the input files
-a configuration's meshes are read from."""
+a configuration's meshes and image textures are read from."""
 
 from __future__ import annotations
 
@@ -92,17 +92,46 @@ def write_capsule(directory, segments=64, rings=45, texels=256) -> str:
     return base + ".obj"
 
 
-GENERATORS = {"capsule": write_capsule}
+def write_earthmap(directory, width=1024, height=512) -> str:
+    """Write a ``width`` x ``height`` RGB PNG that stands in for the book's
+    earthmap (1,024 x 512) into ``directory`` and return its path.
+
+    Red climbs with the column and green with the row, and blue is a
+    checker of 64-texel squares, so a flipped or swapped axis of the
+    texture lookup shows at the size of the globe; each channel adds a hash
+    of the texel's index (up to 30 levels), so a lookup one texel off shows
+    too."""
+    i = np.arange(width, dtype=np.int64)[None, :]
+    j = np.arange(height, dtype=np.int64)[:, None]
+    h = ((i * 73856093) ^ (j * 19349663)) & 0xFFFF
+    img = np.stack(np.broadcast_arrays(
+        20 + 200 * i // (width - 1) + h % 31,
+        20 + 200 * j // (height - 1) + (h >> 5) % 31,
+        60 + 120 * ((i // 64 + j // 64) % 2) + (h >> 10) % 31), axis=-1)
+    path = os.path.join(directory, f"earthmap_{width}x{height}.png")
+    with open(path, "wb") as f:
+        f.write(encode_png(img.astype(np.uint8)))
+    return path
 
 
-def write_meshes(config: dict, directory) -> list:
-    """The .obj of each ``obj_mesh`` primitive of ``config``, written by
-    its generator into ``directory`` (one sub-directory a mesh)."""
+MESHES = {"capsule": write_capsule}
+IMAGES = {"earthmap": write_earthmap}
+
+
+def write_inputs(config: dict, directory) -> list:
+    """The input files of ``config``, written by their generators into
+    ``directory`` (one sub-directory a file): the PNG of each ``image``
+    texture, in the order ``textures`` lists them, then the .obj of each
+    ``obj_mesh`` primitive."""
+    entries = ([(IMAGES, t) for t in config.get("textures", [])
+                if t["kind"] == "image"]
+               + [(MESHES, p) for p in config["primitives"]
+                  if p["kind"] == "obj_mesh"])
     paths = []
-    for k, p in enumerate(q for q in config["primitives"]
-                          if q["kind"] == "obj_mesh"):
-        sub = os.path.join(directory, f"mesh{k}")
+    for k, (makers, entry) in enumerate(entries):
+        sub = os.path.join(directory, f"input{k}")
         os.makedirs(sub, exist_ok=True)
-        args = {a: v for a, v in p.items() if a not in ("kind", "generator")}
-        paths.append(GENERATORS[p["generator"]](sub, **args))
+        args = {a: v for a, v in entry.items()
+                if a not in ("name", "kind", "generator")}
+        paths.append(makers[entry["generator"]](sub, **args))
     return paths

@@ -1,7 +1,8 @@
 """The plain reference: a float64 PyTorch path tracer of the configurations
-(a sequential closest hit over rects, triangle chunks and media, its own
-threefry, ``.obj`` and PNG readers, the adaptive heuristic, the render
-loss with its gradients by autograd, and adam).
+(a sequential closest hit over chunks of rects, spheres and triangles and
+over media, every material and texture of the books, a thin-lens camera,
+its own threefry, Perlin tables, ``.obj`` and PNG readers, the adaptive
+heuristic, the render loss with its gradients by autograd, and adam).
 
 It imports neither ``jax`` nor the JAX package nor anything of
 ``another_raytracer_tpu_torch``: it reads the configuration and the input

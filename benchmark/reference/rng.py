@@ -12,8 +12,10 @@ ROUNDS = 13
 
 CAMERA_BOUNCE = 0xFF00  # camera draws sit outside the bounce range
 DIM_JITTER = 0  # sub-pixel jitter u, v
+DIM_LENS = 2  # the lens disk's two uniforms
+DIM_TIME = 4  # the shutter time
 DIM_SCATTER_A = 0  # per bounce: the direction's two uniforms
-DIM_SCATTER_B = 2  # per bounce: the unit-ball radius
+DIM_SCATTER_B = 2  # per bounce: the unit-ball radius, the dielectric's coin
 DIM_MEDIUM = 8  # per bounce: medium m draws on lane 8 + 2 m
 
 

@@ -64,13 +64,13 @@ def test_render_matches_the_port(tmp_path, name, mode):
     from another_raytracer_tpu_torch.ops import render as render_lib
 
     cfg = config(name)
-    meshes = inputs.write_meshes(cfg, tmp_path)
-    scene, cam = scenes.build(cfg, meshes, W, H, "cpu")
+    files = inputs.write_inputs(cfg, tmp_path)
+    scene, cam = scenes.build(cfg, files, W, H, "cpu")
     seed = inputs.request_seed(3_000_000_001, 5)
     img, stats = render_lib.render(scene, cam, RenderConfig(
         width=W, height=H, samples_per_pixel=SPP, max_depth=DEPTH, seed=seed,
         mode=RenderMode(mode)))
-    sc = ref_scene.build(cfg, meshes, "cpu")
+    sc = ref_scene.build(cfg, files, "cpu")
     rcam = tracer.camera(cfg["camera"], W, H)
     kw = dict(width=W, height=H, spp=SPP, max_depth=DEPTH, seed=seed)
     if mode == "adaptive":

@@ -128,3 +128,34 @@ def test_readers_match_a_counting_body(monkeypatch):
     assert read["render.host_ms"] > 0
     assert read["mega.prepare_ms"] is None  # no card: no launch
     assert read["adaptive.lanes_per_launch"] is None
+
+
+def test_program_spans_name_the_gaps_and_move_no_metric(monkeypatch):
+    """The traced run hands ``trace.read`` the program's spans beside the
+    benchmark's: the longest idle gaps are named by the innermost program
+    span, while the window, the busy time, the device ops and every metric
+    read from them stay the ``request`` spans' alone."""
+    monkeypatch.setattr(profiling, "spans", lambda: list(FAKE))
+    events = [("k", "kernel", s, e) for s, e in
+              ((0, 100), (400, 500), (900, 1000), (2000, 2030),
+               (2040, 2300), (2310, 3000), (3100, 3200))]
+    ctx = harness.Context(cell=None, seed=0, device="cpu", files_dir="",
+                          spans=[("request", 0, 1000),
+                                 ("request", 2000, 3200)])
+    spans = harness.traced_spans(ctx)
+    assert spans[:2] == ctx.spans and len(spans) == 2 + len(FAKE)
+    alone = trace.read(events, ctx.spans, 2)
+    both = trace.read(events, spans, 2)
+    for key in ("n", "window_s", "busy_s", "ops"):
+        assert getattr(alone, key) == getattr(both, key)
+    assert alone.breakdown["device_ops"] == both.breakdown["device_ops"]
+    assert [g[1] for g in alone.breakdown["idle_gaps"]] == \
+        [g[1] for g in both.breakdown["idle_gaps"]]
+    assert {g[0] for g in alone.breakdown["idle_gaps"]} == \
+        {"request", "between requests"}
+    assert [g[0] for g in both.breakdown["idle_gaps"]][:4] == \
+        ["between requests", "render.wait", "mega.prepare", "render.wait"]
+    reader = harness.load_module("metrics", "device_idle.render")
+    runs = [_run("render") for _ in range(2)]
+    runs[0].traced, runs[1].traced = alone, both
+    assert reader.read(runs[0]) == reader.read(runs[1])

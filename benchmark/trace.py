@@ -1,8 +1,9 @@
 """The traced run's reading of the card: a ``torch.profiler`` trace of the
 card's activity alone (kernels, copies, fills; the host's operators would
 be most of a long trace and of its cost), put on the host's clock by a
-marker kernel launched at a known host time, and cut by the benchmark's
-own spans (the request, and an entry's spans inside it)."""
+marker kernel launched at a known host time, and cut by the spans of the
+traced requests: the benchmark's (the request, and an entry's spans inside
+it) and the program's."""
 
 from __future__ import annotations
 
@@ -110,7 +111,8 @@ def _union(intervals):
 
 def read(events, spans, n) -> Reading:
     """``events`` from ``Profile``; ``spans``: (label, start us, end us) on
-    the same clock, the requests labelled ``request``.  Idle gaps are
+    the same clock, the requests labelled ``request``.  The window and the
+    busy time are the ``request`` spans'; the longest idle gaps are
     labelled by the innermost span open at their middle."""
     reqs = [s for s in spans if s[0] == "request"]
     lo, hi = min(s[1] for s in reqs), max(s[2] for s in reqs)
@@ -122,16 +124,19 @@ def read(events, spans, n) -> Reading:
     gaps, edge = [], lo
     for s, e in busy + [[hi, hi]]:
         if s > edge:
-            mid = (s + edge) / 2
-            open_ = [sp for sp in spans if sp[1] <= mid <= sp[2]]
-            label = (min(open_, key=lambda sp: sp[2] - sp[1])[0] if open_
-                     else "between requests")
-            gaps.append([label, (s - edge) / 1e6])
+            gaps.append((s - edge, (s + edge) / 2))
         edge = max(edge, e)
+
+    def label(mid):
+        open_ = [sp for sp in spans if sp[1] <= mid <= sp[2]]
+        return (min(open_, key=lambda sp: sp[2] - sp[1])[0] if open_
+                else "between requests")
+
+    longest = sorted(gaps, key=lambda g: -g[0])[:TOP]
     return Reading(
         n=n, window_s=(hi - lo) / 1e6,
         busy_s=sum(e - s for s, e in busy) / 1e6, ops=len(inside),
         breakdown={
             "device_ops": sorted(([k, v] for k, v in by_op.items()),
                                  key=lambda kv: -kv[1])[:TOP],
-            "idle_gaps": sorted(gaps, key=lambda g: -g[1])[:TOP]})
+            "idle_gaps": [[label(mid), us / 1e6] for us, mid in longest]})
