@@ -7,10 +7,13 @@
 // primitive kind: prim 'planar' (triangles and quad-split transformed
 // rects; 16- or 35-column rows, optional winner-record folds and
 // precomputed leaf geometry), 'sphere' (world-baked, moving; optional
-// fold of the outward normal, material and has_uv) and 'rect' (identity
-// axis rects).  Same inputs and outputs: per ray the closest t, the winning
-// row's code (id * 4 + kind; init_idx copied through where not improved),
-// the improved flag and the fold outputs (zeros where not improved).
+// fold of the centre at the ray's time, radius, material and has_uv) and
+// 'rect' (identity axis rects).  Same inputs and outputs: per ray the
+// closest t, the winning row's code (id * 4 + kind; init_idx copied through
+// where not improved), the improved flag and the fold outputs (zeros where
+// not improved).  The sphere fold is the port's own: the Pallas kernel
+// folds the outward normal, and the port's record re-projects the hit
+// point onto its sphere from the centre and radius (ops/intersect.py).
 //
 // The TPU kernel walks the tree with ONE cursor per block of rays (packet
 // DFS): at node j every lane runs the slab test, the block enters the
@@ -383,8 +386,8 @@ bvh_kernel(const Params p, const Rays rays, const Out out,
 
   // The ray's outputs: the winner's code from the wide rows and its fold
   // outputs, computed once with the leaf test's operations (planar: unit
-  // normal, u, v[, tu, tv, mat]; sphere: outward normal, mat, has_uv), zeros
-  // where the tree did not improve the ray.
+  // normal, u, v[, tu, tv, mat]; sphere: centre at the ray's time, radius,
+  // mat, has_uv), zeros where the tree did not improve the ray.
   if (i < p.n) {
     float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     int code = rays.init_idx[i];
@@ -420,21 +423,20 @@ bvh_kernel(const Params p, const Rays rays, const Out out,
         }
       } else if constexpr (FOLD && PRIM == PRIM_SPHERE) {
         const float4 s0 = __ldg(s), s1 = __ldg(s + 1);
-        float ocx, ocy, ocz;
-        sphere_oc(s0, s1, __ldg(s + 2).x, r, ocx, ocy, ocz);
-        const float inv_r = 1.0f / (s0.w != 0.0f ? s0.w : 1.0f);
-        f[0] = (ocx + r.best_t * r.dx) * inv_r;
-        f[1] = (ocy + r.best_t * r.dy) * inv_r;
-        f[2] = (ocz + r.best_t * r.dz) * inv_r;
-        f[3] = __ldg(wide + 10);
-        f[4] = __ldg(wide + 11);
+        const float frac = (r.time - s1.w) * __ldg(s + 2).x;
+        f[0] = s0.x + frac * s1.x;
+        f[1] = s0.y + frac * s1.y;
+        f[2] = s0.z + frac * s1.z;
+        f[3] = s0.w;
+        f[4] = __ldg(wide + 10);
+        f[5] = __ldg(wide + 11);
       }
     }
     out.t[i] = r.best_t;
     out.code[i] = code;
     out.hit[i] = r.best >= 0 ? 1 : 0;
     if constexpr (FOLD) {
-      constexpr int N_AUX = FULL ? 8 : 5;
+      constexpr int N_AUX = FULL ? 8 : (PRIM == PRIM_SPHERE ? 6 : 5);
 #pragma unroll
       for (int k = 0; k < N_AUX; ++k) out.aux[k * (size_t)p.n + i] = f[k];
     }
@@ -547,7 +549,7 @@ int launch_any(const float* tab, int shared, const float* rows, int n_nodes,
 // shared memory per block (shared = 1) or read from device memory; rows the
 // wide rows [n_rows][row_w] (the winner's code and fold columns); ray
 // components and times [n], init_t [n], init_idx [n]; outputs t [n], code
-// [n], hit [n] (0/1 bytes) and, with fold, aux [5 or 8][n]; block threads a
+// [n], hit [n] (0/1 bytes) and, with fold, aux [5, 6 or 8][n]; block threads a
 // block, one ray per thread.  prim 0 planar, 1 sphere, 2 rect.
 #define ART_ARGS                                                              \
   const float *tab, int shared, const float *rows, int n_nodes, int n_rows,  \

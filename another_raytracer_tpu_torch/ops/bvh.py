@@ -60,9 +60,10 @@ OPS_PER_TEST = {
     ("rect", False): 15,
 }
 # Extra operations of a fold per valid candidate (normal, barycentrics,
-# texcoords; the sphere's outward normal).
+# texcoords; the sphere's centre at the ray's time: frac, 3 products and 3
+# sums).
 OPS_PER_FOLD = {("planar", False): 8, ("planar", True): 17,
-                ("sphere", False): 9}
+                ("sphere", False): 8}
 
 
 def safe_inv(c):
@@ -143,10 +144,10 @@ def _sphere_test(r, o, d, time, a_vec, inv_a, best_t, t_min, fold_record):
     valid = ok & (t > t_min) & (t < best_t)
     if not fold_record:
         return t, valid, ()
-    # World outward normal (p - c) / r; /r keeps the negative-radius sign.
-    inv_r = 1.0 / torch.where(rad != 0.0, rad, torch.ones_like(rad))
-    aux = ((ocx + t * d.x) * inv_r, (ocy + t * d.y) * inv_r,
-           (ocz + t * d.z) * inv_r, r[..., 10], r[..., 11])
+    # The world centre at the ray's time and the radius, from which the
+    # record re-projects the hit point (ops/intersect.py).
+    aux = (r[..., 0] + frac * r[..., 3], r[..., 1] + frac * r[..., 4],
+           r[..., 2] + frac * r[..., 5], rad, r[..., 10], r[..., 11])
     return t, valid, aux
 
 
@@ -167,11 +168,13 @@ def _rect_test(r, o, d, best_t, t_min):
     return t, valid, ()
 
 
-def n_aux(fold_record: bool, fold_full: bool) -> int:
+def n_aux(prim: str, fold_record: bool, fold_full: bool) -> int:
     """Fold outputs per ray: planar (n, u, v[, tu, tv, mat]), sphere
-    (n, mat, has_uv)."""
+    (centre, r, mat, has_uv)."""
     if not fold_record:
         return 0
+    if prim == "sphere":
+        return 6
     return 8 if fold_full else 5
 
 
@@ -199,8 +202,8 @@ def traverse_packed(nodes, rows, o: V3, d: V3, time, t_min, init_t, init_idx,
     (whose plain version this is): (t [B], code [B] int32 — row column 9 where
     improved, else ``init_idx`` —, improved [B] bool), then with
     ``fold_record`` the winner's fold outputs (zeros where not improved):
-    planar (unit normal V3, u, v[, tu, tv, mat]), sphere (outward normal V3,
-    mat, has_uv).  With ``counts`` also (slab tests [B], primitive tests [B])
+    planar (unit normal V3, u, v[, tu, tv, mat]), sphere (centre at the
+    ray's time V3, radius, mat, has_uv).  With ``counts`` also (slab tests [B], primitive tests [B])
     as int64.  ``time`` may be None (zeros).
     """
     check_variant(rows, prim, fold_record, fold_full, precomp)
@@ -220,7 +223,7 @@ def traverse_packed(nodes, rows, o: V3, d: V3, time, t_min, init_t, init_idx,
     best_t = init_t.clone()
     best_i = init_idx.to(torch.int32).clone()
     improved = torch.zeros(B, dtype=torch.bool, device=dev)
-    n_out = n_aux(fold_record, fold_full)
+    n_out = n_aux(prim, fold_record, fold_full)
     aux = torch.zeros((n_out, B), dtype=torch.float32, device=dev)
     slabs = torch.zeros(B, dtype=torch.int64, device=dev)
     tests = torch.zeros(B, dtype=torch.int64, device=dev)

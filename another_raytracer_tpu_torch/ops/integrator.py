@@ -38,6 +38,7 @@ import collections
 
 import torch
 
+from another_raytracer_tpu_torch.models import scene as scene_lib
 from another_raytracer_tpu_torch.ops import camera as camera_lib
 from another_raytracer_tpu_torch.ops import intersect, rng, shade, vec3
 from another_raytracer_tpu_torch.ops.vec3 import V3
@@ -68,13 +69,15 @@ def media_uniforms(scene, pixel_ids, sample_ids, bounce, seed):
 
 
 def _advance(scene, o, d, time, throughput, alive, pixel_ids, sample_ids,
-             bounce, seed, t_min, fast_texel=False):
+             bounce, seed, t_min, fast_texel=False, sphere_hits=None):
     """The bounce contract (engine.h:447-466): winner search, miss ->
     background, emission, branchless scatter.
 
     ``fast_texel`` (forward-only callers): textures may take kernels without
     a backward (Perlin, K4), and at widths of at least the ``FOLD_*_MIN_B``
     gates the BVH kernel folds the winner's record (intersect.py).
+    ``sphere_hits``: a 0-d int64 tensor that the live lanes whose winner is
+    a sphere are added into, in place, on the device.
 
     Returns (radiance_delta V3, hit_p V3, new_dir V3, attenuation V3,
     scattered [B] bool = alive & hit & scatter_ok).
@@ -100,6 +103,8 @@ def _advance(scene, o, d, time, throughput, alive, pixel_ids, sample_ids,
         else:
             t, kind, idx = intersect.closest_hit(*hit_args)
     hit = (kind >= 0) & alive
+    if sphere_hits is not None:
+        sphere_hits.add_((hit & (kind == scene_lib.PRIM_SPHERE)).sum())
 
     # Miss -> background * throughput, then die (engine.h:455-457).
     miss_now = alive & ~hit
@@ -161,13 +166,15 @@ def trace(scene, o: V3, d: V3, time, pixel_ids, sample_ids, seed,
 
 
 def _regen_step_parts(scene, cam, pix_ids, seed, width, height,
-                      sample_stride, limit, max_depth, t_min):
+                      sample_stride, limit, max_depth, t_min,
+                      sphere_hits=None):
     """(cam_rays, step, rearm) of the regenerating wavefront, bound to one
     lane -> pixel assignment: the loop body split at its one read of the
     card.  ``step`` maps the 10-tuple carry (o, d, time, throughput, total,
     path_rad, alive, sample, bounce, segments) to (the carry with the ended
     lanes' next samples and the re-armed lanes alive, ``regen``: the lanes
-    to re-arm); ``rearm(carry, regen)`` gives those lanes their next
+    to re-arm), adding its sphere winners into ``sphere_hits`` where given
+    (``_advance``); ``rearm(carry, regen)`` gives those lanes their next
     sample's primary ray.  ``seed`` is an int or a 0-d int64 tensor (the
     same bits)."""
     needs_time = scene.has_motion
@@ -181,7 +188,7 @@ def _regen_step_parts(scene, cam, pix_ids, seed, width, height,
          segments) = state
         delta, hit_p, new_dir, attenuation, scattered = _advance(
             scene, o, d, time, throughput, alive, pix_ids, sample, bounce,
-            seed, t_min, fast_texel=True)
+            seed, t_min, fast_texel=True, sphere_hits=sphere_hits)
         path_rad = path_rad + delta
         throughput = vec3.where(scattered, throughput * attenuation, throughput)
         o = vec3.where(scattered, hit_p, o)
@@ -226,7 +233,8 @@ def _regen_step_parts(scene, cam, pix_ids, seed, width, height,
 
 
 def _regen_loop_parts(scene, cam, pix_ids, seed, width, height,
-                      sample_stride, limit, max_depth, t_min):
+                      sample_stride, limit, max_depth, t_min,
+                      sphere_hits=None):
     """(cam_rays, body) of the regenerating wavefront, bound to one
     lane -> pixel assignment; a compaction stage rebinds to the gathered
     survivors' pixels.  ``body`` maps the 10-tuple carry to the next: the
@@ -234,7 +242,7 @@ def _regen_loop_parts(scene, cam, pix_ids, seed, width, height,
     re-arms, and the ``rearm`` where one does."""
     cam_rays, step, rearm = _regen_step_parts(
         scene, cam, pix_ids, seed, width, height, sample_stride, limit,
-        max_depth, t_min)
+        max_depth, t_min, sphere_hits)
 
     def body(state):
         state, regen = step(state)
@@ -403,15 +411,16 @@ class _Stage:
     for one key (``_stage``).  The carry, the stage's pixels and the seed
     live in the buffers; graph A (``step``) is the loop body up to its read
     of the card, ending in ``regen.any()``, and graph B (``rearm``) the
-    re-arm, each writing the carry back in place.  The key's first
-    iteration runs eagerly (``ran``); its second captures both graphs, and
-    every later one replays them."""
+    re-arm, each writing the carry back in place.  On a scene with spheres
+    graph A also adds its sphere winners into ``hits``, which ``load``
+    zeroes.  The key's first iteration runs eagerly (``ran``); its second
+    captures both graphs, and every later one replays them."""
 
     def __init__(self, device, parts_args):
         self.device = device
         self.parts_args = parts_args  # (scene, cam, width, ..., t_min)
         self.ran = 0
-        self.bufs = self.seed = self.capture = None
+        self.bufs = self.seed = self.hits = self.capture = None
         self.step = self.rearm = self.regen = self._rearm = None
 
     @property
@@ -427,8 +436,12 @@ class _Stage:
         if self.bufs is None:
             self.bufs = [torch.empty_like(t) for t in flat]
             self.seed = torch.empty((), dtype=torch.int64, device=self.device)
+            if self.parts_args[0].n_spheres:
+                self.hits = torch.empty_like(self.seed)
         _copy_into(self.bufs, flat)
         self.seed.fill_(seed)
+        if self.hits is not None:
+            self.hits.zero_()
         return _unflatten(self.bufs[:-1])
 
     def iterate(self):
@@ -450,7 +463,7 @@ class _Stage:
         scene, cam, *rest = self.parts_args
         self.capture = GRAPHS[self.device.type](self.device)
         _, step, self._rearm = _regen_step_parts(
-            scene, cam, self.bufs[-1], self.seed, *rest)
+            scene, cam, self.bufs[-1], self.seed, *rest, self.hits)
 
         def run_step():
             new, regen = step(state)
@@ -499,7 +512,8 @@ def _stage(device, stage_width, parts_args):
 
 def trace_regenerative(scene, cam, pixel_ids, sample_ids0, seed, *,
                        width: int, height: int, sample_stride: int,
-                       sample_end, spp_cap, max_depth: int, t_min: float):
+                       sample_end, spp_cap, max_depth: int, t_min: float,
+                       counts=None):
     """Forward-only wavefront with per-lane sample regeneration.
 
     Each lane owns a (pixel, sample progression) work list: lane ``i``
@@ -528,6 +542,10 @@ def trace_regenerative(scene, cam, pixel_ids, sample_ids0, seed, *,
 
     ``pixel_ids`` / ``sample_ids0`` are int64 [B] tensors of uint32 values.
     Returns (radiance V3 [B] per-lane sums, segments int64 scalar tensor).
+    On a scene with spheres the loop also counts the live lanes whose
+    winner is a sphere, on the device (graphs and eager alike); ``counts``
+    (a dict, optional) then receives that count under ``"sphere_hits"``
+    (an int64 scalar tensor).  A scene without spheres runs no op for it.
     Not differentiable: the loop's trip count depends on the data.
     """
     limit = min(int(sample_end), int(spp_cap), rng.MASK32)
@@ -535,9 +553,11 @@ def trace_regenerative(scene, cam, pixel_ids, sample_ids0, seed, *,
     widths = _stage_widths(B)
     parts_args = (scene, cam, width, height, sample_stride, limit, max_depth,
                   t_min)
+    hits = (torch.zeros((), dtype=torch.int64, device=pixel_ids.device)
+            if scene.n_spheres else None)
     with profiling.span("wavefront", lanes=B, stages=len(widths)):
         cam_rays, body = _regen_loop_parts(scene, cam, pixel_ids, seed,
-                                           *parts_args[2:])
+                                           *parts_args[2:], hits)
         state = _regen_initial_state(cam_rays, sample_ids0 & rng.MASK32,
                                      limit)
         pix = pixel_ids
@@ -549,7 +569,7 @@ def trace_regenerative(scene, cam, pixel_ids, sample_ids0, seed, *,
                                                alive_count)
                 backmaps.append(backmap)
                 _, body = _regen_loop_parts(scene, cam, pix, seed,
-                                            *parts_args[2:])
+                                            *parts_args[2:], hits)
             in_bufs = False  # the carry lives in the stage's graph buffers
             # The alive count only shrinks (a lane that has spent its
             # samples never re-arms), so it is <= the floor on exit.
@@ -571,6 +591,8 @@ def trace_regenerative(scene, cam, pixel_ids, sample_ids0, seed, *,
                             state = stage.load(state, pix, seed)
                             in_bufs = True
                         state = stage.iterate()
+            if in_bufs and hits is not None:
+                hits.add_(stage.hits)
 
         total, segments = state[4], state[9]
         if in_bufs:  # nothing returned may alias a graph's buffer
@@ -581,4 +603,6 @@ def trace_regenerative(scene, cam, pixel_ids, sample_ids0, seed, *,
             count = src.shape[0]
             total = V3(*(p.index_copy(0, src, c[:count])
                          for p, c in zip(parent, total)))
+    if counts is not None and hits is not None:
+        counts["sphere_hits"] = hits
     return total, segments

@@ -25,6 +25,17 @@ instancing through the primitive's world-from-object transform
 exponential free flight, one uniform per (ray, medium)
 (constant_medium.h:42-80).
 
+A sphere's hit point is re-projected onto its sphere before anything reads
+it: ``p' = c + (p - c) |r| / |p - c|`` in object space, with ``c`` the
+centre at the ray's time, then back through the instance transform, and the
+normal is ``(p' - c) / r``.  The reference computes in double.  In float32,
+a point ``o + d t`` on a sphere of radius 10-100 lying 300-600 units out
+lands up to 0.05 units off the surface (the quadratic's ``c = |oc|^2 -
+r^2`` cancels); from a point 4e-4 or more inside, the scattered ray meets
+the sphere again past ``t_min``, its normal flips and the path bounces
+inside.  On the sphere the re-projection is the identity, so gradients
+keep their meaning.
+
 Every division and sqrt whose lane may be masked out has a safe operand, as
 in the JAX package: ``torch.where`` passes a zero cotangent to the branch it
 did not pick, and zero times an infinite local derivative is NaN.
@@ -47,6 +58,7 @@ from another_raytracer_tpu_torch.ops.vec3 import V3
 
 BIG = 3e37  # effectively +infinity for t comparisons
 MEDIUM_REHIT_EPS = 1e-4  # reference: constant_medium.h:47 second-probe offset
+SQUARE_MAX = 1e18  # a float32 component whose square sums without overflow
 
 # Primitive chunk size of the [B, N] sweeps (the JAX package's PRIM_CHUNK):
 # bounds the [B, N] temporaries; the strict fold across chunks keeps the
@@ -57,9 +69,10 @@ PRIM_CHUNK = 512
 # intersect.py:351-394 there).  The planar tree folds the winning triangle's
 # unit normal and barycentrics, and with FOLD_FULL_RECORD its texcoords and
 # material, so the record needs no winner gather; the sphere tree folds the
-# world outward normal, material and has_uv (identity-safe spheres only,
-# ``scene.sph_fold_safe``).  The width gates are the JAX package's values,
-# measured on the TPU; an H100 measurement is to set them (ROADMAP M21).
+# world centre at the ray's time, the radius, material and has_uv
+# (identity-safe spheres only, ``scene.sph_fold_safe``).  The width gates
+# are the JAX package's values, measured on the TPU; an H100 measurement is
+# to set them (ROADMAP M21).
 # PRECOMP_TRI reads the precomputed leaf-test geometry of 35-column rows.
 FOLD_TRI_RECORD = True
 FOLD_RECORD_MIN_B = 131072
@@ -349,7 +362,7 @@ def _fold_bvh(scene, best, nodes, rows, o, d, time, t_min, prim,
 
     ``want_aux`` ('planar' / 'sphere'): also return the kernel-folded winner
     record, tagged with its tree kind: ('planar', n, u, v[, tu, tv, mat]) or
-    ('sphere', n, mat, has_uv), valid wherever the final winner kind is
+    ('sphere', centre, r, mat, has_uv), valid wherever the final winner kind is
     that tree's (later folds only override on strict improvement)."""
     from another_raytracer_tpu_torch.ops.kernels import bvh_kernel
 
@@ -388,7 +401,7 @@ def closest_hit(scene, o: V3, d: V3, time, u_media, t_min, want_aux=False):
     aux = None
     give_aux = want_aux and FOLD_TRI_RECORD and scene.n_bvh_nodes > 0
     # Sphere-tree fold: only when the planar tree does not claim the single
-    # aux slot, and the folded world normal is also the UV's normal.
+    # aux slot, and the world normal is also the UV's normal.
     give_sph_aux = (want_aux and FOLD_SPH_RECORD and scene.n_sph_bvh_nodes > 0
                     and scene.n_bvh_nodes == 0 and scene.sph_fold_safe)
     if scene.n_bvh_nodes:  # planar tree: triangles and/or transformed rects
@@ -464,26 +477,55 @@ def _sphere_record(scene, o, d, time, t, idx):
     root2 = (-half_b + sq) / a
     pick1 = (root1 - t).abs() <= (root2 - t).abs()
     t = torch.where(disc > 0, torch.where(pick1, root1, root2), t)
-    p_obj = o_b + d_b * t
+    off = o_b + d_b * t - center
+    on = _onto_sphere(off, r)
     # Outward normal in object space; /r handles the sign of negative radii.
-    n_obj = (p_obj - center) * (1.0 / r)
+    n_obj = on * (1.0 / r)
     u, v = _sphere_uv(n_obj, has_uv)
     n_world = vec3.rotate(rows, n_obj)
-    p_world = o + d * t
+    if _identity_xf(scene):
+        # Object space is world space: the point moves by the step alone
+        # (none where it lies on the sphere already).
+        p_world = o + d * t + (on - off)
+    else:
+        # Back through the instance transform: the world point o + d t and
+        # the object point differ by the transform's rounding.
+        p_world = (vec3.rotate(rows, center + on)
+                   + _col3(scene.xf_trans, scene.sph_xf[ii].long()))
     mat = scene.sph_mat[ii].long()
     return t, p_world, n_world, mat, u, v, u, v
 
 
+def _onto_sphere(off: V3, r):
+    """The offset ``p - c`` of a hit point from its sphere's centre,
+    rescaled to the radius ``|r|`` (the re-projection of the module's
+    contracts).  A lane whose offset is zero or too long to square (a
+    masked lane's t of ``BIG``) keeps it; the square is taken of a safe
+    stand-in there, so no cotangent meets an infinity."""
+    fits = ((off.x.abs() < SQUARE_MAX) & (off.y.abs() < SQUARE_MAX)
+            & (off.z.abs() < SQUARE_MAX))
+    one = torch.ones_like(off.x)
+    safe = vec3.where(fits, off, V3(one, one, one))
+    len2 = vec3.length_squared(safe)
+    ok = fits & (len2 > 0.0)
+    scale = r.abs() / vec3.sqrt(torch.where(ok, len2, one))
+    return vec3.where(ok, safe * scale, off)
+
+
 def _sphere_record_aux(scene, o, d, t, aux):
-    """Forward-path sphere record from the kernel-folded (world outward
-    normal, mat id, has_uv): no winner gather.  Identity-safe spheres only
-    (gated in closest_hit): the world normal is the object-space normal
-    the UV needs.  t is the kernel's winner t, used as it is."""
-    n_world, mat_f, has_uv = aux
+    """Forward-path sphere record from the kernel-folded winner (its world
+    centre at the ray's time and radius, as K5 tested them, its mat id and
+    has_uv): no winner gather.  Identity-safe spheres only (gated in
+    closest_hit): the world normal is the object-space normal the UV needs.
+    t is the kernel's winner t, used as it is."""
+    center, r, mat_f, has_uv = aux
     mat = torch.clamp(mat_f.long(), 0, scene.mat_kind.shape[0] - 1)
+    p = o + d * t
+    off = p - center
+    on = _onto_sphere(off, r)
+    n_world = on * (1.0 / r)
     u, v = _sphere_uv(n_world, has_uv)
-    p_world = o + d * t
-    return t, p_world, n_world, mat, u, v, u, v
+    return t, p + (on - off), n_world, mat, u, v, u, v
 
 
 def _rect_record(scene, o, d, t, idx):

@@ -246,8 +246,8 @@ def bvh_closest_hit(nodes, rows, o: V3, d: V3, init_t, init_idx, *,
         keeps them (the scene does); packed here when None.
     Returns (t [B], code [B] int32, improved [B] bool), then the fold
     outputs of ``fold_record`` (planar: unit normal V3, u, v, and with
-    ``fold_full`` tu, tv, mat as f32; sphere: outward normal V3, mat,
-    has_uv), zeros where not improved.  CUDA tensors launch
+    ``fold_full`` tu, tv, mat as f32; sphere: centre at the ray's time V3,
+    radius, mat, has_uv), zeros where not improved.  CUDA tensors launch
     ``csrc/bvh_kernel.cu``; CPU tensors run ``ops.bvh.traverse_packed``.
     """
     if isinstance(t_min, torch.Tensor):
@@ -389,7 +389,7 @@ def prepare_launch(nodes, rows, o: V3, d: V3, init_t, init_idx, *,
     t = torch.empty(n, dtype=torch.float32, device=dev)
     code = torch.empty(n, dtype=torch.int32, device=dev)
     hit = torch.empty(n, dtype=torch.bool, device=dev)
-    aux = torch.empty((bvh_ops.n_aux(fold_record, fold_full), n),
+    aux = torch.empty((bvh_ops.n_aux(prim, fold_record, fold_full), n),
                       dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

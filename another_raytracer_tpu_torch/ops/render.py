@@ -41,7 +41,7 @@ from another_raytracer_tpu_torch.utils import profiling
 def radiance_batch(scene, cam, pixel_ids, seed, *, width, height,
                    sample_start, n_samples, spp_cap, samples_per_pass,
                    max_depth, t_min, differentiable=False, trainable=None,
-                   lane_mask=None):
+                   lane_mask=None, counts=None):
     """Radiance sums for an arbitrary pixel batch over samples
     [sample_start, sample_start + n_samples) ∩ [0, spp_cap).
 
@@ -56,6 +56,9 @@ def radiance_batch(scene, cam, pixel_ids, seed, *, width, height,
     them.  ``trainable`` (differentiable renders only) names the caller's
     trainable scene leaves; the fused path engages only for a declared set
     free of geometry leaves (``mega_diff.enabled``).
+
+    ``counts`` (a dict, forward renders): receives the wavefront's device
+    counts (``integrator.trace_regenerative``); the megakernel gives none.
 
     Returns (radiance_sum V3 of [Np], segments int64 scalar tensor).
     """
@@ -77,9 +80,11 @@ def radiance_batch(scene, cam, pixel_ids, seed, *, width, height,
             # Pad lanes start past every sample limit -> born dead.
             samp0 = torch.where(lane_mask.repeat(spass), samp0,
                                 torch.full_like(samp0, rng.MASK32))
-    trace_fn = (mega_kernel.trace_regenerative_mega
-                if mega_kernel.enabled(scene, cam)
-                else integrator.trace_regenerative)
+    if mega_kernel.enabled(scene, cam):
+        trace_fn = mega_kernel.trace_regenerative_mega
+    else:
+        trace_fn = functools.partial(integrator.trace_regenerative,
+                                     counts=counts)
     acc, segments = trace_fn(
         scene, cam, pix, samp0, seed,
         width=width, height=height, sample_stride=spass,
@@ -205,9 +210,11 @@ def morton_order(width: int, height: int):
 
 
 def render_radiance(scene, cam, seed, *, width, height, spp, samples_per_pass,
-                    max_depth, t_min, differentiable=False, trainable=None):
+                    max_depth, t_min, differentiable=False, trainable=None,
+                    counts=None):
     """Per-pixel radiance sums over ``spp`` samples, un-averaged (averaging
-    is deferred to write_color, engine.h:58-68).
+    is deferred to write_color, engine.h:58-68).  ``counts``: as
+    ``radiance_batch``'s.
 
     Returns (radiance_sum V3 of [H*W] in flat scanline order, segments).
     Scenes with a BVH are traced in Morton order (``morton_order``), the
@@ -225,7 +232,7 @@ def render_radiance(scene, cam, seed, *, width, height, spp, samples_per_pass,
         scene, cam, pixel_ids, seed, width=width, height=height,
         sample_start=0, n_samples=spp, spp_cap=spp,
         samples_per_pass=samples_per_pass, max_depth=max_depth, t_min=t_min,
-        differentiable=differentiable, trainable=trainable,
+        differentiable=differentiable, trainable=trainable, counts=counts,
     )
     if scene.has_accel:
         with profiling.span("render.pixels", lanes=width * height):
@@ -248,13 +255,21 @@ def render(scene, cam, config: RenderConfig, progress=None, partition=None):
     ``partition`` (``parallel/sharding.Partition``): the devices of the
     parallel modes and of the adaptive mode's batches; the parallel modes
     default to every visible CUDA device.
+
+    The ``render`` span counts the render's ``segments`` and, in single mode
+    through the wavefront on a scene with spheres, ``sphere_hits``: the
+    paths' segments whose closest hit is a sphere, read with the segments.
     """
+    counts = {}
     with profiling.span("render", mode=config.mode.value, width=config.width,
-                        height=config.height, spp=config.samples_per_pixel):
-        return _render(scene, cam, config, progress, partition)
+                        height=config.height,
+                        spp=config.samples_per_pixel) as span:
+        img, stats = _render(scene, cam, config, progress, partition, counts)
+        span.count(segments=stats["segments"], **counts)
+    return img, stats
 
 
-def _render(scene, cam, config, progress, partition):
+def _render(scene, cam, config, progress, partition, counts):
     if scene.num_primitives == 0:
         raise ValueError("cannot render empty scene!")
     if config.mode in (RenderMode.PARALLEL_STRIPES, RenderMode.PARALLEL_IMAGES):
@@ -279,13 +294,17 @@ def _render(scene, cam, config, progress, partition):
         scene, cam, config.seed,
         width=config.width, height=config.height, spp=config.samples_per_pixel,
         samples_per_pass=config.samples_per_pass, max_depth=config.max_depth,
-        t_min=config.t_min,
+        t_min=config.t_min, counts=counts,
     )
     with profiling.span("render.wait"):
         img = color_lib.to_uint8(torch.stack(tuple(acc), dim=-1),
                                  config.samples_per_pixel)
         img = img.cpu().numpy().reshape(config.height, config.width, 3)
-        segments = int(segments)
+        if "sphere_hits" in counts:  # one read for both counts
+            segments, counts["sphere_hits"] = torch.stack(
+                (segments, counts["sphere_hits"])).tolist()
+        else:
+            segments = int(segments)
     if progress is not None:  # single mode: one final frame
         progress.update_image(img, config.samples_per_pixel)
     return img, {"segments": segments}

@@ -19,9 +19,11 @@ port recorded (``utils.profiling.span``): calls and host ms a run, the same
 over ``RUNS`` calls without a profiler (inside ``profiling.recording()``;
 the profiler slows every launch), the device's idle ms a run in each span
 (a gap between the card's activities goes to the innermost span open at its
-middle) and the ``GAPS`` longest gaps.  On the CPU (``--cpu``) the tables
-hold the host's top-level operators (no device time exists there, nor idle
-time).  The trace is written under ``--log-dir`` where given, else into a
+middle) and the ``GAPS`` longest gaps; last the ``render`` span's counts
+a run, ``segments`` and, where the wavefront renders spheres,
+``sphere_hits``.  On the CPU (``--cpu``) the tables hold the host's
+top-level operators (no device time exists there, nor idle time).  The
+trace is written under ``--log-dir`` where given, else into a
 temporary directory that is removed.  Runs on the card unless ``--cpu`` is
 given, and raises when no CUDA device is visible.  On the card the trace
 records the card's activity alone, which keeps the profiler's own cost on
@@ -221,6 +223,15 @@ def span_table(spans, runs, events=None, bare=None) -> dict:
     return out
 
 
+def render_counts(spans, runs) -> dict:
+    """The counts of the ``render`` root spans (``segments``,
+    ``sphere_hits``) a run, those that some span holds."""
+    roots = [s for s in spans if s.parent < 0 and s.name == "render"]
+    return {k: sum(s.attrs.get(k, 0) for s in roots) / runs
+            for k in ("segments", "sphere_hits")
+            if any(k in s.attrs for s in roots)}
+
+
 def trace(name, device, obj_path=None, size=None, log_dir=None,
           entry=False) -> dict:
     """Warm up, trace RUNS calls of row ``name`` (through ``entry_call``
@@ -253,7 +264,8 @@ def trace(name, device, obj_path=None, size=None, log_dir=None,
             events = top_level(profiling.device_events(log_dir,
                                                        ("cpu_op",)))
     return {"scene": name, "config": wl.config, "device": dev.type,
-            "entry": entry, **summarize(events, RUNS, wall_s),
+            "entry": entry, "counts": render_counts(spans, RUNS),
+            **summarize(events, RUNS, wall_s),
             **span_table(spans, RUNS,
                          events if dev.type == "cuda" else None, bare)}
 
@@ -284,6 +296,9 @@ def report(s: dict, out=print) -> None:
             f"{s['idle_ms']:.3f} ms a run, by innermost span ---")
         for name, ms in s["gaps"]:
             out(f"   {ms:10.3f} ms  {name}")
+    if s["counts"]:
+        out("--- the render span's counts a run: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in s["counts"].items()) + " ---")
 
 
 def main(argv=None) -> int:

@@ -177,6 +177,9 @@ class _Off:
     def __exit__(self, *exc):
         return False
 
+    def count(self, **counts):
+        pass
+
 
 _OFF = _Off()
 
@@ -207,12 +210,18 @@ class _On:
         _open.pop()
         return False
 
+    def count(self, **counts):
+        """Add counts known only once the span's work is done."""
+        self.record.attrs.update(counts)
+
 
 def span(name: str, **attrs):
     """A context manager that records the span ``name`` with ``attrs``
     (counts) while a ``torch.profiler`` session is active in the process or
     inside ``recording()``; otherwise one shared context manager that does
-    nothing.  It launches nothing on the card and reads nothing from it."""
+    nothing.  It launches nothing on the card and reads nothing from it.
+    What it enters as has ``count(**counts)``, which adds counts to the
+    span (nothing where it records none)."""
     if _forced or _profiler_on():
         return _On(name, attrs)
     return _OFF

@@ -17,6 +17,8 @@ hit normal differs from the wavefront's at the ulp level, so a path flips
 now and then at an edge (tests/test_torch_diff.py says more).
 """
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,12 +28,24 @@ import torch
 from another_raytracer_tpu.ops import render as jrender
 from another_raytracer_tpu.ops import vec3 as jvec3
 from another_raytracer_tpu.ops.pallas import mega_diff as jmd
+from another_raytracer_tpu_torch.ops import intersect as tix
 from another_raytracer_tpu_torch.ops import render as trender
 from another_raytracer_tpu_torch.ops import vec3 as tvec3
 from another_raytracer_tpu_torch.ops.kernels import mega_diff as tmd
 from test_torch_accel import DEPTH, H, W, _both, _forward_bar, _kw, _run_both
 
 torch.set_num_threads(1)
+
+
+@contextlib.contextmanager
+def unprojected():
+    """The port's sphere records without the re-projection onto the
+    sphere, inside the block: the arithmetic of K3 and its plain version,
+    which do not re-project yet (ROADMAP), so the lockstep path is held to
+    the fused one on what the two share."""
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(tix, "_onto_sphere", lambda off, r: off)
+        yield
 
 
 @pytest.fixture
@@ -143,9 +157,10 @@ def test_fused_accel_grads_match_jax_and_lockstep(flags):
         flags(port=fused)
         leaves = {k: getattr(port, k).clone().requires_grad_(True)
                   for k in keys}
-        acc, segs = trender.render_radiance(port.replace(**leaves), cam, seed,
-                                            differentiable=True,
-                                            trainable=keys, **kw)
+        with unprojected():
+            acc, segs = trender.render_radiance(
+                port.replace(**leaves), cam, seed, differentiable=True,
+                trainable=keys, **kw)
         loss = (torch.stack(tuple(acc), dim=1) * torch.from_numpy(w)).sum()
         return acc, int(segs), torch.autograd.grad(loss, list(leaves.values()))
 
@@ -178,9 +193,10 @@ def test_fused_path_takes_scene1_textures(flags):
         flags(port=fused)
         leaves = {k: getattr(port, k).clone().requires_grad_(True)
                   for k in keys}
-        acc, segs = trender.render_radiance(port.replace(**leaves), cam, 1,
-                                            differentiable=True,
-                                            trainable=keys, **kw)
+        with unprojected():
+            acc, segs = trender.render_radiance(
+                port.replace(**leaves), cam, 1, differentiable=True,
+                trainable=keys, **kw)
         loss = sum(c.sum() for c in acc)
         out[fused] = (int(segs), torch.autograd.grad(loss, list(leaves.values())))
     assert out[True][0] == out[False][0]

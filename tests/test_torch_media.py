@@ -27,6 +27,7 @@ import pytest
 import torch
 
 import chip_smoke
+import jax_sphere_record
 from another_raytracer_tpu.grad import diff as jdiff
 from another_raytracer_tpu.models import library as jlib
 from another_raytracer_tpu.models.scene import SceneBuilder as JBuilder
@@ -423,8 +424,9 @@ SCENES = ["cornell_smoke", "final_scene", "mesh"]
 @pytest.fixture(scope="module")
 def jax_traces(capsule):
     """JAX's lockstep trace (sample 0) and regenerating wavefront (samples 0
-    and 1 per lane) of each scene, computed without FMA."""
-    return jax_reference(f"""
+    and 1 per lane) of each scene, computed without FMA, with the port's
+    re-projection of sphere hits (``jax_sphere_record``)."""
+    return jax_reference(jax_sphere_record.SNIPPET + f"""
 from another_raytracer_tpu.models import library as jlib
 from another_raytracer_tpu.ops import camera as jcam, integrator as jint
 from another_raytracer_tpu.ops import vec3 as jv

@@ -29,6 +29,7 @@ from another_raytracer_tpu_torch.ops import camera as tcam
 from another_raytracer_tpu_torch.ops import integrator as tint
 from another_raytracer_tpu_torch.ops import render as trender
 from another_raytracer_tpu_torch.ops import vec3 as tv
+from jax_sphere_record import jax_reprojects_spheres  # noqa: F401
 from test_torch_bvh import _sheet
 
 torch.set_num_threads(1)
@@ -117,7 +118,7 @@ def test_regen_matches_jax(name):
 @pytest.mark.parametrize("name,spp", [("random_scene", 4),
                                       ("two_perlin_spheres", 4),
                                       ("earth", 2), ("simple_light", 4)])
-def test_render_matches_jax(name, spp):
+def test_render_matches_jax(name, spp, jax_reprojects_spheres):
     w, h = 24, 18
     cfg = dict(width=w, height=h, samples_per_pixel=spp, max_depth=10, seed=2)
     scene, params = _port(name)

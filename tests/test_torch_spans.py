@@ -87,11 +87,16 @@ def test_on_records_the_render(how, narrow_stages):
 
 @pytest.mark.parametrize("kind", list(SCENES))
 def test_children_lie_in_their_parents(kind, narrow_stages):
-    _, spans, _ = _traced_render(kind)
+    (_, stats), spans, _ = _traced_render(kind)
     roots = [s for s in spans if s.parent == -1]
     assert [s.name for s in roots] == ["render"]
+    # The render's counts: its segments, and through the wavefront on a
+    # scene with spheres its sphere winners (test_torch_sphere_hits.py).
+    hits = roots[0].attrs.pop("sphere_hits", None)
+    assert (hits is None) == (kind == "sweep")
+    assert hits is None or 0 < hits < stats["segments"]
     assert roots[0].attrs == {"mode": "single", "width": W, "height": H,
-                              "spp": 2}
+                              "spp": 2, "segments": stats["segments"]}
     for s in spans:
         assert s.request == roots[0].request
         assert s.start <= s.end

@@ -31,6 +31,7 @@ from another_raytracer_tpu_torch.ops import render as trender
 from another_raytracer_tpu_torch.ops import shade as tshade
 from another_raytracer_tpu_torch.ops import vec3 as tv
 from another_raytracer_tpu_torch.ops.kernels import perlin_kernel as tpk
+from jax_sphere_record import jax_reprojects_spheres  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -196,7 +197,8 @@ def _noise_case(name, train):
 @pytest.mark.parametrize("train", list(TRAINABLE))
 @pytest.mark.parametrize("name", ["noise", "noise_metal"])
 def test_noise_value_only_rule_matches_jax_gradients(name, train, route,
-                                                     monkeypatch):
+                                                     monkeypatch,
+                                                     jax_reprojects_spheres):
     """Gradients of render_loss against jax.value_and_grad (which on the CPU
     always differentiates through the noise), through the route the rule
     picks and through the lockstep route with the noise differentiated."""
@@ -269,7 +271,8 @@ def _instanced_noise_case():
 
 
 @pytest.mark.parametrize("route", ["rule", "value_only"])
-def test_noise_rule_trains_instance_transforms_like_jax(route, monkeypatch):
+def test_noise_rule_trains_instance_transforms_like_jax(
+        route, monkeypatch, jax_reprojects_spheres):
     """The port lists ``xf_`` among the leaves that reach the noise point
     (a deliberate deviation from JAX's list, ops/render.py): trained
     ``xf_trans`` gradients through the rule's route match
