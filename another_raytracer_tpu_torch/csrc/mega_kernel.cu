@@ -123,7 +123,8 @@
 // the compile-time constant RECORD set, so the forward instances keep their
 // registers and their time and only the record instances pay for the
 // residual writes.  The file is built three times (ops/kernels/_build.py):
-// as is, for the forward instances (art_mega_forward, art_threefry_words),
+// as is, for the forward instances (art_mega_forward, art_threefry_words,
+// and art_uniform2: the tensor paths' draws, ops/kernels/threefry_kernel.py),
 // with -DART_RECORD -fmad=false for the record instances (art_mega_record),
 // and with -DART_COUNT -fmad=false for the counting instances
 // (art_mega_count, a measurement: the port's paths never launch it).  The
@@ -1004,6 +1005,30 @@ __global__ void threefry_words_kernel(uint32_t seed, uint32_t key1,
   u1[i] = uniform_from_bits(x1);
 }
 
+// ops/rng.py's uniform2 over n lanes, one thread a lane: the draws of the
+// port's tensor paths (camera, scatter, media), which take the key (seed,
+// bounce << 8 | dim) on the counters (pixel[i], sample[i]).  The counters
+// and a per-lane bounce are int64 holding uint32 values: their low 32 bits
+// are the words.  A null seed_at or bounce_at takes the scalar beside it;
+// else the value is read from device memory (a 0-d seed that a CUDA graph's
+// replay reads anew, a [n] bounce).  u0 and u1 get the two words' uniforms.
+// It replaces no TPU kernel (XLA fuses the JAX package's int64 draws into
+// one loop) and is bound by bytes: 24 B a lane in with a [n] bounce, 8 out.
+__global__ void __launch_bounds__(256) uniform2_draws_kernel(
+    const int64_t* __restrict__ seed_at, uint32_t seed,
+    const int64_t* __restrict__ pixel, const int64_t* __restrict__ sample,
+    const int64_t* __restrict__ bounce_at, uint32_t bounce, uint32_t dim,
+    int n, float* __restrict__ u0, float* __restrict__ u1) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const uint32_t k0 = seed_at ? (uint32_t)*seed_at : seed;
+  const uint32_t b = bounce_at ? (uint32_t)bounce_at[i] : bounce;
+  uint32_t x0 = (uint32_t)pixel[i], x1 = (uint32_t)sample[i];
+  threefry2x32(k0, (b << 8) | dim, x0, x1);
+  u0[i] = uniform_from_bits(x0);
+  u1[i] = uniform_from_bits(x1);
+}
+
 // Checks the launch arguments and fills the kernel's Params; returns
 // cudaSuccess or cudaErrorInvalidValue.  n_nodes > 0 selects accel mode:
 // `tab` the compact tables of n_nodes nodes and n_spheres leaf-order spheres,
@@ -1229,6 +1254,22 @@ extern "C" int art_threefry_words(uint32_t seed, uint32_t key1,
   threefry_words_kernel<<<(n + block - 1) / block, block, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       seed, key1, pixel, sample, n, w0, w1, u0, u1);
+  return (int)cudaGetLastError();
+}
+
+// ops/rng.py's uniform2 on `stream` (uniform2_draws_kernel's arguments; every
+// pointer is device memory).  Returns cudaGetLastError().
+extern "C" int art_uniform2(const int64_t* seed_at, uint32_t seed,
+                            const int64_t* pixel, const int64_t* sample,
+                            const int64_t* bounce_at, uint32_t bounce,
+                            uint32_t dim, int n, float* u0, float* u1,
+                            void* stream) {
+  if (n < 0) return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  const int block = 256;
+  uniform2_draws_kernel<<<(n + block - 1) / block, block, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      seed_at, seed, pixel, sample, bounce_at, bounce, dim, n, u0, u1);
   return (int)cudaGetLastError();
 }
 #endif

@@ -379,29 +379,38 @@ def _copy_into(dst, src) -> None:
 
 
 def _counted(capture, fn):
-    """``capture(fn)``'s replay, which adds the K5 and K4 launches its graph
-    holds to their wrappers' counts: a wrapper counts its launch when it
-    runs, once at capture, when nothing reaches the card, and not on a
-    replay."""
+    """``capture(fn)``'s replay, which adds the K5, K4 and draws launches
+    its graph holds to their wrappers' counts: a wrapper counts its launch
+    when it runs, once at capture, when nothing reaches the card, and not
+    on a replay."""
     from another_raytracer_tpu_torch.ops.kernels import (bvh_kernel,
-                                                         perlin_kernel)
+                                                         perlin_kernel,
+                                                         threefry_kernel)
 
     k5, k4 = bvh_kernel.bvh_closest_hit, perlin_kernel.perlin_noise
+    draws = threefry_kernel.uniform2
     k5_before = collections.Counter(k5.launches)
     k4_before = k4.launches, k4.points
+    draws_before = draws.launches
     replay = capture(fn)
     k5_graph = k5.launches - k5_before
     k4_graph = k4.launches - k4_before[0], k4.points - k4_before[1]
+    draws_graph = draws.launches - draws_before
     k5.launches.clear()
     k5.launches.update(k5_before)
     k4.launches, k4.points = k4_before
+    draws.launches = draws_before
 
     def counted():
         out = replay()
         k5.launches.update(k5_graph)
         k4.launches += k4_graph[0]
         k4.points += k4_graph[1]
+        draws.launches += draws_graph
         return out
+
+    counted.held = {"K5": k5_graph.total(), "K4": k4_graph[0],
+                    "draws": draws_graph}  # the launches the graph holds
 
     return counted
 

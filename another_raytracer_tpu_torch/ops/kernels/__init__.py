@@ -9,12 +9,13 @@ to 0.
 
 def launch_counts() -> dict:
     """{kernel: launches}: K1, K2 (K1's record instance), K3 and its record
-    and device-memory instances, the replay, K4 and K5 (``K5_by_tree``: its
-    launches by table kind)."""
+    and device-memory instances, the replay, K4, K5 (``K5_by_tree``: its
+    launches by table kind) and the draws kernel (``draws``)."""
     from another_raytracer_tpu_torch.ops.kernels import (bvh_kernel,
                                                          mega_diff,
                                                          mega_kernel,
-                                                         perlin_kernel)
+                                                         perlin_kernel,
+                                                         threefry_kernel)
 
     mega = mega_kernel.trace_regenerative_mega
     return dict(K1=mega.launches, K2=mega.record_launches,
@@ -24,7 +25,8 @@ def launch_counts() -> dict:
                 replay=mega_diff.replay_backward.launches,
                 K5=bvh_kernel.bvh_closest_hit.launches.total(),
                 K5_by_tree=dict(bvh_kernel.bvh_closest_hit.launches),
-                K4=perlin_kernel.perlin_noise.launches)
+                K4=perlin_kernel.perlin_noise.launches,
+                draws=threefry_kernel.uniform2.launches)
 
 
 def reset_launch_counts() -> None:
@@ -32,7 +34,8 @@ def reset_launch_counts() -> None:
     from another_raytracer_tpu_torch.ops.kernels import (bvh_kernel,
                                                          mega_diff,
                                                          mega_kernel,
-                                                         perlin_kernel)
+                                                         perlin_kernel,
+                                                         threefry_kernel)
 
     mega = mega_kernel.trace_regenerative_mega
     mega.launches = mega.record_launches = 0
@@ -42,3 +45,4 @@ def reset_launch_counts() -> None:
     bvh_kernel.bvh_closest_hit.launches.clear()
     perlin_kernel.perlin_noise.launches = 0
     perlin_kernel.perlin_noise.points = 0
+    threefry_kernel.uniform2.launches = 0

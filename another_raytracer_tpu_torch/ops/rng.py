@@ -7,7 +7,9 @@ the very same sample stream as the JAX package, bit for bit.
 torch's CPU ``uint32`` has no add, shift or compare, so the words live in
 ``int64`` tensors holding values in [0, 2**32) and every operation that can
 leave that range is masked with ``& 0xFFFFFFFF``.  Arguments may be Python
-ints or int64 tensors (broadcastable).
+ints or int64 tensors (broadcastable).  On CUDA tensors ``uniform2`` is one
+launch of a hand-written kernel with the same bits, which takes [B]
+counters and an int or [B] bounce.
 """
 
 from __future__ import annotations
@@ -63,7 +65,23 @@ def uniform2(seed, pixel, sample, bounce, dim):
 
     Layout: key = (seed, bounce<<8 | dim), counter = (pixel, sample).
     ``dim`` must be even and < 256; ``bounce`` < 2**24.
+
+    Where an argument is a CUDA tensor, one launch of the draws kernel
+    (``ops.kernels.threefry_kernel``) gives the same bits, or the call
+    raises on arguments the kernel does not take; every other call runs
+    ``uniform2_plain``.
     """
+    if any(isinstance(a, torch.Tensor) and a.is_cuda
+           for a in (pixel, sample, bounce, seed)):
+        from another_raytracer_tpu_torch.ops.kernels import threefry_kernel
+
+        return threefry_kernel.uniform2(seed, pixel, sample, bounce, dim)
+    return uniform2_plain(seed, pixel, sample, bounce, dim)
+
+
+def uniform2_plain(seed, pixel, sample, bounce, dim):
+    """``uniform2`` as int64 tensor ops (any device): the plain version
+    that the draws kernel equals and the JAX package's draws are held to."""
     k1 = ((bounce << 8) | dim) & MASK32
     b0, b1 = threefry2x32(seed & MASK32, k1, pixel, sample, rounds=ROUNDS)
     return _uniform_from_bits(b0), _uniform_from_bits(b1)

@@ -62,6 +62,7 @@ PORT_KERNELS = (
     ("mega_replay_kernel", "replay"),
     ("bvh_kernel", "K5 (BVH closest hit)"),
     ("perlin_kernel", "K4 (Perlin noise)"),
+    ("uniform2_draws_kernel", "draws (threefry uniform2)"),
 )
 COPY_CATEGORIES = ("gpu_memcpy", "gpu_memset")
 

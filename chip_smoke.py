@@ -9,11 +9,12 @@ instruction census (``cuobjdump -sass``) of every megakernel instance, then
 drives the main paths of the port and holds every kernel against its plain
 PyTorch version:
 
-* serving: threefry words bit for bit, the forward megakernel (K1) against
-  its plain version on three scenes, the README render (Cornell 720x540,
-  spp 100, depth 50) through the CLI, and K1's time (lane fetch, against
-  the per-block mapping's bit-equal outputs and time, and at each block
-  size of ``BLOCKS``);
+* serving: threefry words bit for bit (the megakernel's, and the draws
+  kernel's, ``rng.uniform2`` on CUDA tensors), the forward megakernel
+  (K1) against its plain version on three scenes, the README render
+  (Cornell 720x540, spp 100, depth 50) through the CLI, and K1's time
+  (lane fetch, against the per-block mapping's bit-equal outputs and
+  time, and at each block size of ``BLOCKS``);
 * training: the record-mode megakernel (K2, bit-equal) and the replay
   backward against their plain versions at the bench size (Cornell 360x270,
   spp 16, depth 8; the replay also on a 21-texture scene, bit for bit
@@ -39,7 +40,10 @@ PyTorch version:
   5 (spp 16; K4's mean points per launch; the segments of scenes 1, 3 and
   5 must equal ``WAVEFRONT_SEGMENTS``), and the two kernels' times
   (``graph_ms``) beside their bounds, with K5's counting build's tallies
-  and its time at each block size of ``BLOCKS``;
+  and its time at each block size of ``BLOCKS``, and the draws kernel's
+  at 388,800 and 6,144 lanes beside its bound and its plain version's
+  (``threefry_draws_timings``; every wavefront phase prints its launches,
+  ``draws``, and ``plain_wavefront`` swaps in its plain version too);
 * media and meshes (``media_phases``): scenes 7 and 8 and a 5,760-triangle
   capsule that ``write_capsule`` writes (scene 9 through ``--obj``), through
   the wavefront with K5 and K4 bit for bit against the same through their
@@ -175,6 +179,11 @@ OPS_K3_NORMAL = 9
 # Operations per live residual row of the replay, and per point of K4
 # (csrc/mega_replay.cu, csrc/perlin_kernel.cu).
 OPS_REPLAY_ROW, OPS_PERLIN = 15, 96
+# Integer operations per lane of the draws kernel (csrc/mega_kernel.cu's
+# uniform2_draws_kernel): the key (4), the counters' injection (2), 13
+# rounds of add, rotate (two shifts and an or) and xor (65), three key
+# injections (9) and the two uniforms (6).
+OPS_DRAWS = 86
 # The replay's blocks timed per instance, and how much slower than the
 # fastest instance and block replay_instance's pick may be (the spread of
 # graph_ms between runs is a few percent).
@@ -1106,6 +1115,51 @@ def k5_shapes(case, fold, full, pre, dev, launches=20):
         for blk in BLOCKS}
 
 
+def threefry_draws_timings(dev, widths=(388800, 6144)):
+    """The draws kernel's device time a launch (``graph_ms``) at each width,
+    with a [B] and an int bounce, beside its bound and the plain version's
+    device time; each launch's uniforms bit-equal to the plain version's."""
+    import torch
+
+    from another_raytracer_tpu_torch.ops import rng
+    from another_raytracer_tpu_torch.ops.kernels import threefry_kernel
+
+    g = torch.Generator(device="cpu").manual_seed(8)
+    out = {}
+    for n in widths:
+        pix, samp = (torch.randint(0, 2**32, (n,), generator=g,
+                                   dtype=torch.int64).to(dev)
+                     for _ in range(2))
+        bounces = torch.randint(0, 51, (n,), generator=g,
+                                dtype=torch.int64).to(dev)
+        seed = torch.tensor(0x9E3779B9, device=dev)
+        for kind, bounce in (("bounce [B]", bounces),
+                             ("bounce int", rng.CAMERA_BOUNCE)):
+            args = (seed, pix, samp, bounce, rng.DIM_SCATTER_A)
+            run, got = threefry_kernel.prepare_launch(*args)
+            bare(run)()
+            if not all(torch.equal(a, b) for a, b in
+                       zip(got, rng.uniform2_plain(*args))):
+                raise AssertionError(f"the draws kernel differs from its "
+                                     f"plain version ({n} lanes, {kind})")
+
+            def plain(args=args):
+                def go():
+                    rng.uniform2_plain(*args)
+                    return 0
+                return go
+
+            ms = graph_ms(lambda: threefry_kernel.prepare_launch(*args)[0],
+                          dev)[0]
+            in_bytes = 8 * (3 if kind == "bounce [B]" else 2)
+            b_ms, b_by = bound(n * OPS_DRAWS, n * (in_bytes + 8) + 8)
+            out[f"{n} lanes, {kind}"] = dict(
+                ms=round(ms, 5), bound_ms=round(b_ms, 5), bound_by=b_by,
+                share_of_bound=round(b_ms / ms, 4),
+                plain_ms=round(graph_ms(plain, dev, 10)[0], 5))
+    return out
+
+
 def plain_k5(nodes, rows, o, d, init_t, init_idx, *, leaf_size, t_min=1e-3,
              prim="planar", time=None, fold_record=False, fold_full=False,
              precomp=False, tables=None):
@@ -1121,22 +1175,25 @@ def plain_k5(nodes, rows, o, d, init_t, init_idx, *, leaf_size, t_min=1e-3,
 
 @contextlib.contextmanager
 def plain_wavefront():
-    """Run the wavefront's bounces through K5's and K4's plain versions (on
-    the card), eagerly: the plain walk reads the card, which no CUDA graph
-    may capture."""
-    from another_raytracer_tpu_torch.ops import integrator, shade
-    from another_raytracer_tpu_torch.ops.kernels import bvh_kernel, perlin_kernel
+    """Run the wavefront's bounces through K5's, K4's and the draws
+    kernel's plain versions (on the card), eagerly: the plain walk reads
+    the card, which no CUDA graph may capture."""
+    from another_raytracer_tpu_torch.ops import integrator, rng, shade
+    from another_raytracer_tpu_torch.ops.kernels import (bvh_kernel,
+                                                         perlin_kernel,
+                                                         threefry_kernel)
 
     saved = (bvh_kernel.bvh_closest_hit, perlin_kernel.perlin_noise,
-             integrator.GRAPHS)
+             threefry_kernel.uniform2, integrator.GRAPHS)
     bvh_kernel.bvh_closest_hit = plain_k5
     perlin_kernel.perlin_noise = shade.perlin_noise
+    threefry_kernel.uniform2 = rng.uniform2_plain
     integrator.GRAPHS = {}
     try:
         yield
     finally:
         (bvh_kernel.bvh_closest_hit, perlin_kernel.perlin_noise,
-         integrator.GRAPHS) = saved
+         threefry_kernel.uniform2, integrator.GRAPHS) = saved
 
 
 def reset_counts():
@@ -1286,10 +1343,10 @@ def media_phases(dev, mesh_dir):
                   max_abs_err=max(float((a - b).abs().max())
                                   for a, b in zip(got, ref)),
                   K5=launched["K5"], K5_by_tree=launched["K5_by_tree"],
-                  K4=launched["K4"])
+                  K4=launched["K4"], draws=launched["draws"])
         untouched(launched, f"scene {sid}")
         if (not equal or set(launched["K5_by_tree"]) != want_trees[sid]
-                or (launched["K4"] > 0) != (sid == 8)):
+                or (launched["K4"] > 0) != (sid == 8) or launched["draws"] < 1):
             raise AssertionError(f"scene {sid}: the wavefront through the "
                                  f"kernels against their plain versions: {st}")
         compare[sid] = st
@@ -1316,7 +1373,7 @@ def media_phases(dev, mesh_dir):
         renders[f"scene {sid} {mode}"] = dict(
             ms=wall_ms, segments=segs, mrays_per_s=mrays, K5=launched["K5"],
             K5_by_tree=launched["K5_by_tree"], K4=launched["K4"],
-            png_mean=round(float(img.mean()), 2))
+            draws=launched["draws"], png_mean=round(float(img.mean()), 2))
         phase("main_path_media", f"scene {sid} {W}x{H} spp{TEX_SPP} "
               f"depth{DEPTH} {mode} (CLI): "
               f"{json.dumps(renders[f'scene {sid} {mode}'])}")
@@ -1334,6 +1391,7 @@ def media_phases(dev, mesh_dir):
                              busy_share=round(busy_ms / wall_ms, 4),
                              device_ops=n_kern, K5_launches=launched["K5"],
                              K4_launches=launched["K4"],
+                             draws_launches=launched["draws"],
                              K5_ms=round(k5_ms, 3), K4_ms=round(k4_ms, 3),
                              K5_share=round(k5_ms / busy_ms, 4),
                              K4_share=round(k4_ms / busy_ms, 4))
@@ -2048,7 +2106,7 @@ def train_demo_phase(dev):
     train_demo``; K2 and the replay once a step and once for the floor),
     then the atlas's DEMO_STEPS steps through ``atlas_demo`` and ``run`` at
     samples_per_pass = spp (the scripts' samples in one pass, on the
-    lockstep path: no kernel).  Returns {demo: {"record": its record,
+    lockstep path: no kernel but the draws).  Returns {demo: {"record": its record,
     "launches": every kernel's launches over the demo, as checked}}."""
     from another_raytracer_tpu_torch import train_demo
 
@@ -2068,10 +2126,13 @@ def train_demo_phase(dev):
         reset_counts()
         rc, rec = drive()
         launched = {k: v for k, v in counts().items() if k != "K5_by_tree"}
-        want = {k: 0 for k in launched}
+        # The route is every kernel but the draws, which the demos' lockstep
+        # renders (the Cornell target, the atlas's steps) launch too.
+        want = {k: 0 for k in launched if k != "draws"}
         if name == "cornell":
             want.update(K2=DEMO_STEPS + 1, replay=DEMO_STEPS + 1)
-        if rc != 0 or not rec["passed"] or launched != want:
+        if (rc != 0 or not rec["passed"]
+                or {k: launched[k] for k in want} != want):
             raise AssertionError(f"train_demo {name}: rc {rc}, launches "
                                  f"{json.dumps(launched)}, record "
                                  f"{json.dumps(rec)}")
@@ -2352,25 +2413,36 @@ def main(argv=None) -> int:
             f"{nm}: {regs} registers, {spill} bytes spilled"
             for nm, regs, spill in entries))
 
-    # 2. Threefry words on the card: CUDA vs the port's torch threefry.
+    # 2. Threefry words on the card: CUDA vs the port's torch threefry, and
+    # the draws kernel (rng.uniform2 on CUDA tensors) vs its plain version.
     n = 1 << 20
     g = torch.Generator(device="cpu").manual_seed(0)
     pixel = torch.randint(0, 2**32, (n,), generator=g, dtype=torch.int64).to(dev)
     sample = torch.randint(0, 2**32, (n,), generator=g, dtype=torch.int64).to(dev)
+    bounces = torch.randint(0, 2**24, (n,), generator=g, dtype=torch.int64).to(dev)
     checked = 0
     for seed, bounce, dim in [(7, 0, 0), (0xDEADBEEF, 3, 2),
                               (12345, rng.CAMERA_BOUNCE, rng.DIM_TIME)]:
         key1 = (bounce << 8) | dim
         (w0, w1), (u0, u1) = mega_kernel.threefry_words_cuda(seed, key1, pixel, sample)
         r0, r1 = rng.threefry2x32(seed, key1, pixel, sample, rounds=rng.ROUNDS)
-        v0, v1 = rng.uniform2(seed, pixel, sample, bounce, dim)
+        v0, v1 = rng.uniform2_plain(seed, pixel, sample, bounce, dim)
         if not (torch.equal(w0, r0) and torch.equal(w1, r1)):
             raise AssertionError(f"threefry words differ (seed={seed}, key1={key1})")
         if not (torch.equal(u0.view(torch.int32), v0.view(torch.int32))
                 and torch.equal(u1.view(torch.int32), v1.view(torch.int32))):
             raise AssertionError(f"uniform2 bits differ (seed={seed}, key1={key1})")
+        for b in (bounce, bounces):
+            for sd in (seed, torch.tensor(seed, device=dev)):
+                got = rng.uniform2(sd, pixel, sample, b, dim)
+                want = rng.uniform2_plain(sd, pixel, sample, b, dim)
+                if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                    raise AssertionError(f"the draws kernel differs from its "
+                                         f"plain version (seed={seed}, "
+                                         f"dim={dim})")
         checked += n
-    phase("threefry", f"{checked} counters bit-exact (words and uniforms)")
+    phase("threefry", f"{checked} counters bit-exact (words and uniforms; "
+          f"the draws kernel with int and [B] bounces, int and 0-d seeds)")
 
     # 3. K1 vs plain version on the card (depth 50, spp 4).
     cornell, cornell_cam = library.cornell_box(device=dev)
@@ -2697,9 +2769,11 @@ def main(argv=None) -> int:
                                                           **wkw)
         torch.cuda.synchronize(dev)
         st = forward_bar(got, ref, got_segs, ref_segs, name)
-        st.update(K5_launches=launched["K5"], K4_launches=launched["K4"])
+        st.update(K5_launches=launched["K5"], K4_launches=launched["K4"],
+                  draws_launches=launched["draws"])
         if (sc.has_accel and launched["K5"] < 1) or (
-                scene_lib.TEX_NOISE in sc.tex_kinds and launched["K4"] < 1):
+                scene_lib.TEX_NOISE in sc.tex_kinds and launched["K4"] < 1) or (
+                launched["draws"] < 1):
             raise AssertionError(f"{name}: the wavefront skipped a kernel {st}")
         phase("compare_wavefront", f"{name} {CW}x{CH} spp{CSPP} depth{DEPTH}: "
               f"{json.dumps(st)}")
@@ -2710,7 +2784,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp, mega_forward(False):
         rc, out, img, launched = run_cli(1, W, H, SPP, DEPTH, tmp)
     bvh_wall_ms, bvh_mrays, bvh_segs = cli_stats(out)
-    k5_launches = launched["K5"]
+    k5_launches, draws_launches = launched["K5"], launched["draws"]
     if (rc != 0 or k5_launches < 1 or launched["K1"]
             or bvh_segs != WAVEFRONT_SEGMENTS[1]):
         raise AssertionError(f"main path (scene 1): rc={rc} {launched}, "
@@ -2886,6 +2960,15 @@ def main(argv=None) -> int:
           f"{k4_plain_ms:.3f} ms; bound {k4_bound_ms:.5f} ms by {k4_bound_by}; "
           f"{k4_launches} launches of {k4_points} points in scenes 3, 4 and "
           f"5's renders")
+
+    # The draws kernel (rng.uniform2 on CUDA tensors) at the wavefront's
+    # first and narrowest stage widths, with a [B] bounce (the scatter and
+    # media draws: three int64 in) and an int one (the camera's: two), on a
+    # 0-d seed tensor as the stages' graphs hold it; beside its bound and
+    # its plain version's device time, both by ``graph_ms``.
+    draws = threefry_draws_timings(dev)
+    phase("timing_draws", f"draws kernel: {json.dumps(draws)}; "
+          f"{draws_launches} launches per scene-1 render")
 
     # 16. Media and meshes: scenes 7 and 8, and scene 9 through --obj on a
     # 5,760-triangle capsule that this script writes.  Their forward renders
@@ -3302,6 +3385,13 @@ def main(argv=None) -> int:
          "device_share_scene8_spp1": media["profiles"][8]["K4_share"],
          "launches_scene8_jpeg_earthmap": jpeg["scene8"]["launches"]["K4"],
          "bench_extra_launches": bx["K4"]},
+        {"name": "uniform2_draws_kernel (rng.uniform2 on CUDA tensors)",
+         "route": "cuda", "source": SRC + "mega_kernel.cu",
+         "replaces": None,  # XLA fuses the JAX package's int64 draws
+         "launches": draws_launches, "max_abs_err": 0.0,
+         "timings": draws, "library_ms": None,
+         "launches_per_render": {k: v["draws"]
+                                 for k, v in media["renders"].items()}},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

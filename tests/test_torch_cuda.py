@@ -68,8 +68,108 @@ def test_threefry_words_bit_exact(dev):
     (w0, w1), (u0, u1) = mega_kernel.threefry_words_cuda(7, key1, pix, samp)
     r0, r1 = rng.threefry2x32(7, key1, pix, samp, rounds=rng.ROUNDS)
     assert torch.equal(w0, r0) and torch.equal(w1, r1)
-    v0, v1 = rng.uniform2(7, pix, samp, 3, 2)
+    v0, v1 = rng.uniform2_plain(7, pix, samp, 3, 2)
     assert torch.equal(u0, v0) and torch.equal(u1, v1)
+
+
+def _draw_counters(dev, n, seed):
+    """[n] pixel, sample and bounce counters (uint32 words, the extremes
+    first; bounces below 2**24) as int64 CUDA tensors."""
+    w = np.random.default_rng(seed).integers(0, 2**32, size=(3, n),
+                                             dtype=np.uint64)
+    k = min(n, 2)
+    w[:, :k] = np.array([0, 2**32 - 1], dtype=np.uint64)[:k]
+    pix, samp, b = (torch.from_numpy(x.astype(np.int64)).to(dev) for x in w)
+    return pix, samp, b & 0xFFFFFF
+
+
+@pytest.mark.parametrize("n", [1, 6144, 388800])
+@pytest.mark.parametrize("bounce_kind", ["int", "tensor"])
+@pytest.mark.parametrize("seed_kind", ["int", "tensor"])
+def test_draws_kernel_equals_plain(n, bounce_kind, seed_kind, dev):
+    """``rng.uniform2`` on CUDA tensors is one launch of the draws kernel,
+    bit-equal to the plain int64 code on the card, for every dim the tensor
+    paths draw (camera 0, 2, 4; scatter 0, 2; two media)."""
+    from another_raytracer_tpu_torch.ops.kernels import threefry_kernel
+
+    pix, samp, bounces = _draw_counters(dev, n, n)
+    for dim in (0, 2, 4, rng.DIM_MEDIUM, rng.DIM_MEDIUM + 2):
+        bounce = rng.CAMERA_BOUNCE if bounce_kind == "int" else bounces
+        seed = (0x9E3779B9 if seed_kind == "int"
+                else torch.tensor(0x9E3779B9, device=dev))
+        before = threefry_kernel.uniform2.launches
+        got = rng.uniform2(seed, pix, samp, bounce, dim)
+        assert threefry_kernel.uniform2.launches == before + 1
+        want = rng.uniform2_plain(seed, pix, samp, bounce, dim)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32 and g.shape == (n,)
+            assert torch.equal(g, w), (dim, bounce_kind, seed_kind)
+
+
+def test_draws_kernel_reads_the_seed_a_graph_replays(dev):
+    """Captured in a CUDA graph with a 0-d seed tensor (as the wavefront's
+    stages hold it), a replay draws the seed the tensor holds then."""
+    pix, samp, bounces = _draw_counters(dev, 6144, 1)
+    seed = torch.tensor(11, device=dev)
+    rng.uniform2(seed, pix, samp, bounces, 0)  # built and loaded
+    torch.cuda.synchronize(dev)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = rng.uniform2(seed, pix, samp, bounces, rng.DIM_SCATTER_B)
+    for s in (12, 0xFFFFFFFF, 11):
+        seed.fill_(s)
+        graph.replay()
+        want = rng.uniform2_plain(s, pix, samp, bounces, rng.DIM_SCATTER_B)
+        torch.cuda.synchronize(dev)
+        assert all(torch.equal(g, w) for g, w in zip(out, want)), s
+
+
+def test_draws_kernel_refuses_what_it_does_not_take(dev):
+    """int32 or non-contiguous counters, a bounce or a seed of another
+    shape or type: the wrapper raises, with no fallback."""
+    from another_raytracer_tpu_torch.ops.kernels import threefry_kernel
+
+    pix, samp, bounces = _draw_counters(dev, 256, 2)
+    before = threefry_kernel.uniform2.launches
+    with pytest.raises(TypeError):
+        rng.uniform2(3, pix.to(torch.int32), samp, 1, 0)
+    with pytest.raises(ValueError):
+        rng.uniform2(3, pix[::2], samp[::2], 1, 0)
+    with pytest.raises(ValueError):
+        rng.uniform2(3, pix, samp, bounces[:128], 0)
+    with pytest.raises(ValueError):
+        rng.uniform2(3, pix, samp.cpu(), 1, 0)
+    with pytest.raises(TypeError):
+        rng.uniform2(torch.tensor([3], device=dev), pix, samp, 1, 0)
+    assert threefry_kernel.uniform2.launches == before
+
+
+@pytest.mark.parametrize("name,held", [("mesh", 4), ("final_scene", 6)])
+def test_stage_graphs_hold_the_draw_launches(name, held, capsule_obj, dev,
+                                             monkeypatch):
+    """A captured stage's two graphs hold one draws launch per
+    ``rng.uniform2`` call of an iteration: the capsule (one medium, no
+    motion) 3 in the step (its medium, scatter A and B) and 1 in the re-arm
+    (the jitter); scene 8 (two media, motion) 4 and 2 (the jitter and the
+    shutter time)."""
+    import collections
+
+    from another_raytracer_tpu_torch.ops import integrator
+
+    monkeypatch.setattr(integrator, "REGEN_COMPACT_MIN_B", 1024)
+    monkeypatch.setattr(integrator, "_stages", collections.OrderedDict())
+    scene, params = _media_scenes(capsule_obj)[name](device=dev)
+    cam = camera.make_camera(aspect_ratio=W / H, device=dev, **params)
+    pix = torch.arange(W * H, device=dev)
+    samp0 = torch.zeros_like(pix)
+    kw = dict(width=W, height=H, sample_stride=1, sample_end=4, spp_cap=4,
+              max_depth=8, t_min=1e-3)
+    for seed in (5, 6):
+        integrator.trace_regenerative(scene, cam, pix, samp0, seed, **kw)
+    stage = next(iter(integrator._stages.values()))
+    assert stage.mode == "replay"
+    assert stage.step.held["draws"] + stage.rearm.held["draws"] == held
+    assert stage.rearm.held["draws"] == 1 + scene.has_motion
 
 
 @pytest.mark.parametrize("name", list(SCENES))

@@ -208,3 +208,27 @@ def test_replay_adds_the_graphs_launches(monkeypatch):
     assert replay() == replay() == "out" and len(replays) == 2
     assert k5.launches == {"rect/shared": 7, "planar/global": 2}
     assert (k4.launches, k4.points) == (3, 210)
+
+
+def test_replay_adds_the_graphs_draw_launches(monkeypatch):
+    """The draws kernel's launches a graph holds: restored after the capture,
+    added by each replay, and kept on the replay as ``held``."""
+    from another_raytracer_tpu_torch.ops.kernels import threefry_kernel
+
+    draws = threefry_kernel.uniform2
+    monkeypatch.setattr(draws, "launches", 5)
+
+    def body():
+        draws.launches += 4
+        return "out"
+
+    def capture(fn):
+        fn()
+        return lambda: "out"
+
+    replay = integrator._counted(capture, body)
+    assert draws.launches == 5
+    assert replay.held == {"K5": 0, "K4": 0, "draws": 4}
+    replay()
+    replay()
+    assert draws.launches == 13

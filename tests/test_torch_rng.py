@@ -61,3 +61,57 @@ def test_uniform2_matches_reference():
         np.asarray(jrng.uniform(5, jnp.arange(64, dtype=jnp.uint32),
                                 jnp.zeros(64, jnp.uint32), 1, 1)), u.numpy())
 
+
+
+def _counters(n, seed):
+    w = np.random.default_rng(seed).integers(0, 2**32, size=(3, n),
+                                             dtype=np.uint64)
+    pix, samp, b = (torch.from_numpy(x.astype(np.int64)) for x in w)
+    return pix, samp, b & 0xFFFFFF
+
+
+@pytest.mark.parametrize("bounce_kind", ["int", "tensor"])
+@pytest.mark.parametrize("seed_kind", ["int", "tensor"])
+def test_uniform2_on_cpu_runs_the_plain_code(bounce_kind, seed_kind):
+    """CPU tensors take ``uniform2_plain``: the same bits, and the draws
+    kernel's launch count does not move."""
+    from another_raytracer_tpu_torch.ops.kernels import threefry_kernel
+
+    pix, samp, bounces = _counters(3000, 4)
+    before = threefry_kernel.uniform2.launches
+    for dim in (0, 2, 4, trng.DIM_MEDIUM, trng.DIM_MEDIUM + 2):
+        bounce = trng.CAMERA_BOUNCE if bounce_kind == "int" else bounces
+        seed = 0xDEADBEEF if seed_kind == "int" else torch.tensor(0xDEADBEEF)
+        got = trng.uniform2(seed, pix, samp, bounce, dim)
+        want = trng.uniform2_plain(seed, pix, samp, bounce, dim)
+        k1 = ((bounce << 8) | dim) & trng.MASK32
+        words = trng.threefry2x32(0xDEADBEEF, k1, pix, samp, rounds=13)
+        for g, w, x in zip(got, want, words):
+            assert g.dtype == torch.float32 and g.device.type == "cpu"
+            assert torch.equal(g, w)
+            assert torch.equal(g, (x >> 8).to(torch.float32) * 2.0**-24)
+    assert threefry_kernel.uniform2.launches == before
+
+
+@pytest.mark.parametrize("case", ["cpu", "int32", "list"])
+def test_draws_kernel_takes_cuda_counters_only(case):
+    """The draws kernel's wrapper raises, before it builds anything, on
+    counters it does not take (off the card every tensor is one of them)."""
+    from another_raytracer_tpu_torch.ops.kernels import threefry_kernel
+
+    pix, samp, _ = _counters(16, 5)
+    bad = {"cpu": pix, "int32": pix.to(torch.int32), "list": pix.tolist()}[case]
+    err = TypeError if case in ("int32", "list") else ValueError
+    before = threefry_kernel.uniform2.launches
+    with pytest.raises(err):
+        threefry_kernel.uniform2(7, bad, samp, 3, 0)
+    assert threefry_kernel.uniform2.launches == before
+
+
+def test_trace_scene_names_the_draws_kernel():
+    """``trace_scene`` puts the draws kernel in a category of its own."""
+    from another_raytracer_tpu_torch import trace_scene
+
+    event = {"name": "(anonymous namespace)::uniform2_draws_kernel(long "
+                     "const*, unsigned int, long const*)", "cat": "kernel"}
+    assert trace_scene.category(event) == "draws (threefry uniform2)"
