@@ -40,7 +40,7 @@ import torch
 
 from another_raytracer_tpu_torch.models import scene as scene_lib
 from another_raytracer_tpu_torch.ops import camera as camera_lib
-from another_raytracer_tpu_torch.ops import intersect, rng, shade, vec3
+from another_raytracer_tpu_torch.ops import intersect, kernels, rng, shade, vec3
 from another_raytracer_tpu_torch.ops.vec3 import V3
 from another_raytracer_tpu_torch.utils import profiling
 
@@ -74,21 +74,16 @@ def _advance(scene, o, d, time, throughput, alive, pixel_ids, sample_ids,
     background, emission, branchless scatter.
 
     ``fast_texel`` (forward-only callers): textures may take kernels without
-    a backward (Perlin, K4), and at widths of at least the ``FOLD_*_MIN_B``
-    gates the BVH kernel folds the winner's record (intersect.py).
+    a backward (Perlin, K4), and the BVH kernel folds the winner's record of
+    the tree ``intersect.fold_tree`` names at this width.
     ``sphere_hits``: a 0-d int64 tensor that the live lanes whose winner is
     a sphere are added into, in place, on the device.
 
     Returns (radiance_delta V3, hit_p V3, new_dir V3, attenuation V3,
     scattered [B] bool = alive & hit & scatter_ok).
     """
-    width = pixel_ids.shape[0]
-    fold_tri = (scene.tri_in_bvh and intersect.FOLD_TRI_RECORD
-                and width >= intersect.FOLD_RECORD_MIN_B)
-    fold_sph = (scene.sph_in_bvh and intersect.FOLD_SPH_RECORD
-                and scene.n_bvh_nodes == 0 and scene.sph_fold_safe
-                and width >= intersect.FOLD_SPH_MIN_B)
-    want_aux = fast_texel and (fold_tri or fold_sph)
+    fold = (intersect.fold_tree(scene, pixel_ids.shape[0]) if fast_texel
+            else None)
     u_media = media_uniforms(scene, pixel_ids, sample_ids, bounce, seed)
     # Winner selection is a detached discrete decision (the JAX sg): the
     # backward sees only the per-ray winner recompute in make_hit_record.
@@ -97,9 +92,8 @@ def _advance(scene, o, d, time, throughput, alive, pixel_ids, sample_ids,
         hit_args = (scene, o.map(torch.Tensor.detach),
                     d.map(torch.Tensor.detach), time.detach(), u_media,
                     t_min)
-        if want_aux:
-            (t, kind, idx), aux = intersect.closest_hit(*hit_args,
-                                                        want_aux=True)
+        if fold:
+            (t, kind, idx), aux = intersect.closest_hit(*hit_args, fold=fold)
         else:
             t, kind, idx = intersect.closest_hit(*hit_args)
     hit = (kind >= 0) & alive
@@ -379,39 +373,23 @@ def _copy_into(dst, src) -> None:
 
 
 def _counted(capture, fn):
-    """``capture(fn)``'s replay, which adds the K5, K4 and draws launches
-    its graph holds to their wrappers' counts: a wrapper counts its launch
-    when it runs, once at capture, when nothing reaches the card, and not
-    on a replay."""
-    from another_raytracer_tpu_torch.ops.kernels import (bvh_kernel,
-                                                         perlin_kernel,
-                                                         threefry_kernel)
-
-    k5, k4 = bvh_kernel.bvh_closest_hit, perlin_kernel.perlin_noise
-    draws = threefry_kernel.uniform2
-    k5_before = collections.Counter(k5.launches)
-    k4_before = k4.launches, k4.points
-    draws_before = draws.launches
+    """``capture(fn)``'s replay, which adds the launches its graph holds to
+    the kernels' counts (``kernels.COUNTS``): a wrapper counts its launch
+    when it runs, once at capture, when nothing reaches the card, and not on
+    a replay.  ``held``: those launches, as ``kernels.launch_counts`` gives
+    them."""
+    before = kernels.COUNTS.copy()
     replay = capture(fn)
-    k5_graph = k5.launches - k5_before
-    k4_graph = k4.launches - k4_before[0], k4.points - k4_before[1]
-    draws_graph = draws.launches - draws_before
-    k5.launches.clear()
-    k5.launches.update(k5_before)
-    k4.launches, k4.points = k4_before
-    draws.launches = draws_before
+    graph = kernels.COUNTS - before
+    kernels.COUNTS.clear()
+    kernels.COUNTS.update(before)
 
     def counted():
         out = replay()
-        k5.launches.update(k5_graph)
-        k4.launches += k4_graph[0]
-        k4.points += k4_graph[1]
-        draws.launches += draws_graph
+        kernels.COUNTS.update(graph)
         return out
 
-    counted.held = {"K5": k5_graph.total(), "K4": k4_graph[0],
-                    "draws": draws_graph}  # the launches the graph holds
-
+    counted.held = kernels.launch_counts(graph)
     return counted
 
 
@@ -490,24 +468,17 @@ class _Stage:
             self.rearm = _counted(self.capture, run_rearm)
 
 
-def _knobs() -> tuple:
-    """The module values the loop body reads when it runs: the fold gates
-    (with the stage's width they fix which K5 variant runs), the sweeps'
-    chunk and the RNG's rounds.  A graph keeps what they were at capture."""
-    return (intersect.FOLD_TRI_RECORD, intersect.FOLD_RECORD_MIN_B,
-            intersect.FOLD_FULL_RECORD, intersect.FOLD_SPH_RECORD,
-            intersect.FOLD_SPH_MIN_B, intersect.PRECOMP_TRI,
-            intersect.PRIM_CHUNK, rng.ROUNDS)
-
-
 def _stage(device, stage_width, parts_args):
     """The stage of ``stage_width`` lanes for the loop parts' arguments
-    (scene and camera by identity), or None on a device without a capture
-    step.  The least recently used stage past ``GRAPH_CACHE_SIZE`` goes."""
+    (scene and camera by identity) and the tree whose record K5 folds at
+    that width (``intersect.fold_tree``: a graph keeps the variant it
+    captured), or None on a device without a capture step.  The least
+    recently used stage past ``GRAPH_CACHE_SIZE`` goes."""
     if device.type not in GRAPHS:
         return None
     scene, cam, *fixed = parts_args
-    key = (id(scene), id(cam), device, stage_width, *fixed, _knobs())
+    key = (id(scene), id(cam), device, stage_width, *fixed,
+           intersect.fold_tree(scene, stage_width))
     stage = _stages.get(key)
     if stage is None:
         # The stage holds the scene and camera, so their ids stay theirs.
@@ -541,7 +512,7 @@ def trace_regenerative(scene, cam, pixel_ids, sample_ids0, seed, *,
 
     CUDA graphs: on a device that ``GRAPHS`` names, each stage's loop body
     is replayed from two CUDA graphs (``_Stage``) once its key (scene and
-    camera, the fixed arguments, the stage's width, ``_knobs``) has run
+    camera, the fixed arguments, the stage's width, its fold) has run
     one iteration eagerly, so the host issues two graph launches and its
     two reads an iteration instead of the body's ~1,200 ops.  The ops are
     the eager body's, so images and segments are the same bits; a stage of

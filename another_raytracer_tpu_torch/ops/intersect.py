@@ -11,7 +11,7 @@ hit record (point, normal, UV, material) is then recomputed for the winning
 primitive alone, differentiably, so gradients reach geometry parameters
 through the hit point.  The winner search itself is a detached decision:
 callers run ``closest_hit`` under ``torch.no_grad()``.  On the forward path
-the kernel may fold the winner's record instead (``FOLD_*`` below), and the
+the kernel may fold the winner's record instead (``fold_tree``), and the
 record then takes the folded values as they are.
 
 Behavioural contracts (reference locations): sphere half-b quadratic with
@@ -65,21 +65,11 @@ SQUARE_MAX = 1e18  # a float32 component whose square sums without overflow
 # first minimum, so the winner does not depend on it.
 PRIM_CHUNK = 512
 
-# Winner-record folds of the BVH kernel on the forward path (the JAX gates,
-# intersect.py:351-394 there).  The planar tree folds the winning triangle's
-# unit normal and barycentrics, and with FOLD_FULL_RECORD its texcoords and
-# material, so the record needs no winner gather; the sphere tree folds the
-# world centre at the ray's time, the radius, material and has_uv
-# (identity-safe spheres only, ``scene.sph_fold_safe``).  The width gates
-# are the JAX package's values, measured on the TPU; an H100 measurement is
-# to set them (ROADMAP M21).
-# PRECOMP_TRI reads the precomputed leaf-test geometry of 35-column rows.
-FOLD_TRI_RECORD = True
+# The width gates of the BVH kernel's winner-record folds (``fold_tree``):
+# the JAX package's values, measured on the TPU; an H100 measurement is to
+# set them (ROADMAP M21).
 FOLD_RECORD_MIN_B = 131072
-FOLD_FULL_RECORD = True
-FOLD_SPH_RECORD = True
 FOLD_SPH_MIN_B = 65536
-PRECOMP_TRI = True
 
 
 class HitRecord(NamedTuple):
@@ -353,42 +343,69 @@ def _scan_kind(best, n_total, chunk_fn, kind):
     return best
 
 
-def _fold_bvh(scene, best, nodes, rows, o, d, time, t_min, prim,
-              want_aux=False):
-    """Fold one packed BVH's winner into the running best through K5.  The
-    traversal returns rows' codes (id*4 + kind) for improved lanes and
-    copies the init value through otherwise, so the decode is gated on
-    improved.
+def fold_tree(scene, width):
+    """The tree whose winner record K5 folds on the forward wavefront at
+    ``width`` lanes, the one statement of when it does (the JAX package's
+    gates, intersect.py:351-394 there): 'planar' where the scene's
+    triangles are in the planar tree, from ``FOLD_RECORD_MIN_B`` lanes; else
+    'sphere' where the spheres are in a tree, no planar tree claims the one
+    record slot and every sphere's world normal is its UV's normal
+    (``scene.sph_fold_safe``), from ``FOLD_SPH_MIN_B`` lanes; else None.
+    The planar fold gives the winning triangle's unit normal, barycentrics,
+    texcoords and material, the sphere fold the world centre at the ray's
+    time, the radius, material and has_uv: the record needs no winner
+    gather."""
+    if scene.tri_in_bvh and width >= FOLD_RECORD_MIN_B:
+        return "planar"
+    if (scene.sph_in_bvh and scene.n_bvh_nodes == 0 and scene.sph_fold_safe
+            and width >= FOLD_SPH_MIN_B):
+        return "sphere"
+    return None
 
-    ``want_aux`` ('planar' / 'sphere'): also return the kernel-folded winner
-    record, tagged with its tree kind: ('planar', n, u, v[, tu, tv, mat]) or
-    ('sphere', centre, r, mat, has_uv), valid wherever the final winner kind is
-    that tree's (later folds only override on strict improvement)."""
+
+def k5_variant(prim, fold):
+    """K5's (fold_record, fold_full, precomp) on the ``prim`` tree where the
+    wavefront folds ``fold``'s record (``fold_tree``): the planar tree is
+    walked on its precomputed leaf-test geometry and folds the full record
+    (with texcoords and material)."""
+    record, planar = fold == prim, prim == "planar"
+    return record, record and planar, planar
+
+
+def _fold_bvh(scene, best, nodes, rows, o, d, time, t_min, prim, fold=None):
+    """Fold one packed BVH's winner into the running best through K5, in
+    ``k5_variant(prim, fold)``.  The traversal returns rows' codes (id*4 +
+    kind) for improved lanes and copies the init value through otherwise,
+    so the decode is gated on improved.
+
+    Where ``fold`` is ``prim``, also return the kernel-folded winner record,
+    tagged with its tree kind: ('planar', n, u, v, tu, tv, mat) or
+    ('sphere', centre, r, mat, has_uv), valid wherever the final winner kind
+    is that tree's (later folds only override on strict improvement)."""
     from another_raytracer_tpu_torch.ops.kernels import bvh_kernel
 
     bt, bk, bi = best
-    pre = prim == "planar" and PRECOMP_TRI and rows.shape[1] >= 35
-    full = (want_aux and prim == "planar" and FOLD_FULL_RECORD
-            and rows.shape[1] >= 17)
+    record, full, pre = k5_variant(prim, fold)
     out = bvh_kernel.bvh_closest_hit(
         nodes, rows, o, d, bt, bi.to(torch.int32), t_min=float(t_min),
         leaf_size=scene.bvh_leaf_size, prim=prim, time=time,
-        fold_record=want_aux, fold_full=full, precomp=pre,
+        fold_record=record, fold_full=full, precomp=pre,
         tables=scene.k5_tables(prim, pre))
     t, code, improved = out[:3]
     code = code.long()
     kind = torch.where(improved, code % 4, bk)
     idx = torch.where(improved, code // 4, bi)
-    if want_aux:
+    if record:
         return (t, kind, idx), (prim,) + tuple(out[3:])
     return (t, kind, idx)
 
 
-def closest_hit(scene, o: V3, d: V3, time, u_media, t_min, want_aux=False):
+def closest_hit(scene, o: V3, d: V3, time, u_media, t_min, fold=None):
     """Closest intersection over all primitive kinds.
 
     Returns (t [B], kind [B] int64 with -1 = miss, idx [B] within-kind), and
-    with ``want_aux`` also the kernel-folded winner record (or None; see
+    with ``fold`` ('planar' or 'sphere', ``fold_tree``'s answer) as
+    ((t, kind, idx), the kernel-folded winner record of that tree; see
     ``_fold_bvh``).  BVH folds run first, so their winner t tightens the
     sweeps' t_max; then the sweeps of spheres, rects and triangles outside
     a BVH, and last the media's free flights (``u_media``: [B, Nm]
@@ -399,24 +416,19 @@ def closest_hit(scene, o: V3, d: V3, time, u_media, t_min, want_aux=False):
     best = (z + BIG, torch.full_like(z, -1, dtype=torch.int64),
             torch.zeros_like(z, dtype=torch.int64))
     aux = None
-    give_aux = want_aux and FOLD_TRI_RECORD and scene.n_bvh_nodes > 0
-    # Sphere-tree fold: only when the planar tree does not claim the single
-    # aux slot, and the world normal is also the UV's normal.
-    give_sph_aux = (want_aux and FOLD_SPH_RECORD and scene.n_sph_bvh_nodes > 0
-                    and scene.n_bvh_nodes == 0 and scene.sph_fold_safe)
     if scene.n_bvh_nodes:  # planar tree: triangles and/or transformed rects
         best = _fold_bvh(scene, best, scene.bvh_packed_nodes,
                          scene.bvh_packed_tris, o, d, time, t_min, "planar",
-                         want_aux=give_aux)
-        if give_aux:
+                         fold)
+        if fold == "planar":
             best, aux = best
     if scene.n_rect_bvh_nodes:  # native axis-rect tree (identity transforms)
         best = _fold_bvh(scene, best, scene.rect_bvh_nodes,
                          scene.rect_bvh_rows, o, d, time, t_min, "rect")
     if scene.n_sph_bvh_nodes:
         best = _fold_bvh(scene, best, scene.sph_bvh_nodes, scene.sph_bvh_rows,
-                         o, d, time, t_min, "sphere", want_aux=give_sph_aux)
-        if give_sph_aux:
+                         o, d, time, t_min, "sphere", fold)
+        if fold == "sphere":
             best, aux = best
     if scene.n_spheres and not scene.sph_in_bvh:
         best = _scan_kind(
@@ -436,7 +448,7 @@ def closest_hit(scene, o: V3, d: V3, time, u_media, t_min, want_aux=False):
     if scene.n_media:
         t, valid = _medium_t(scene, o, d, u_media, t_min, best[0][:, None])
         best = _fold_kind(best, t, valid, scene_lib.PRIM_MEDIUM)
-    if want_aux:
+    if fold:
         return best, aux
     return best
 
@@ -515,8 +527,8 @@ def _onto_sphere(off: V3, r):
 def _sphere_record_aux(scene, o, d, t, aux):
     """Forward-path sphere record from the kernel-folded winner (its world
     centre at the ray's time and radius, as K5 tested them, its mat id and
-    has_uv): no winner gather.  Identity-safe spheres only (gated in
-    closest_hit): the world normal is the object-space normal the UV needs.
+    has_uv): no winner gather.  Identity-safe spheres only (``fold_tree``):
+    the world normal is the object-space normal the UV needs.
     t is the kernel's winner t, used as it is."""
     center, r, mat_f, has_uv = aux
     mat = torch.clamp(mat_f.long(), 0, scene.mat_kind.shape[0] - 1)
@@ -587,26 +599,15 @@ def _triangle_record(scene, o, d, t, idx):
     return t, p_world, n_world, scene.tri_mat[ii].long(), u, v, tu, tv
 
 
-def _triangle_record_aux(scene, o, d, t, idx, aux):
-    """Forward-path triangle record from the kernel-folded aux; t is the
-    kernel's winner t, used as it is (the differentiable path never comes
-    here).  With the full fold (n, u, v, tu, tv, mat) the record needs no
-    gather; with the partial fold (n, u, v) it gathers texcoords and
-    material."""
-    if len(aux) == 6:
-        n_aux, u, v, tu, tv, mat_f = aux
-        # Garbage on non-triangle winners (masked by kind in
-        # make_hit_record); clamped so the material gathers stay in range.
-        mat = torch.clamp(mat_f.long(), 0, scene.mat_kind.shape[0] - 1)
-        return t, o + d * t, n_aux, mat, u, v, tu, tv
-    n_aux, u, v = aux
-    ii = torch.clamp(idx, 0, scene.n_triangles - 1)
-    uv0, uv1, uv2 = (take(x, ii) for x in (scene.tri_uv0, scene.tri_uv1,
-                                           scene.tri_uv2))
-    w = 1.0 - u - v
-    tu = u * uv0[:, 0] + v * uv1[:, 0] + w * uv2[:, 0]
-    tv = u * uv0[:, 1] + v * uv1[:, 1] + w * uv2[:, 1]
-    return t, o + d * t, n_aux, scene.tri_mat[ii].long(), u, v, tu, tv
+def _triangle_record_aux(scene, o, d, t, aux):
+    """Forward-path triangle record from the kernel-folded aux (n, u, v, tu,
+    tv, mat): no winner gather.  t is the kernel's winner t, used as it is
+    (the differentiable path never comes here)."""
+    n_aux, u, v, tu, tv, mat_f = aux
+    # Garbage on non-triangle winners (masked by kind in make_hit_record);
+    # clamped so the material gathers stay in range.
+    mat = torch.clamp(mat_f.long(), 0, scene.mat_kind.shape[0] - 1)
+    return t, o + d * t, n_aux, mat, u, v, tu, tv
 
 
 def _medium_record(scene, o, d, t, idx, u_media, t_min):
@@ -638,7 +639,7 @@ def make_hit_record(scene, o: V3, d: V3, time, t, kind, idx, u_media=None,
     ``t_min`` must be those of the winner selection: the medium recompute redraws its free flight from the same
     uniform and clamps the boundary entry to ``t_min``
     (constant_medium.h:57).  ``aux``: the kernel-folded winner record from
-    ``closest_hit(want_aux=True)`` (forward path only), which replaces its
+    ``closest_hit(fold=...)`` (forward path only), which replaces its
     tree kind's recompute.  Lanes that missed get some kind's record of
     index 0; callers mask them out.
     """
@@ -670,7 +671,7 @@ def make_hit_record(scene, o: V3, d: V3, time, t, kind, idx, u_media=None,
         merge(kind == scene_lib.PRIM_RECT, _rect_record(scene, o, d, t, idx))
     if scene.n_triangles:
         if aux is not None and aux[0] == "planar":
-            tri = _triangle_record_aux(scene, o, d, t, idx, aux[1:])
+            tri = _triangle_record_aux(scene, o, d, t, aux[1:])
         else:
             tri = _triangle_record(scene, o, d, t, idx)
         merge(kind == scene_lib.PRIM_TRIANGLE, tri)

@@ -1,48 +1,49 @@
 """The hand-written CUDA kernels and their wrappers.
 
-Each wrapper adds one to its own launch count where it launches its kernel,
-and nowhere else (a CPU tensor takes the plain version and counts nothing).
-``launch_counts`` reads every count and ``reset_launch_counts`` sets them
-to 0.
+Every launch is counted in one registry, ``COUNTS``: each wrapper calls
+``count`` where it launches its kernel, and nowhere else (a CPU tensor takes
+the plain version and counts nothing).  ``launch_counts`` reads it and
+``reset_launch_counts`` clears it.
 """
 
+import collections
 
-def launch_counts() -> dict:
-    """{kernel: launches}: K1, K2 (K1's record instance), K3 and its record
-    and device-memory instances, the replay, K4, K5 (``K5_by_tree``: its
-    launches by table kind) and the draws kernel (``draws``)."""
-    from another_raytracer_tpu_torch.ops.kernels import (bvh_kernel,
-                                                         mega_diff,
-                                                         mega_kernel,
-                                                         perlin_kernel,
-                                                         threefry_kernel)
+# name -> count.  A name is a kernel's launches ("K1", "draws"), its
+# launches on one part, "<kernel>/<part>" (K5's tree and table route,
+# "K5/sphere/shared"), or another count kept beside them, "<kernel>.<what>"
+# (K4's points, "K4.points").
+COUNTS = collections.Counter()
 
-    mega = mega_kernel.trace_regenerative_mega
-    return dict(K1=mega.launches, K2=mega.record_launches,
-                K3=mega.accel_launches, K3_record=mega.accel_record_launches,
-                K3_global=mega.accel_global_launches,
-                K3_record_global=mega.accel_record_global_launches,
-                replay=mega_diff.replay_backward.launches,
-                K5=bvh_kernel.bvh_closest_hit.launches.total(),
-                K5_by_tree=dict(bvh_kernel.bvh_closest_hit.launches),
-                K4=perlin_kernel.perlin_noise.launches,
-                draws=threefry_kernel.uniform2.launches)
+# What ``launch_counts`` gives before any launch, in its order: the sweep's
+# forward (K1) and record (K2) instances, K3's forward and record instances
+# on tables in shared and in device memory, the replay, K5 and its launches
+# by part, K4 and the draws kernel.
+KEYS = ("K1", "K2", "K3", "K3_record", "K3_global", "K3_record_global",
+        "replay", "K5", "K5_by_tree", "K4", "draws")
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to ``name``'s count in ``COUNTS``."""
+    COUNTS[name] += n
+
+
+def launch_counts(counts=None) -> dict:
+    """{kernel: launches} of ``counts`` (a Counter of ``COUNTS``' names,
+    default ``COUNTS``): ``KEYS`` and any other kernel counted, each
+    kernel's parts summed into it and given by part as ``<kernel>_by_tree``;
+    the other counts left out."""
+    counts = COUNTS if counts is None else counts
+    out = dict.fromkeys(KEYS, 0)
+    out["K5_by_tree"] = {}
+    for name, n in counts.items():
+        kernel, _, part = name.partition("/")
+        if "." not in kernel:
+            out[kernel] = out.get(kernel, 0) + n
+            if part:
+                out.setdefault(f"{kernel}_by_tree", {})[part] = n
+    return out
 
 
 def reset_launch_counts() -> None:
-    """Every kernel's launch count (and K4's point count) to 0."""
-    from another_raytracer_tpu_torch.ops.kernels import (bvh_kernel,
-                                                         mega_diff,
-                                                         mega_kernel,
-                                                         perlin_kernel,
-                                                         threefry_kernel)
-
-    mega = mega_kernel.trace_regenerative_mega
-    mega.launches = mega.record_launches = 0
-    mega.accel_launches = mega.accel_record_launches = 0
-    mega.accel_global_launches = mega.accel_record_global_launches = 0
-    mega_diff.replay_backward.launches = 0
-    bvh_kernel.bvh_closest_hit.launches.clear()
-    perlin_kernel.perlin_noise.launches = 0
-    perlin_kernel.perlin_noise.points = 0
-    threefry_kernel.uniform2.launches = 0
+    """Every count to 0."""
+    COUNTS.clear()

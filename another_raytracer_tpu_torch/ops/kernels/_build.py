@@ -40,9 +40,6 @@ TARGETS = {
     "bvh_kernel": ("bvh_kernel.cu", ("-fmad=false",)),
     "bvh_kernel_count": ("bvh_kernel.cu", ("-DART_COUNT", "-fmad=false")),
     "perlin_kernel": ("perlin_kernel.cu", ("-fmad=false",)),
-    # Measurement only: K5 with FMA contraction, for chip_smoke.py's cost of
-    # -fmad=false.  The port never loads it.
-    "bvh_kernel_fma": ("bvh_kernel.cu", ()),
 }
 
 _LOADED: dict = {}

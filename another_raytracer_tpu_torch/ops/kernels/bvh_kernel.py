@@ -37,7 +37,6 @@ meta = first * 64 + count (internal nodes have count 0).
 
 from __future__ import annotations
 
-import collections
 import ctypes
 
 import numpy as np
@@ -45,6 +44,7 @@ import torch
 
 from another_raytracer_tpu_torch.models.bvh import FlatBVH
 from another_raytracer_tpu_torch.ops import bvh as bvh_ops
+from another_raytracer_tpu_torch.ops import kernels
 from another_raytracer_tpu_torch.ops.vec3 import V3
 
 META_SCALE = bvh_ops.META_SCALE
@@ -271,17 +271,12 @@ def bvh_closest_hit(nodes, rows, o: V3, d: V3, init_t, init_idx, *,
     if err != 0:
         raise RuntimeError(f"bvh_kernel launch failed: CUDA error {err}")
     if o.x.shape[0]:
-        bvh_closest_hit.launches[f"{prim}/{run.route}"] += 1
+        kernels.count(f"K5/{prim}/{run.route}")
     t, code, hit, aux = outputs
     out = (t, code, hit)
     if fold_record:
         out = out + (V3(aux[0], aux[1], aux[2]),) + tuple(aux[3:])
     return out
-
-
-# Launches of the CUDA kernel, incremented once per launch and nowhere else,
-# by tree kind and table route ("sphere/shared", ...); ``.total()`` is all.
-bvh_closest_hit.launches = collections.Counter()
 
 
 def _lib(target="bvh_kernel"):

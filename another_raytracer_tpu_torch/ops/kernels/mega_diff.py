@@ -34,6 +34,7 @@ from typing import NamedTuple
 import torch
 
 from another_raytracer_tpu_torch.models import scene as scene_lib
+from another_raytracer_tpu_torch.ops import kernels
 from another_raytracer_tpu_torch.ops.kernels import mega_kernel
 from another_raytracer_tpu_torch.ops.vec3 import V3
 
@@ -152,10 +153,6 @@ def replay_backward(codes, tprev: V3, ghat: V3, ca, cb, bg, flags: int,
     if dev.type != "cuda":
         raise ValueError(f"no replay kernel for device {dev}")
     return _launch_replay(codes, tprev, ghat, ca, cb, bg, flags, slots)
-
-
-# Launches of the replay kernel (incremented once per launch, nowhere else).
-replay_backward.launches = 0
 
 
 def _lib():
@@ -337,7 +334,7 @@ def _launch_replay(codes, tprev, ghat, ca, cb, bg, flags, slots):
     if err != 0:
         raise RuntimeError(f"mega_replay launch failed: CUDA error {err}")
     if codes.shape[1]:
-        replay_backward.launches += 1
+        kernels.count("replay")
     return replay_gradients(partial.sum(dim=0), ca.shape[0], run.inputs[-1])
 
 

@@ -85,7 +85,7 @@ import torch
 
 from another_raytracer_tpu_torch.models import scene as scene_lib
 from another_raytracer_tpu_torch.ops import bvh as bvh_ops
-from another_raytracer_tpu_torch.ops import rng, vec3
+from another_raytracer_tpu_torch.ops import kernels, rng, vec3
 from another_raytracer_tpu_torch.ops.kernels import bvh_kernel
 from another_raytracer_tpu_torch.ops.vec3 import V3
 from another_raytracer_tpu_torch.utils import profiling
@@ -397,20 +397,6 @@ def trace_regenerative_mega(scene, cam, pixel_ids, sample_ids0, seed, *,
     return _launch(scene, cam, pixel_ids, sample_ids0, seed, block=block, **kw)
 
 
-# Launches of the CUDA kernel, incremented once per launch and nowhere else:
-# ``launches`` counts the sweep forward instance (K1), ``record_launches``
-# the sweep record instance (K2), ``accel_launches`` and
-# ``accel_record_launches`` the accel mode's two instances (K3) on the
-# tables in shared memory, ``accel_global_launches`` and
-# ``accel_record_global_launches`` the same on the tables in device memory.
-trace_regenerative_mega.launches = 0
-trace_regenerative_mega.record_launches = 0
-trace_regenerative_mega.accel_launches = 0
-trace_regenerative_mega.accel_record_launches = 0
-trace_regenerative_mega.accel_global_launches = 0
-trace_regenerative_mega.accel_record_global_launches = 0
-
-
 def _check_record_iters(record_iters, *, sample_end, spp_cap, sample_stride,
                         max_depth):
     """Raise unless ``record_iters`` is 0 or bounds every lane's loop
@@ -595,13 +581,14 @@ def _launch(scene, cam, pixel_ids, sample_ids0, seed, *, block, record_iters,
     out, seg = outputs[:2]
     total, segments = V3(*out), seg.sum(dtype=torch.int64)
     if pixel_ids.shape[0]:
-        counter = "record_launches" if record_iters else "launches"
+        # K1 / K2 the sweep's forward and record instances, K3 / K3_record
+        # the accel mode's, K3*_global on tables in device memory.
         if scene.n_sph_bvh_nodes > 0:
-            counter = (("accel_record_" if record_iters else "accel_")
-                       + ("global_" if accel_walk(scene) == "global" else "")
-                       + "launches")
-        setattr(trace_regenerative_mega, counter,
-                getattr(trace_regenerative_mega, counter) + 1)
+            name = ("K3" + ("_record" if record_iters else "")
+                    + ("_global" if accel_walk(scene) == "global" else ""))
+        else:
+            name = "K2" if record_iters else "K1"
+        kernels.count(name)
     if record_iters:
         return total, segments, outputs[2], V3(*outputs[3].unbind(0))
     return total, segments

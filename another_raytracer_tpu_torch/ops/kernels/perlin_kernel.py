@@ -23,6 +23,7 @@ import ctypes
 
 import torch
 
+from another_raytracer_tpu_torch.ops import kernels
 from another_raytracer_tpu_torch.ops.vec3 import V3
 
 PERLIN_N = 256
@@ -66,15 +67,9 @@ def perlin_noise(scene, perlin_ids, p: V3):
     if err != 0:
         raise RuntimeError(f"perlin_kernel launch failed: CUDA error {err}")
     if p.x.shape[0]:
-        perlin_noise.launches += 1
-        perlin_noise.points += p.x.shape[0]
+        kernels.count("K4")
+        kernels.count("K4.points", p.x.shape[0])  # their mean width
     return out
-
-
-# Launches of the CUDA kernel, incremented once per launch and nowhere else,
-# and the points those launches took (their mean width).
-perlin_noise.launches = 0
-perlin_noise.points = 0
 
 
 class _NoGrad(torch.autograd.Function):

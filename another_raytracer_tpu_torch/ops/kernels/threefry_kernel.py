@@ -23,7 +23,7 @@ import operator
 
 import torch
 
-from another_raytracer_tpu_torch.ops import rng
+from another_raytracer_tpu_torch.ops import kernels, rng
 
 # The rounds csrc/mega_kernel.cu is compiled with.
 ROUNDS = 13
@@ -45,12 +45,8 @@ def uniform2(seed, pixel, sample, bounce, dim):
             err = run()
         if err != 0:
             raise RuntimeError(f"threefry draws launch failed: CUDA error {err}")
-        uniform2.launches += 1
+        kernels.count("draws")
     return out[0], out[1]
-
-
-# Launches of the CUDA kernel, incremented once per launch and nowhere else.
-uniform2.launches = 0
 
 
 def _lib():

@@ -291,7 +291,8 @@ def measure_wavefront(runs, dev, res):
     for case, key in zip(cases, ("first_call", "spheres", "triangles",
                                  "rects")):
         prim = case[7]
-        fold, full, pre = smoke.K5_MAIN[prim]
+        fold, full, pre = smoke.k5_main(
+            prim, scene1 if prim == "sphere" else None)
         args, kw = smoke.k5_args(case, dev)
         for p, tag in ((pre, ""), (False, "_no_precomp")):
             if tag and prim != "planar":

@@ -977,11 +977,20 @@ def k5_args(case, dev):
             dict(leaf_size=leaf, prim=prim, time=tm))
 
 
-# The variant of each tree kind that K5's timings, tallies and bounds use:
-# the wavefront's (intersect.py: the sphere fold, the planar full fold on
-# precomputed geometry; rects take no fold).
-K5_MAIN = {"sphere": (True, False, False), "planar": (True, True, True),
-           "rect": (False, False, False)}
+def k5_main(prim, scene=None):
+    """The variant (fold_record, fold_full, precomp) that K5's timings,
+    tallies and bounds use on a ``prim`` tree: the wavefront's on
+    ``scene`` at W x H lanes (``intersect.fold_tree``), or without a scene
+    on one whose only tree it is (``k5_cases``' synthetic trees)."""
+    import types
+
+    from another_raytracer_tpu_torch.ops import intersect
+
+    if scene is None:
+        scene = types.SimpleNamespace(
+            tri_in_bvh=prim == "planar", sph_in_bvh=prim == "sphere",
+            n_bvh_nodes=int(prim == "planar"), sph_fold_safe=True)
+    return intersect.k5_variant(prim, intersect.fold_tree(scene, W * H))
 
 
 def k5_first_call(dev, scene1, cam1):
@@ -1177,7 +1186,8 @@ def plain_k5(nodes, rows, o, d, init_t, init_idx, *, leaf_size, t_min=1e-3,
 def plain_wavefront():
     """Run the wavefront's bounces through K5's, K4's and the draws
     kernel's plain versions (on the card), eagerly: the plain walk reads
-    the card, which no CUDA graph may capture."""
+    the card, which no CUDA graph may capture.  The plain versions count no
+    launch."""
     from another_raytracer_tpu_torch.ops import integrator, rng, shade
     from another_raytracer_tpu_torch.ops.kernels import (bvh_kernel,
                                                          perlin_kernel,
@@ -1289,7 +1299,6 @@ def media_phases(dev, mesh_dir):
     from another_raytracer_tpu_torch.ops import bvh as bvh_ops
     from another_raytracer_tpu_torch.ops import camera as camera_lib
     from another_raytracer_tpu_torch.ops import integrator
-    from another_raytracer_tpu_torch.ops import intersect
     from another_raytracer_tpu_torch.ops import render as render_lib
     from another_raytracer_tpu_torch.ops.kernels import bvh_kernel
 
@@ -1298,7 +1307,7 @@ def media_phases(dev, mesh_dir):
               8: library.final_scene(device=dev),
               9: library.mesh_scene(obj_path=obj, device=dev)}
     mesh = scenes[9][0]
-    tables = mesh.k5_tables("planar", intersect.PRECOMP_TRI)
+    tables = mesh.k5_tables("planar", True)
     mesh_route = bvh_kernel.table_route(tables)
     phase("media_scenes", f"scene 7: {scenes[7][0].n_rects} rects, "
           f"{scenes[7][0].n_media} media; scene 8: {scenes[8][0].n_rects} "
@@ -1407,15 +1416,13 @@ def media_phases(dev, mesh_dir):
     pix, samp = lanes(W, H, dev)
     o, d, tm = camera_lib.generate_rays(cam, pix, samp, W, H, 0,
                                         needs_time=sc8.has_motion)
-    sph_fold = (intersect.FOLD_SPH_RECORD and sc8.n_bvh_nodes == 0
-                and sc8.sph_fold_safe and W * H >= intersect.FOLD_SPH_MIN_B)
     scene8_first = {}
-    for prim, nodes, rows, fold in (
-            ("rect", sc8.rect_bvh_nodes, sc8.rect_bvh_rows, False),
-            ("sphere", sc8.sph_bvh_nodes, sc8.sph_bvh_rows, sph_fold)):
+    for prim, nodes, rows in (
+            ("rect", sc8.rect_bvh_nodes, sc8.rect_bvh_rows),
+            ("sphere", sc8.sph_bvh_nodes, sc8.sph_bvh_rows)):
         case = (f"scene 8's first call, {prim} tree", nodes, rows, list(o),
                 list(d), tm, sc8.bvh_leaf_size, prim)
-        cmp = compare_k5(case, fold, False, False, dev)
+        cmp = compare_k5(case, *k5_main(prim, sc8), dev)
         if not cmp["bit_equal"]:
             raise AssertionError(f"K5 on scene 8's {prim} tree differs from "
                                  f"its plain version: {cmp}")
@@ -1426,8 +1433,9 @@ def media_phases(dev, mesh_dir):
 
     # K5 alone on the mesh's first call: 388,800 camera rays against the
     # planar tree on device memory, the wavefront's variant (the full fold
-    # on precomputed geometry: the width is above FOLD_RECORD_MIN_B).
-    if W * H < intersect.FOLD_RECORD_MIN_B:
+    # on precomputed geometry: the width is above the fold's gate).
+    fold, full, pre = k5_main("planar", mesh)
+    if not fold:
         raise AssertionError("the timed K5 call is below the fold's gate")
     cam = camera_lib.make_camera(aspect_ratio=W / H, device=dev,
                                  **scenes[9][1])
@@ -1436,7 +1444,6 @@ def media_phases(dev, mesh_dir):
     case = ("the mesh's first call", mesh.bvh_packed_nodes,
             mesh.bvh_packed_tris, list(o), list(d), tm, mesh.bvh_leaf_size,
             "planar")
-    fold, full, pre = K5_MAIN["planar"]
     cmp = compare_k5(case, fold, full, pre, dev)
     if not cmp["bit_equal"]:
         raise AssertionError(f"K5 on the mesh differs from its plain "
@@ -2456,7 +2463,7 @@ def main(argv=None) -> int:
         phase("compare_k1", f"{name} {W}x{H} spp4 depth{DEPTH}: {json.dumps(st)}")
 
     # 4. Serving main path: the CLI, exactly as a user runs it.
-    mega_kernel.trace_regenerative_mega.launches = 0
+    reset_counts()
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "cornell.png")
         buf = io.StringIO()
@@ -2464,7 +2471,7 @@ def main(argv=None) -> int:
             rc = cli.main(["--scene", "6", "--width", str(W), "--height", str(H),
                            "--spp", str(SPP), "--max-depth", str(DEPTH),
                            "--mode", "single", "--device", "cuda", "--out", out])
-        k1_launches = mega_kernel.trace_regenerative_mega.launches
+        k1_launches = counts()["K1"]
         cli_out = buf.getvalue()
         img = imageio.load_png(out)
     segs = int(re.search(r"(\d+) segments", cli_out).group(1))
@@ -2574,8 +2581,7 @@ def main(argv=None) -> int:
     state, step = diff.make_train_step(pscene, tcam, target, learning_rate=5e-2,
                                        **tkw)
     err0 = float((state.params["tex_ca"].detach() - true_ca).abs().mean())
-    mega_kernel.trace_regenerative_mega.record_launches = 0
-    mega_diff.replay_backward.launches = 0
+    reset_counts()
     losses = []
     t = time.perf_counter()
     for k in range(TRAIN_STEPS):
@@ -2583,8 +2589,7 @@ def main(argv=None) -> int:
         losses.append(float(loss))
     torch.cuda.synchronize(dev)
     train_s = time.perf_counter() - t
-    k2_launches = mega_kernel.trace_regenerative_mega.record_launches
-    replay_launches = mega_diff.replay_backward.launches
+    k2_launches, replay_launches = counts()["K2"], counts()["replay"]
     err1 = float((state.params["tex_ca"].detach() - true_ca).abs().mean())
     phase("main_path_training", f"{TRAIN_STEPS} adam steps (lr 5e-2) in "
           f"{train_s:.2f} s: loss {losses[0]:.6g} -> {losses[-1]:.6g}; mean "
@@ -2708,6 +2713,7 @@ def main(argv=None) -> int:
     from another_raytracer_tpu_torch.models.scene import SceneBuilder
     from another_raytracer_tpu_torch.ops import bvh as bvh_ops
     from another_raytracer_tpu_torch.ops import shade
+    from another_raytracer_tpu_torch.ops import kernels
     from another_raytracer_tpu_torch.ops.kernels import bvh_kernel, perlin_kernel
     from another_raytracer_tpu_torch.ops.vec3 import V3
 
@@ -2828,12 +2834,13 @@ def main(argv=None) -> int:
         if img.shape != (H, W, 3) or img.mean() < 2.0:
             raise AssertionError(f"scene {sid} image is wrong: {img.mean()}")
         k4_launches += launched["K4"]
-        k4_points += perlin_kernel.perlin_noise.points
+        points = kernels.COUNTS["K4.points"]
+        k4_points += points
         tex_segments[sid] = segs
         phase("main_path_textures", f"scene {sid} {W}x{H} spp{TEX_SPP} "
               f"depth{DEPTH} (CLI): {wall_ms} ms wall, {segs} segments, "
               f"{mrays} Mrays/s; launches {json.dumps(launched)}, "
-              f"{perlin_kernel.perlin_noise.points} noise points; PNG mean "
+              f"{points} noise points; PNG mean "
               f"{img.mean():.2f}")
     # K4's width on the main path: the mean points per launch.
     k4_width = round(k4_points / max(k4_launches, 1))
@@ -2844,7 +2851,7 @@ def main(argv=None) -> int:
     # bare launch, which include it, are printed beside it.  K5: the first
     # call of the scene-1 render, its camera rays (388,800 lanes) against
     # the sphere tree with the sphere fold (the render's first stage is
-    # above FOLD_SPH_MIN_B), then the three comparison cases, each with the
+    # above its gate), then the three comparison cases, each with the
     # wavefront's variant: the counting build's tallies (the walk's slab and
     # leaf row tests, equal to the plain version's counts, active-lane
     # shares and tail share), the bound from the plain version's counts, and
@@ -2852,7 +2859,7 @@ def main(argv=None) -> int:
     from another_raytracer_tpu_torch.ops import intersect
 
     n = W * H
-    if n < intersect.FOLD_SPH_MIN_B:
+    if intersect.fold_tree(scene1, n) != "sphere":
         raise AssertionError("the timed K5 call is below the fold's gate")
     first = k5_first_call(dev, scene1, cam1)
     args, kw = k5_args(first, dev)
@@ -2861,15 +2868,6 @@ def main(argv=None) -> int:
         k5_times[label] = graph_ms(lambda: bvh_kernel.prepare_launch(
             *args, t_min=1e-3, fold_record=fold, tables=scene1.k5_tables(
                 "sphere"), **kw)[0], dev, 20)[0]
-    lib_of = bvh_kernel._lib
-    bvh_kernel._lib = lambda: lib_of("bvh_kernel_fma")
-    try:
-        k5_times["fold, FMA build"] = graph_ms(
-            lambda: bvh_kernel.prepare_launch(*args, t_min=1e-3,
-                                              fold_record=True, **kw)[0],
-            dev, 20)[0]
-    finally:
-        bvh_kernel._lib = lib_of
     k5_ms = k5_times["fold"]
     k5_event_ms = cuda_ms(bare(bvh_kernel.prepare_launch(
         *args, t_min=1e-3, fold_record=True, **kw)[0]), dev, 10)[0]
@@ -2879,7 +2877,7 @@ def main(argv=None) -> int:
     k5_cases_ms = {}
     for case in [first] + cases:
         prim = case[7]
-        fold, full, pre = K5_MAIN[prim]
+        fold, full, pre = k5_main(prim, scene1 if prim == "sphere" else None)
         work = k5_work(case, fold, full, pre, dev)
         _, slabs, tests, hits, b_ms, b_by = work
         tl = k5_tallies(case, fold, full, pre, dev, work=work)

@@ -26,6 +26,7 @@ from another_raytracer_tpu_torch.models import library as tlib
 from another_raytracer_tpu_torch.models import scene as tscene
 from another_raytracer_tpu_torch.ops import adaptive as tadaptive
 from another_raytracer_tpu_torch.ops import camera as tcam
+from another_raytracer_tpu_torch.ops import kernels as tkernels
 from another_raytracer_tpu_torch.ops import render as trender
 from another_raytracer_tpu_torch.ops.kernels import mega_kernel as tmk
 
@@ -111,11 +112,11 @@ def test_adaptive_traced_pixels_equal_the_single_render():
     scene, params = tlib.random_scene(device="cpu")
     cam = tcam.make_camera(aspect_ratio=W / H, device="cpu", **params)
     cfg = dict(width=W, height=H, samples_per_pixel=2, max_depth=DEPTH, seed=4)
-    before = tmk.trace_regenerative_mega.launches
+    before = tkernels.launch_counts()["K1"]
     img, stats = trender.render(scene, cam, RenderConfig(
         mode=RenderMode.ADAPTIVE, **cfg))
     exact, _ = trender.render(scene, cam, RenderConfig(**cfg))
-    assert tmk.trace_regenerative_mega.launches == before  # CPU: plain versions
+    assert tkernels.launch_counts()["K1"] == before  # CPU: plain versions
     corners = np.zeros((H, W), bool)
     corners[0::12, 0::12] = corners[11::12, 0::12] = True
     corners[0::12, 11::12] = corners[11::12, 11::12] = True

@@ -406,10 +406,10 @@ def test_closest_hit_and_record_match_jax(name, jax_reprojects_spheres):
 
 @pytest.mark.parametrize("name", ["sheet", "spheres"])
 def test_folded_record_matches_jax(monkeypatch, name):
-    """closest_hit(want_aux=True) and the record from the kernel-folded
-    values, against the JAX package's folded path (Pallas in interpret
-    mode): the planar full fold on the sheet, the sphere fold on a sphere
-    tree."""
+    """closest_hit(fold=<tree>) and the record from the kernel-folded
+    values, against the JAX package's folded path (its ``want_aux=True``,
+    Pallas in interpret mode): the planar full fold on the sheet, the
+    sphere fold on a sphere tree."""
     make = {"sheet": lambda c: _sheet(c), "spheres": lambda c: _sphere_field(c)}[name]
     jb, cam = make(JBuilder)
     ref = jb.build(bvh=True, pallas_bvh=True, bvh_leaf_size=LEAF,
@@ -419,11 +419,11 @@ def test_folded_record_matches_jax(monkeypatch, name):
     o, d, t = _scene_rays(port, cam, np.random.default_rng(7))
     (jt, jk, ji), jaux = jix.closest_hit(ref, _jv3(o), _jv3(d), jnp.asarray(t),
                                          jnp.zeros((B, 0)), 1e-3, want_aux=True)
+    tree = "planar" if name == "sheet" else "sphere"
     (tt, tk, ti), taux = tix.closest_hit(port, _tv3(o), _tv3(d),
                                          torch.from_numpy(t),
-                                         torch.zeros((B, 0)), 1e-3,
-                                         want_aux=True)
-    assert taux[0] == jaux[0] == ("planar" if name == "sheet" else "sphere")
+                                         torch.zeros((B, 0)), 1e-3, fold=tree)
+    assert taux[0] == jaux[0] == tree
     np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     jrec = jix.make_hit_record(ref, _jv3(o), _jv3(d), jnp.asarray(t), jt, jk,

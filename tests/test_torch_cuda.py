@@ -18,7 +18,8 @@ from another_raytracer_tpu_torch.models import bvh as bvh_lib
 from another_raytracer_tpu_torch.models import library
 from another_raytracer_tpu_torch.models.scene import SceneBuilder
 from another_raytracer_tpu_torch.ops import bvh as bvh_ops
-from another_raytracer_tpu_torch.ops import camera, render, rng, shade, vec3
+from another_raytracer_tpu_torch.ops import (camera, kernels, render, rng,
+                                            shade, vec3)
 from another_raytracer_tpu_torch.ops.kernels import (bvh_kernel, mega_diff,
                                                      mega_kernel, perlin_kernel)
 from another_raytracer_tpu_torch.utils import imageio
@@ -28,6 +29,11 @@ torch.set_num_threads(1)
 W, H = 96, 72
 
 pytestmark = pytest.mark.cuda
+
+
+def _launches(kernel):
+    """``kernel``'s launches so far (``ops.kernels.launch_counts``)."""
+    return kernels.launch_counts()[kernel]
 
 
 @pytest.fixture
@@ -90,16 +96,14 @@ def test_draws_kernel_equals_plain(n, bounce_kind, seed_kind, dev):
     """``rng.uniform2`` on CUDA tensors is one launch of the draws kernel,
     bit-equal to the plain int64 code on the card, for every dim the tensor
     paths draw (camera 0, 2, 4; scatter 0, 2; two media)."""
-    from another_raytracer_tpu_torch.ops.kernels import threefry_kernel
-
     pix, samp, bounces = _draw_counters(dev, n, n)
     for dim in (0, 2, 4, rng.DIM_MEDIUM, rng.DIM_MEDIUM + 2):
         bounce = rng.CAMERA_BOUNCE if bounce_kind == "int" else bounces
         seed = (0x9E3779B9 if seed_kind == "int"
                 else torch.tensor(0x9E3779B9, device=dev))
-        before = threefry_kernel.uniform2.launches
+        before = _launches("draws")
         got = rng.uniform2(seed, pix, samp, bounce, dim)
-        assert threefry_kernel.uniform2.launches == before + 1
+        assert _launches("draws") == before + 1
         want = rng.uniform2_plain(seed, pix, samp, bounce, dim)
         for g, w in zip(got, want):
             assert g.dtype == torch.float32 and g.shape == (n,)
@@ -127,10 +131,8 @@ def test_draws_kernel_reads_the_seed_a_graph_replays(dev):
 def test_draws_kernel_refuses_what_it_does_not_take(dev):
     """int32 or non-contiguous counters, a bounce or a seed of another
     shape or type: the wrapper raises, with no fallback."""
-    from another_raytracer_tpu_torch.ops.kernels import threefry_kernel
-
     pix, samp, bounces = _draw_counters(dev, 256, 2)
-    before = threefry_kernel.uniform2.launches
+    before = _launches("draws")
     with pytest.raises(TypeError):
         rng.uniform2(3, pix.to(torch.int32), samp, 1, 0)
     with pytest.raises(ValueError):
@@ -141,7 +143,7 @@ def test_draws_kernel_refuses_what_it_does_not_take(dev):
         rng.uniform2(3, pix, samp.cpu(), 1, 0)
     with pytest.raises(TypeError):
         rng.uniform2(torch.tensor([3], device=dev), pix, samp, 1, 0)
-    assert threefry_kernel.uniform2.launches == before
+    assert _launches("draws") == before
 
 
 @pytest.mark.parametrize("name,held", [("mesh", 4), ("final_scene", 6)])
@@ -180,10 +182,10 @@ def test_kernel_matches_plain(name, dev):
     samp = torch.zeros(W * H, dtype=torch.int64, device=dev)
     kw = dict(width=W, height=H, sample_stride=1, sample_end=8, spp_cap=8,
               max_depth=50, t_min=1e-3)
-    before = mega_kernel.trace_regenerative_mega.launches
+    before = _launches("K1")
     got, got_segs = mega_kernel.trace_regenerative_mega(scene, cam, pix, samp,
                                                         3, **kw)
-    assert mega_kernel.trace_regenerative_mega.launches == before + 1
+    assert _launches("K1") == before + 1
     want, want_segs = mega_kernel.trace_regenerative_mega_reference(
         scene, cam, pix, samp, 3, **kw)
     got, want = vec3.to_numpy(got), vec3.to_numpy(want)
@@ -252,11 +254,11 @@ def test_sweep_tallies_equal_plain_row_tests(name, fetch, dev):
 
 def test_cli_renders_through_the_kernel(dev, tmp_path):
     out = tmp_path / "cornell.png"
-    before = mega_kernel.trace_regenerative_mega.launches
+    before = _launches("K1")
     assert cli.main(["--scene", "6", "--width", str(W), "--height", str(H),
                      "--spp", "16", "--max-depth", "50", "--mode", "single",
                      "--device", "cuda", "--out", str(out)]) == 0
-    assert mega_kernel.trace_regenerative_mega.launches == before + 1
+    assert _launches("K1") == before + 1
     img = imageio.load_png(out)
     assert img.shape == (H, W, 3) and img.mean() > 5.0
 
@@ -324,9 +326,9 @@ def _record(name, dev, spp=4, depth=8, seed=3):
     samp = torch.zeros(W * H, dtype=torch.int64, device=dev)
     kw = dict(width=W, height=H, sample_stride=1, sample_end=spp, spp_cap=spp,
               max_depth=depth, t_min=1e-3, record_iters=spp * depth)
-    before = mega_kernel.trace_regenerative_mega.record_launches
+    before = _launches("K2")
     got = mega_kernel.trace_regenerative_mega(scene, cam, pix, samp, seed, **kw)
-    assert mega_kernel.trace_regenerative_mega.record_launches == before + 1
+    assert _launches("K2") == before + 1
     want = mega_kernel.trace_regenerative_mega_reference(scene, cam, pix, samp,
                                                          seed, **kw)
     return scene, got, want
@@ -389,9 +391,9 @@ def test_replay_kernel_matches_plain(name, dev):
     args = _replay_args(name, dev)
     if name == "several_checkers":
         assert args[-1].checkers == 3
-    before = mega_diff.replay_backward.launches
+    before = _launches("replay")
     kern = mega_diff.replay_backward(*args)
-    assert mega_diff.replay_backward.launches == before + 1
+    assert _launches("replay") == before + 1
     plain = mega_diff.replay_backward_reference(*args[:7])
     for a, b in zip(kern, plain):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * float(b.abs().max()))
@@ -439,11 +441,11 @@ def test_fused_grads_match_lockstep_on_card(dev):
               t_min=1e-3)
     leaves, _ = diff.split_params(scene)
     target = torch.zeros((W * H, 3), device=dev)
-    k2 = mega_kernel.trace_regenerative_mega.record_launches
-    rp = mega_diff.replay_backward.launches
+    k2 = _launches("K2")
+    rp = _launches("replay")
     loss_f, g_f = diff.render_value_and_grad(leaves, scene, cam, target, 4, **kw)
-    assert mega_kernel.trace_regenerative_mega.record_launches == k2 + 1
-    assert mega_diff.replay_backward.launches == rp + 1
+    assert _launches("K2") == k2 + 1
+    assert _launches("replay") == rp + 1
     saved = mega_diff.FUSED_DIFF
     mega_diff.FUSED_DIFF = False
     try:
@@ -451,7 +453,7 @@ def test_fused_grads_match_lockstep_on_card(dev):
                                                  **kw)
     finally:
         mega_diff.FUSED_DIFF = saved
-    assert mega_kernel.trace_regenerative_mega.record_launches == k2 + 1
+    assert _launches("K2") == k2 + 1
     # Ulp-level differences between the two routes flip a few paths.
     assert abs(float(loss_f) - float(loss_l)) <= 1e-3 * float(loss_l)
     for k in g_l:
@@ -541,9 +543,9 @@ def test_bvh_kernel_matches_plain(prim, fold, full, pre, route, dev):
                                              k: v for k, v in kw.items()
                                              if k != "time"}))
     if route == "shared":
-        before = bvh_kernel.bvh_closest_hit.launches.total()
+        before = _launches("K5")
         got = _flat(bvh_kernel.bvh_closest_hit(*args, **kw))
-        assert bvh_kernel.bvh_closest_hit.launches.total() == before + 1
+        assert _launches("K5") == before + 1
         assert all(torch.equal(a, b) for a, b in zip(got, want))
     got = _launch_flat(args, kw, t_min=1e-3, route=route)
     assert len(got) == len(want)
@@ -560,9 +562,9 @@ def test_bvh_kernel_at_edge_widths(n, dev):
     want = _flat(bvh_ops.traverse_packed(
         *args[:4], kw["time"], 1e-3, *args[4:],
         **{k: v for k, v in kw.items() if k != "time"}))
-    before = bvh_kernel.bvh_closest_hit.launches.total()
+    before = _launches("K5")
     got = _flat(bvh_kernel.bvh_closest_hit(*args, **kw))
-    assert bvh_kernel.bvh_closest_hit.launches.total() == before + (n > 0)
+    assert _launches("K5") == before + (n > 0)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     for route in ("shared", "global"):
         got = _launch_flat(args, kw, t_min=1e-3, route=route, block=64)
@@ -602,25 +604,22 @@ def test_perlin_kernel_matches_plain(q, n, dev):
                         g.uniform(-500, 500, (3, n // 2))], 1).astype(np.float32)
     pv = vec3.V3(*(torch.from_numpy(c).to(dev) for c in p))
     ids = torch.from_numpy(g.integers(0, q, n)).to(dev)
-    before = perlin_kernel.perlin_noise.launches
+    before = _launches("K4")
     got = perlin_kernel.perlin_noise(scene, ids, pv)
-    assert perlin_kernel.perlin_noise.launches == before + (n > 0)
+    assert _launches("K4") == before + (n > 0)
     assert torch.equal(got, shade.perlin_noise(scene, ids, pv))
 
 
 def test_cli_renders_bvh_and_noise_scenes_through_the_kernels(dev, tmp_path):
     # Scene 1 takes the megakernel's accel mode (K3), scenes 3 and 5 the
     # wavefront with the Perlin kernel (K4).
-    for scene_id, counter, attr in (
-            ("1", mega_kernel.trace_regenerative_mega, "accel_launches"),
-            ("3", perlin_kernel.perlin_noise, "launches"),
-            ("5", perlin_kernel.perlin_noise, "launches")):
+    for scene_id, kernel in (("1", "K3"), ("3", "K4"), ("5", "K4")):
         out = tmp_path / f"scene{scene_id}.png"
-        before = getattr(counter, attr)
+        before = _launches(kernel)
         assert cli.main(["--scene", scene_id, "--width", str(W), "--height",
                          str(H), "--spp", "4", "--max-depth", "20", "--mode",
                          "single", "--device", "cuda", "--out", str(out)]) == 0
-        assert getattr(counter, attr) > before
+        assert _launches(kernel) > before
         img = imageio.load_png(out)
         assert img.shape == (H, W, 3) and img.mean() > 5.0
 
@@ -652,14 +651,12 @@ def _accel(name, dev, record_iters=0, spp=4, depth=50):
     samp = torch.zeros(W * H, dtype=torch.int64, device=dev)
     kw = dict(width=W, height=H, sample_stride=1, sample_end=spp, spp_cap=spp,
               max_depth=depth, t_min=1e-3, record_iters=record_iters)
-    attr = (("accel_record_" if record_iters else "accel_")
-            + ("global_" if WALKS[name] == "global" else "") + "launches")
-    counters = dict(vars(mega_kernel.trace_regenerative_mega))
+    instance = ("K3" + ("_record" if record_iters else "")
+                + ("_global" if WALKS[name] == "global" else ""))
+    before = kernels.COUNTS.copy()
     got = mega_kernel.trace_regenerative_mega(scene, cam, pix, samp, 3, **kw)
-    # One launch, counted by its own instance's counter and no other.
-    after = dict(vars(mega_kernel.trace_regenerative_mega))
-    assert {k: after[k] - counters[k] for k in after
-            if after[k] != counters[k]} == {attr: 1}
+    # One launch, counted by its own instance's name and no other.
+    assert kernels.COUNTS - before == {instance: 1}
     want = mega_kernel.trace_regenerative_mega_reference(scene, cam, pix, samp,
                                                          3, **kw)
     return scene, got, want
@@ -729,9 +726,9 @@ def test_replay_kernel_large_t_matches_plain(dev):
     # The random scene's 485 textures take the per-warp tables; equal to
     # the plain version to float rounding (another order of the sums).
     args = _large_t_replay_args(dev)
-    before = mega_diff.replay_backward.launches
+    before = _launches("replay")
     kern = mega_diff.replay_backward(*args)
-    assert mega_diff.replay_backward.launches == before + 1
+    assert _launches("replay") == before + 1
     plain = mega_diff.replay_backward_reference(*args[:7])
     for a, b in zip(kern, plain):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * float(b.abs().max()))
@@ -761,13 +758,13 @@ def test_fused_grads_on_the_random_scene(dev):
               t_min=1e-3)
     leaves, _ = diff.split_params(scene, ("tex_ca", "tex_cb", "background"))
     target = torch.zeros((W * H, 3), device=dev)
-    k3 = mega_kernel.trace_regenerative_mega.accel_record_launches
+    k3 = _launches("K3_record")
     saved = mega_diff.FUSED_DIFF
     mega_diff.FUSED_DIFF = True
     try:
         loss_f, g_f = diff.render_value_and_grad(leaves, scene, cam, target, 4,
                                                  **kw)
-        assert mega_kernel.trace_regenerative_mega.accel_record_launches == k3 + 1
+        assert _launches("K3_record") == k3 + 1
         mega_diff.FUSED_DIFF = False
         loss_l, g_l = diff.render_value_and_grad(leaves, scene, cam, target, 4,
                                                  **kw)
@@ -783,11 +780,11 @@ def test_fused_grads_on_the_random_scene(dev):
 
 def test_cli_renders_scene1_adaptive(dev, tmp_path):
     out = tmp_path / "scene1.png"
-    before = mega_kernel.trace_regenerative_mega.accel_launches
+    before = _launches("K3")
     assert cli.main(["--scene", "1", "--width", "96", "--height", "72",
                      "--spp", "4", "--max-depth", "20", "--mode", "adaptive",
                      "--device", "cuda", "--out", str(out)]) == 0
-    assert mega_kernel.trace_regenerative_mega.accel_launches > before
+    assert _launches("K3") > before
     img = imageio.load_png(out)
     assert img.shape == (72, 96, 3) and img.mean() > 5.0
 
@@ -821,10 +818,9 @@ def test_bvh_kernel_on_a_mesh_takes_device_memory(capsule_obj, dev):
                   fold_record=fold, fold_full=full, precomp=pre)
         tables = scene.k5_tables("planar", pre)
         assert bvh_kernel.table_route(tables) == "global"
-        before = bvh_kernel.bvh_closest_hit.launches.copy()
+        before = kernels.COUNTS.copy()
         got = _flat(bvh_kernel.bvh_closest_hit(*args, tables=tables, **kw))
-        after = bvh_kernel.bvh_closest_hit.launches
-        assert after - before == {"planar/global": 1}
+        assert kernels.COUNTS - before == {"K5/planar/global": 1}
         want = _flat(bvh_ops.traverse_packed(
             *args[:4], tm, 1e-3, *args[4:],
             **{k: v for k, v in kw.items() if k != "time"}))
@@ -873,7 +869,7 @@ def test_media_gradient_is_finite_on_the_card(dev):
     scene, params = library.cornell_smoke(device=dev)
     cam = camera.make_camera(aspect_ratio=W / H, device=dev, **params)
     target = torch.full((W * H, 3), 0.2, device=dev)
-    before = mega_diff.replay_backward.launches
+    before = _launches("replay")
     loss, grads = diff.render_value_and_grad(
         {"med_neg_inv_density": scene.med_neg_inv_density}, scene, cam,
         target, 1, width=W, height=H, spp=2, samples_per_pass=1, max_depth=6,
@@ -881,7 +877,7 @@ def test_media_gradient_is_finite_on_the_card(dev):
     g = grads["med_neg_inv_density"]
     assert g.device.type == "cuda" and bool(torch.isfinite(loss))
     assert bool(torch.isfinite(g).all())
-    assert mega_diff.replay_backward.launches == before
+    assert _launches("replay") == before
     b = SceneBuilder(background=(0.0, 0.0, 0.0), seed=12)
     b.xz_rect(-30, 30, -30, 30, 6, b.diffuse_light(color=(2, 2, 2)))
     b.constant_medium_box((-3, -2, -6), (3, 2, -2), 0.4,
@@ -947,7 +943,7 @@ def test_wavefront_graphs_equal_eager(name, capsule_obj, dev, monkeypatch):
                  for s in profiling.spans() if s.name == "wavefront.iteration"]
         profiling.clear_spans()
         counts = dict(chip_smoke.counts(),
-                      K4_points=perlin_kernel.perlin_noise.points)
+                      K4_points=kernels.COUNTS["K4.points"])
         return torch.stack(tuple(acc)), int(segs), counts, modes
 
     with monkeypatch.context() as m:
@@ -1055,11 +1051,11 @@ def test_stripes_over_one_card_equal_one_launch(dev):
     kw = dict(width=W, height=H, spp=4, samples_per_pass=1, max_depth=8,
               t_min=1e-3)
     ref, ref_segs = render.render_radiance(scene, cam, 2, **kw)
-    before = mega_kernel.trace_regenerative_mega.launches
+    before = _launches("K1")
     part = sharding.hybrid_partition(4, 1, devices=[dev] * 4)
     acc, segs = sharding.render_radiance_sharded(scene, cam, 2, partition=part,
                                                  **kw)
-    assert mega_kernel.trace_regenerative_mega.launches == before + 4
+    assert _launches("K1") == before + 4
     assert all(torch.equal(a, b) for a, b in zip(acc, ref))
     assert int(segs) == int(ref_segs)
     out, seg = render.radiance_batch(
@@ -1082,7 +1078,6 @@ def test_cornell_demo_matches_plain_versions(dev):
     1.8e-4 for a gradient and 2.7e-4 for the change); a kernel that is
     wrong anywhere shows at O(1)."""
     from another_raytracer_tpu_torch import train_demo
-    from another_raytracer_tpu_torch.ops import kernels
 
     def worst(got, want):
         return max(float((got[k].detach().cpu() - want[k]).abs().max())

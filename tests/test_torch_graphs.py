@@ -11,7 +11,8 @@ on the card.  The card's own graphs are tested in ``test_torch_cuda.py``.
 * A key's first iteration runs eagerly, its second captures (graphs A and
   B), every later one replays; a stage that ends after one iteration never
   captures.  The cache keeps ``GRAPH_CACHE_SIZE`` stages.
-* A replay adds the launches its graph holds to the kernels' counts.
+* A replay adds the launches its graph holds to the kernels' counts, under
+  any name; a stage's key holds the tree K5 folds at its width.
 """
 
 import collections
@@ -20,7 +21,8 @@ import pytest
 import torch
 
 from another_raytracer_tpu_torch.models import library
-from another_raytracer_tpu_torch.ops import camera, integrator, render
+from another_raytracer_tpu_torch.ops import (camera, integrator, intersect,
+                                            kernels, render)
 from another_raytracer_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
@@ -177,58 +179,97 @@ def test_cache_keeps_the_newest_stages(graphs, monkeypatch):
     assert first_mode(64) == "eager"
 
 
+def _capture_runs_python(fn):
+    """A graph's capture: it runs the Python (whose wrappers count), not the
+    card; its replay gives what the body returned."""
+    out = fn()
+    return lambda: out
+
+
 def test_replay_adds_the_graphs_launches(monkeypatch):
     """At capture the kernels' wrappers count launches that do not run; the
-    counts return to what they were, and each replay adds them."""
-    from another_raytracer_tpu_torch.ops.kernels import (bvh_kernel,
-                                                         perlin_kernel)
-
-    k5, k4 = bvh_kernel.bvh_closest_hit, perlin_kernel.perlin_noise
-    monkeypatch.setattr(k5, "launches",
-                        collections.Counter({"rect/shared": 3}))
-    monkeypatch.setattr(k4, "launches", 1)
-    monkeypatch.setattr(k4, "points", 10)
+    registry returns to what it was, and each replay adds them."""
+    monkeypatch.setattr(kernels, "COUNTS", collections.Counter(
+        {"K5/rect/shared": 3, "K4": 1, "K4.points": 10}))
 
     def body():  # what the wrappers count when the body runs
-        k5.launches["planar/global"] += 1
-        k5.launches["rect/shared"] += 2
-        k4.launches += 1
-        k4.points += 100
+        kernels.count("K5/planar/global")
+        kernels.count("K5/rect/shared", 2)
+        kernels.count("K4")
+        kernels.count("K4.points", 100)
         return "out"
 
     replays = []
 
-    def capture(fn):  # a graph's capture runs the Python, not the card
+    def capture(fn):
         fn()
         return lambda: replays.append(1) or "out"
 
     replay = integrator._counted(capture, body)
-    assert k5.launches == {"rect/shared": 3}
-    assert (k4.launches, k4.points) == (1, 10)
+    assert kernels.COUNTS == {"K5/rect/shared": 3, "K4": 1, "K4.points": 10}
     assert replay() == replay() == "out" and len(replays) == 2
-    assert k5.launches == {"rect/shared": 7, "planar/global": 2}
-    assert (k4.launches, k4.points) == (3, 210)
+    assert kernels.COUNTS == {"K5/rect/shared": 7, "K5/planar/global": 2,
+                              "K4": 3, "K4.points": 210}
+    counts = kernels.launch_counts()
+    assert counts["K5_by_tree"] == {"rect/shared": 7, "planar/global": 2}
+    assert (counts["K5"], counts["K4"]) == (9, 3)
 
 
 def test_replay_adds_the_graphs_draw_launches(monkeypatch):
     """The draws kernel's launches a graph holds: restored after the capture,
-    added by each replay, and kept on the replay as ``held``."""
-    from another_raytracer_tpu_torch.ops.kernels import threefry_kernel
-
-    draws = threefry_kernel.uniform2
-    monkeypatch.setattr(draws, "launches", 5)
+    added by each replay, and kept on the replay as ``held``, keyed as
+    ``launch_counts`` keys them."""
+    monkeypatch.setattr(kernels, "COUNTS", collections.Counter({"draws": 5}))
 
     def body():
-        draws.launches += 4
+        kernels.count("draws", 4)
         return "out"
 
-    def capture(fn):
-        fn()
-        return lambda: "out"
+    replay = integrator._counted(_capture_runs_python, body)
+    assert kernels.COUNTS == {"draws": 5}
+    assert replay.held == {**kernels.launch_counts(collections.Counter()),
+                           "draws": 4}
+    replay()
+    replay()
+    assert kernels.launch_counts()["draws"] == 13
 
-    replay = integrator._counted(capture, body)
-    assert draws.launches == 5
-    assert replay.held == {"K5": 0, "K4": 0, "draws": 4}
+
+def test_replay_adds_a_kernel_the_wavefront_never_names(monkeypatch):
+    """A kernel that the loop body counts under a name nothing else knows:
+    restored after the capture, re-added by each replay, in ``held`` and in
+    ``launch_counts`` beside the others."""
+    monkeypatch.setattr(kernels, "COUNTS", collections.Counter({"K1": 2}))
+
+    def body():
+        kernels.count("W9_new")
+        kernels.count("W9_new", 2)
+        return "out"
+
+    replay = integrator._counted(_capture_runs_python, body)
+    assert kernels.COUNTS == {"K1": 2}
+    assert "W9_new" not in kernels.launch_counts()
+    assert replay.held["W9_new"] == 3 and replay.held["K1"] == 0
     replay()
     replay()
-    assert draws.launches == 13
+    counts = kernels.launch_counts()
+    assert (counts["W9_new"], counts["K1"]) == (6, 2)
+
+
+def test_stage_key_holds_the_fold(monkeypatch):
+    """A stage is keyed by the tree K5 folds at its width: a gate moved
+    across the width gives the stage a new key (its graphs would hold the
+    other variant), a gate moved on the same side keeps it."""
+    monkeypatch.setitem(integrator.GRAPHS, "cpu", FakeGraphs())
+    monkeypatch.setattr(integrator, "_stages", collections.OrderedDict())
+    scene, cam = _scene("random_scene")
+    parts_args = (scene, cam, W, H, 1, 4, 8, 1e-3)
+    dev = torch.device("cpu")
+    width = 4096
+    monkeypatch.setattr(intersect, "FOLD_SPH_MIN_B", width)
+    folded = integrator._stage(dev, width, parts_args)
+    monkeypatch.setattr(intersect, "FOLD_SPH_MIN_B", 1)
+    assert integrator._stage(dev, width, parts_args) is folded
+    monkeypatch.setattr(intersect, "FOLD_SPH_MIN_B", width + 1)
+    unfolded = integrator._stage(dev, width, parts_args)
+    assert unfolded is not folded
+    assert [k[-1] for k in integrator._stages] == ["sphere", None]

@@ -75,10 +75,10 @@ def _counters(n, seed):
 def test_uniform2_on_cpu_runs_the_plain_code(bounce_kind, seed_kind):
     """CPU tensors take ``uniform2_plain``: the same bits, and the draws
     kernel's launch count does not move."""
-    from another_raytracer_tpu_torch.ops.kernels import threefry_kernel
+    from another_raytracer_tpu_torch.ops import kernels
 
     pix, samp, bounces = _counters(3000, 4)
-    before = threefry_kernel.uniform2.launches
+    before = kernels.launch_counts()["draws"]
     for dim in (0, 2, 4, trng.DIM_MEDIUM, trng.DIM_MEDIUM + 2):
         bounce = trng.CAMERA_BOUNCE if bounce_kind == "int" else bounces
         seed = 0xDEADBEEF if seed_kind == "int" else torch.tensor(0xDEADBEEF)
@@ -90,22 +90,23 @@ def test_uniform2_on_cpu_runs_the_plain_code(bounce_kind, seed_kind):
             assert g.dtype == torch.float32 and g.device.type == "cpu"
             assert torch.equal(g, w)
             assert torch.equal(g, (x >> 8).to(torch.float32) * 2.0**-24)
-    assert threefry_kernel.uniform2.launches == before
+    assert kernels.launch_counts()["draws"] == before
 
 
 @pytest.mark.parametrize("case", ["cpu", "int32", "list"])
 def test_draws_kernel_takes_cuda_counters_only(case):
     """The draws kernel's wrapper raises, before it builds anything, on
     counters it does not take (off the card every tensor is one of them)."""
+    from another_raytracer_tpu_torch.ops import kernels
     from another_raytracer_tpu_torch.ops.kernels import threefry_kernel
 
     pix, samp, _ = _counters(16, 5)
     bad = {"cpu": pix, "int32": pix.to(torch.int32), "list": pix.tolist()}[case]
     err = TypeError if case in ("int32", "list") else ValueError
-    before = threefry_kernel.uniform2.launches
+    before = kernels.launch_counts()["draws"]
     with pytest.raises(err):
         threefry_kernel.uniform2(7, bad, samp, 3, 0)
-    assert threefry_kernel.uniform2.launches == before
+    assert kernels.launch_counts()["draws"] == before
 
 
 def test_trace_scene_names_the_draws_kernel():

@@ -128,7 +128,7 @@ def _hits(scene, o, d, time, folded):
     with torch.no_grad():
         if folded:
             (t, kind, idx), aux = intersect.closest_hit(
-                scene, o, d, time, u_media, T_MIN, want_aux=True)
+                scene, o, d, time, u_media, T_MIN, fold="sphere")
             assert aux is not None and aux[0] == "sphere"
         else:
             t, kind, idx = intersect.closest_hit(scene, o, d, time, u_media,
@@ -268,7 +268,7 @@ def _counted_render(scene, cam, **kw):
 
     def closest_hit(*a, **k):
         out = real_hit(*a, **k)
-        kinds.append((out[0] if k.get("want_aux") else out)[1])
+        kinds.append((out[0] if k.get("fold") else out)[1])
         return out
 
     def advance(scene_, o, d, time, throughput, alive, *a, **k):
