@@ -3,9 +3,10 @@
 //
 // Replaces: another_raytracer_tpu/ops/pallas/perlin_kernel.py::perlin_noise_tpu
 // (body _kernel), reached from ops/shade.py::texture_value for every noise
-// texture on the forward path (and, through perlin_noise_tpu_nograd, on
-// differentiable renders whose trainable set cannot reach the noise
-// argument).  Same function (perlin.h:29-96): the lattice hash
+// texture of the eager forward step (and, through perlin_noise_tpu_nograd,
+// on differentiable renders whose trainable set cannot reach the noise
+// argument); the wavefront's steps on the card evaluate the same device
+// code (perlin_device.cuh) inside the bounce kernel.  Same function (perlin.h:29-96): the lattice hash
 // perm_x[i & 255] ^ perm_y[j & 255] ^ perm_z[k & 255] over the 8 corners,
 // the dot of each corner's ranvec gradient with the offset to the point,
 // and the Hermite-smoothed trilinear blend.  Unlike the TPU kernel, which
@@ -26,6 +27,8 @@
 //   tables once; a thread reads its first point before the stage, so that
 //   load overlaps the copy.
 // * One table set needs no id array: pid may be null (table 0).
+// * A point's noise is perlin_device.cuh's perlin_at, which the bounce
+//   kernel calls too.
 //
 // Numerics: built with -fmad=false (ops/kernels/_build.py), so each
 // operation rounds as in the plain version (ops/shade.py::perlin_noise),
@@ -43,7 +46,8 @@
 
 namespace {
 
-constexpr int PERLIN_N = 256;
+#include "perlin_device.cuh"
+
 // Float4s per packed table set: 256 ranvec, then 3 x 256 16-bit words.
 constexpr int TABLE_F4 = PERLIN_N + 3 * PERLIN_N * 2 / 16;
 constexpr int MAX_SMEM = 232448;
@@ -76,40 +80,7 @@ perlin_kernel(const float* __restrict__ px, const float* __restrict__ py,
       z = pz[i];
     }
     const int q = pid == nullptr ? 0 : min(max(pid[i], 0), n_tables - 1);
-    const float4* ran = s_tab + q * TABLE_F4;
-    const uint16_t* words = reinterpret_cast<const uint16_t*>(ran + PERLIN_N);
-    const float fx = floorf(x), fy = floorf(y), fz = floorf(z);
-    const float u = x - fx, v = y - fy, w = z - fz;
-    const int ii = (int)fx, jj = (int)fy, kk = (int)fz;
-    // Hermite smoothing u*u*(3-2u) (perlin.h:80-82).
-    const float uu = u * u * (3.0f - 2.0f * u);
-    const float vv = v * v * (3.0f - 2.0f * v);
-    const float ww = w * w * (3.0f - 2.0f * w);
-    // Each word holds an axis's entries at the lattice index and the next.
-    const unsigned wx = words[ii & 255];
-    const unsigned wy = words[PERLIN_N + (jj & 255)];
-    const unsigned wz = words[2 * PERLIN_N + (kk & 255)];
-
-    float accum = 0.0f;
-#pragma unroll
-    for (int di = 0; di < 2; ++di) {
-#pragma unroll
-      for (int dj = 0; dj < 2; ++dj) {
-#pragma unroll
-        for (int dk = 0; dk < 2; ++dk) {
-          const unsigned g =
-              ((wx >> (8 * di)) ^ (wy >> (8 * dj)) ^ (wz >> (8 * dk))) & 255u;
-          const float4 gr = ran[g];
-          const float wgt = (di ? uu : 1.0f - uu) * (dj ? vv : 1.0f - vv) *
-                            (dk ? ww : 1.0f - ww);
-          const float dot = gr.x * (di ? u - 1.0f : u) +
-                            gr.y * (dj ? v - 1.0f : v) +
-                            gr.z * (dk ? w - 1.0f : w);
-          accum = accum + wgt * dot;
-        }
-      }
-    }
-    out[i] = accum;
+    out[i] = perlin_at(s_tab + q * TABLE_F4, x, y, z);
   }
 }
 

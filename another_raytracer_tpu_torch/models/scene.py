@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 from another_raytracer_tpu_torch.models import bvh as bvh_lib
-from another_raytracer_tpu_torch.ops.kernels import bvh_kernel, perlin_kernel
+from another_raytracer_tpu_torch.ops.kernels import (bounce_kernel, bvh_kernel,
+                                                     perlin_kernel)
 
 # --- kind constants --------------------------------------------------------
 
@@ -201,10 +202,10 @@ class SceneData:
         return new
 
     # Kernel tables packed once per scene, at their first use: K5's compact
-    # BVH tables, K4's Perlin tables and the replay's tex_cb row map.  They
-    # are no dataclass fields (the fields are the JAX package's); each is
-    # kept with the tensors it was packed from and packed again only where
-    # those are no longer the scene's.
+    # BVH tables, K4's Perlin tables, the bounce kernel's tables and the
+    # replay's tex_cb row map.  They are no dataclass fields (the fields are
+    # the JAX package's); each is kept with the tensors it was packed from
+    # and packed again only where those are no longer the scene's.
     def _packed_table(self, key, sources, pack):
         cache = self.__dict__.setdefault("_packed", {})
         hit = cache.get(key)
@@ -227,6 +228,14 @@ class SceneData:
         """``perlin_kernel.pack_tables`` of the scene's Perlin tables."""
         return self._packed_table(("k4",), (self.per_perm, self.per_ranvec),
                                   perlin_kernel.pack_tables)
+
+    def bounce_tables(self):
+        """``bounce_kernel.pack_tables`` of the scene: (floats, ints,
+        layout)."""
+        sources = tuple(getattr(self, k) for k in bounce_kernel.SOURCES)
+        return self._packed_table(
+            ("bounce",), sources,
+            lambda *_: bounce_kernel.pack_tables(self))
 
     def replay_slots(self):
         """``mega_diff.pack_replay_slots`` of the scene's texture kinds."""

@@ -20,11 +20,13 @@ backward.
 megakernel does not take (BVH scenes, noise / image / barycentric textures,
 triangles, media): each lane re-arms with its next sample the moment its path
 ends, and the alive lanes are compacted into narrower buffers as the tail
-thins out.  Its bounces run the kernels K5 (BVH closest hit) and K4 (Perlin
-noise) on CUDA tensors.  On the card it replays each stage's loop body from
-CUDA graphs (``_Stage``; the host's ~1,200 small ops an iteration become two
-graph launches), captured once a key per stage width, the same ops and
-bits as the eager body the CPU runs.
+thins out.  On CUDA tensors each step is K5 (BVH closest hit) over the
+scene's trees and one launch of the bounce kernel for everything after
+(``_kernel_step_parts``); the CPU runs the eager step (``_eager_step_parts``,
+``_advance``'s tensor ops), whose bits the kernel's equal.  On the card it
+replays each stage's loop body from CUDA graphs (``_Stage``; the host's
+launches an iteration become two graph launches), captured once a key per
+stage width.
 
 Left out on purpose (ROADMAP M21): the XLA schedule arguments ``remat`` and
 ``unroll``, the dead-lane parking ``_park_dead`` / ``DEAD_PARK`` and the
@@ -164,20 +166,56 @@ def _regen_step_parts(scene, cam, pix_ids, seed, width, height,
                       sphere_hits=None):
     """(cam_rays, step, rearm) of the regenerating wavefront, bound to one
     lane -> pixel assignment: the loop body split at its one read of the
-    card.  ``step`` maps the 10-tuple carry (o, d, time, throughput, total,
-    path_rad, alive, sample, bounce, segments) to (the carry with the ended
-    lanes' next samples and the re-armed lanes alive, ``regen``: the lanes
-    to re-arm), adding its sphere winners into ``sphere_hits`` where given
-    (``_advance``); ``rearm(carry, regen)`` gives those lanes their next
-    sample's primary ray.  ``seed`` is an int or a 0-d int64 tensor (the
-    same bits)."""
+    card.  ``step(carry, into=None)`` maps the 10-tuple carry (o, d, time,
+    throughput, total, path_rad, alive, sample, bounce, segments) to (the
+    carry with the ended lanes' next samples and the re-armed lanes alive,
+    ``regen``: the lanes to re-arm, ``any_regen``: a 0-d tensor, true where
+    one does), adding its sphere winners into ``sphere_hits`` where given;
+    ``into``, where given, is a carry of buffers that the step may write
+    into (the stage's, in place).  ``rearm(carry, regen)`` gives those lanes
+    their next sample's primary ray.  ``seed`` is an int or a 0-d int64
+    tensor (the same bits); ``step.kind`` names the step's path.
+
+    CUDA lanes step through K5 and the bounce kernel
+    (``_kernel_step_parts``); every other device runs the eager step
+    (``_eager_step_parts``), the kernel's plain version."""
+    parts = _kernel_step_parts if pix_ids.is_cuda else _eager_step_parts
+    return parts(scene, cam, pix_ids, seed, width, height, sample_stride,
+                 limit, max_depth, t_min, sphere_hits)
+
+
+def _cam_rearm(scene, cam, pix_ids, seed, width, height):
+    """(cam_rays, rearm) of ``_regen_step_parts``."""
     needs_time = scene.has_motion
 
     def cam_rays(sample_ids):
         return camera_lib.generate_rays(cam, pix_ids, sample_ids, width,
                                         height, seed, needs_time=needs_time)
 
-    def step(state):
+    def rearm(state, regen):
+        (o, d, time, throughput, total, path_rad, alive, sample, bounce,
+         segments) = state
+        o2, d2, time2 = cam_rays(sample)
+        o = vec3.where(regen, o2, o)
+        d = vec3.where(regen, d2, d)
+        time = torch.where(regen, time2, time)
+        one = torch.ones_like(throughput.x)
+        throughput = vec3.where(regen, V3(one, one, one), throughput)
+        bounce = torch.where(regen, 0, bounce)
+        return (o, d, time, throughput, total, path_rad, alive, sample, bounce,
+                segments)
+
+    return cam_rays, rearm
+
+
+def _eager_step_parts(scene, cam, pix_ids, seed, width, height,
+                      sample_stride, limit, max_depth, t_min,
+                      sphere_hits=None):
+    """``_regen_step_parts`` as tensor ops (``_advance``), on any device:
+    the bounce kernel's plain version."""
+    cam_rays, rearm = _cam_rearm(scene, cam, pix_ids, seed, width, height)
+
+    def step(state, into=None):
         (o, d, time, throughput, total, path_rad, alive, sample, bounce,
          segments) = state
         delta, hit_p, new_dir, attenuation, scattered = _advance(
@@ -208,21 +246,47 @@ def _regen_step_parts(scene, cam, pix_ids, seed, width, height,
         alive_next = alive_next | regen
         segments = segments + regen.sum()
         return (o, d, time, throughput, total, path_rad, alive_next,
-                next_sample, bounce, segments), regen
+                next_sample, bounce, segments), regen, regen.any()
+
+    step.kind = "eager"
+    return cam_rays, step, rearm
+
+
+def _kernel_step_parts(scene, cam, pix_ids, seed, width, height,
+                       sample_stride, limit, max_depth, t_min,
+                       sphere_hits=None):
+    """``_regen_step_parts`` on CUDA lanes: K5 over the scene's trees
+    (``intersect.tree_winners``), then one launch of the bounce kernel
+    (``ops/kernels/bounce_kernel.py``) for everything after, which writes
+    the carry into ``into`` where given.  The re-arm mask, the re-arm flag
+    and K5's first inputs are buffers made here, outside any capture; the
+    re-arm clears the flag."""
+    from another_raytracer_tpu_torch.ops.kernels import bounce_kernel
+
+    cam_rays, cam_rearm = _cam_rearm(scene, cam, pix_ids, seed, width, height)
+    B, dev = pix_ids.shape[0], pix_ids.device
+    fold = intersect.fold_tree(scene, B)
+    regen = torch.empty(B, dtype=torch.bool, device=dev)
+    any_regen = torch.zeros((), dtype=torch.int32, device=dev)
+    init = (torch.full((B,), intersect.BIG, dtype=torch.float32, device=dev),
+            torch.full((B,), -1, dtype=torch.int32, device=dev))
+
+    def step(state, into=None):
+        o, d, time = state[:3]
+        winners = intersect.tree_winners(scene, o, d, time, t_min, fold, init)
+        new = bounce_kernel.launch(
+            scene, state, pix_ids, seed, winners, fold=fold,
+            sample_stride=sample_stride, limit=limit, max_depth=max_depth,
+            t_min=t_min, regen=regen, any_regen=any_regen,
+            sphere_hits=sphere_hits, into=into)
+        return new, regen, any_regen
 
     def rearm(state, regen):
-        (o, d, time, throughput, total, path_rad, alive, sample, bounce,
-         segments) = state
-        o2, d2, time2 = cam_rays(sample)
-        o = vec3.where(regen, o2, o)
-        d = vec3.where(regen, d2, d)
-        time = torch.where(regen, time2, time)
-        one = torch.ones_like(throughput.x)
-        throughput = vec3.where(regen, V3(one, one, one), throughput)
-        bounce = torch.where(regen, 0, bounce)
-        return (o, d, time, throughput, total, path_rad, alive, sample, bounce,
-                segments)
+        state = cam_rearm(state, regen)
+        any_regen.zero_()
+        return state
 
+    step.kind = "kernel"
     return cam_rays, step, rearm
 
 
@@ -233,19 +297,21 @@ def _regen_loop_parts(scene, cam, pix_ids, seed, width, height,
     lane -> pixel assignment; a compaction stage rebinds to the gathered
     survivors' pixels.  ``body`` maps the 10-tuple carry to the next: the
     ``step`` of ``_regen_step_parts``, the host's read of whether any lane
-    re-arms, and the ``rearm`` where one does."""
+    re-arms, and the ``rearm`` where one does; ``body.step`` is the step's
+    ``kind``."""
     cam_rays, step, rearm = _regen_step_parts(
         scene, cam, pix_ids, seed, width, height, sample_stride, limit,
         max_depth, t_min, sphere_hits)
 
     def body(state):
-        state, regen = step(state)
+        state, regen, any_regen = step(state)
         with profiling.span("wavefront.wait", what="regen"):
-            any_regen = bool(regen.any())
+            any_regen = bool(any_regen)
         if any_regen:
             state = rearm(state, regen)
         return state
 
+    body.step = step.kind
     return cam_rays, body
 
 
@@ -397,8 +463,9 @@ class _Stage:
     """One compaction stage's graphs and the buffers they read and write,
     for one key (``_stage``).  The carry, the stage's pixels and the seed
     live in the buffers; graph A (``step``) is the loop body up to its read
-    of the card, ending in ``regen.any()``, and graph B (``rearm``) the
-    re-arm, each writing the carry back in place.  On a scene with spheres
+    of the card, the re-arm flag, and graph B (``rearm``) the re-arm, each
+    writing the carry back in place (the bounce kernel writes it there
+    itself).  On a scene with spheres
     graph A also adds its sphere winners into ``hits``, which ``load``
     zeroes.  The key's first iteration runs eagerly (``ran``); its second
     captures both graphs, and every later one replays them."""
@@ -408,7 +475,7 @@ class _Stage:
         self.parts_args = parts_args  # (scene, cam, width, ..., t_min)
         self.ran = 0
         self.bufs = self.seed = self.hits = self.capture = None
-        self.step = self.rearm = self.regen = self._rearm = None
+        self.step = self.rearm = self.regen = self._step = self._rearm = None
 
     @property
     def mode(self) -> str:
@@ -449,13 +516,14 @@ class _Stage:
     def _capture(self, state):
         scene, cam, *rest = self.parts_args
         self.capture = GRAPHS[self.device.type](self.device)
-        _, step, self._rearm = _regen_step_parts(
+        # The stage keeps the parts: the graphs read buffers they hold.
+        _, self._step, self._rearm = _regen_step_parts(
             scene, cam, self.bufs[-1], self.seed, *rest, self.hits)
 
         def run_step():
-            new, regen = step(state)
+            new, regen, any_regen = self._step(state, into=state)
             _copy_into(self.bufs, _flatten(new))
-            return regen, regen.any()
+            return regen, any_regen
 
         with profiling.span("wavefront.capture", what="step"):
             self.step = _counted(self.capture, run_step)
@@ -514,9 +582,10 @@ def trace_regenerative(scene, cam, pixel_ids, sample_ids0, seed, *,
     is replayed from two CUDA graphs (``_Stage``) once its key (scene and
     camera, the fixed arguments, the stage's width, its fold) has run
     one iteration eagerly, so the host issues two graph launches and its
-    two reads an iteration instead of the body's ~1,200 ops.  The ops are
-    the eager body's, so images and segments are the same bits; a stage of
-    one iteration never captures.  Fixed widths replay across renders
+    two reads an iteration instead of the body's launches (K5's and the
+    bounce kernel's, and the re-arm's ~40 ops).  The ops are the eager
+    body's, so images and segments are the same bits; a stage of one
+    iteration never captures.  Fixed widths replay across renders
     (single, shards, progressive passes); data-dependent widths (adaptive
     levels) capture once a level.
 
@@ -561,7 +630,8 @@ def trace_regenerative(scene, cam, pixel_ids, sample_ids0, seed, *,
                     break
                 mode = "eager" if stage is None else stage.mode
                 with profiling.span("wavefront.iteration", width=stage_width,
-                                    alive=alive_count, graph=mode):
+                                    alive=alive_count, graph=mode,
+                                    step=getattr(body, "step", "eager")):
                     if mode == "eager":
                         state = body(state)
                         if stage is not None:

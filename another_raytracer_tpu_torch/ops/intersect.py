@@ -12,7 +12,10 @@ primitive alone, differentiably, so gradients reach geometry parameters
 through the hit point.  The winner search itself is a detached decision:
 callers run ``closest_hit`` under ``torch.no_grad()``.  On the forward path
 the kernel may fold the winner's record instead (``fold_tree``), and the
-record then takes the folded values as they are.
+record then takes the folded values as they are.  On the card the
+wavefront's step runs K5 alone through this module (``tree_winners``); the
+bounce kernel (``ops/kernels/bounce_kernel.py``) runs the rest of
+``closest_hit`` and ``make_hit_record``, bit for bit.
 
 Behavioural contracts (reference locations): sphere half-b quadratic with
 the nearest root in (t_min, t_max) and UV from the object-space outward
@@ -372,32 +375,42 @@ def k5_variant(prim, fold):
     return record, record and planar, planar
 
 
-def _fold_bvh(scene, best, nodes, rows, o, d, time, t_min, prim, fold=None):
-    """Fold one packed BVH's winner into the running best through K5, in
-    ``k5_variant(prim, fold)``.  The traversal returns rows' codes (id*4 +
-    kind) for improved lanes and copies the init value through otherwise,
-    so the decode is gated on improved.
-
-    Where ``fold`` is ``prim``, also return the kernel-folded winner record,
-    tagged with its tree kind: ('planar', n, u, v, tu, tv, mat) or
-    ('sphere', centre, r, mat, has_uv), valid wherever the final winner kind
-    is that tree's (later folds only override on strict improvement)."""
+def tree_winners(scene, o: V3, d: V3, time, t_min, fold, init):
+    """K5 over the scene's trees in order (planar, rect, sphere), each in
+    ``k5_variant(prim, fold)``: each launch takes the one before's t and
+    code (``init``: [B] t and [B] int32 codes of -1, for the first), so the
+    last code is the latest improving row's (id*4 + kind), -1 where no tree
+    improved.  Returns (t, code, folded), ``folded`` the fold outputs of the
+    tree ``fold`` names (``fold_tree``; ``bvh_kernel.bvh_closest_hit``'s
+    outputs after the first three, rows of one [rows, B] tensor on the
+    card), else None; or None on a scene without trees.  ``closest_hit``
+    decodes the winner; the bounce kernel (``ops/kernels/bounce_kernel.py``)
+    decodes it itself."""
     from another_raytracer_tpu_torch.ops.kernels import bvh_kernel
 
-    bt, bk, bi = best
-    record, full, pre = k5_variant(prim, fold)
-    out = bvh_kernel.bvh_closest_hit(
-        nodes, rows, o, d, bt, bi.to(torch.int32), t_min=float(t_min),
-        leaf_size=scene.bvh_leaf_size, prim=prim, time=time,
-        fold_record=record, fold_full=full, precomp=pre,
-        tables=scene.k5_tables(prim, pre))
-    t, code, improved = out[:3]
-    code = code.long()
-    kind = torch.where(improved, code % 4, bk)
-    idx = torch.where(improved, code // 4, bi)
-    if record:
-        return (t, kind, idx), (prim,) + tuple(out[3:])
-    return (t, kind, idx)
+    trees = (("planar", scene.n_bvh_nodes, scene.bvh_packed_nodes,
+              scene.bvh_packed_tris),
+             ("rect", scene.n_rect_bvh_nodes, scene.rect_bvh_nodes,
+              scene.rect_bvh_rows),
+             ("sphere", scene.n_sph_bvh_nodes, scene.sph_bvh_nodes,
+              scene.sph_bvh_rows))
+    if not scene.has_accel:
+        return None
+    t, code = init
+    folded = None
+    for prim, n_nodes, nodes, rows in trees:
+        if not n_nodes:
+            continue
+        record, full, pre = k5_variant(prim, fold)
+        out = bvh_kernel.bvh_closest_hit(
+            nodes, rows, o, d, t, code, t_min=float(t_min),
+            leaf_size=scene.bvh_leaf_size, prim=prim, time=time,
+            fold_record=record, fold_full=full, precomp=pre,
+            tables=scene.k5_tables(prim, pre))
+        t, code = out[0], out[1]
+        if record:
+            folded = tuple(out[3:])
+    return t, code, folded
 
 
 def closest_hit(scene, o: V3, d: V3, time, u_media, t_min, fold=None):
@@ -405,8 +418,10 @@ def closest_hit(scene, o: V3, d: V3, time, u_media, t_min, fold=None):
 
     Returns (t [B], kind [B] int64 with -1 = miss, idx [B] within-kind), and
     with ``fold`` ('planar' or 'sphere', ``fold_tree``'s answer) as
-    ((t, kind, idx), the kernel-folded winner record of that tree; see
-    ``_fold_bvh``).  BVH folds run first, so their winner t tightens the
+    ((t, kind, idx), the kernel-folded winner record of that tree, tagged
+    with its kind: ('planar', n, u, v, tu, tv, mat) or ('sphere', centre, r,
+    mat, has_uv), valid wherever the final winner kind is that tree's).  The
+    trees run first (``tree_winners``), so their winner t tightens the
     sweeps' t_max; then the sweeps of spheres, rects and triangles outside
     a BVH, and last the media's free flights (``u_media``: [B, Nm]
     uniforms, ``integrator.media_uniforms``).  A strict improvement keeps
@@ -416,20 +431,16 @@ def closest_hit(scene, o: V3, d: V3, time, u_media, t_min, fold=None):
     best = (z + BIG, torch.full_like(z, -1, dtype=torch.int64),
             torch.zeros_like(z, dtype=torch.int64))
     aux = None
-    if scene.n_bvh_nodes:  # planar tree: triangles and/or transformed rects
-        best = _fold_bvh(scene, best, scene.bvh_packed_nodes,
-                         scene.bvh_packed_tris, o, d, time, t_min, "planar",
-                         fold)
-        if fold == "planar":
-            best, aux = best
-    if scene.n_rect_bvh_nodes:  # native axis-rect tree (identity transforms)
-        best = _fold_bvh(scene, best, scene.rect_bvh_nodes,
-                         scene.rect_bvh_rows, o, d, time, t_min, "rect")
-    if scene.n_sph_bvh_nodes:
-        best = _fold_bvh(scene, best, scene.sph_bvh_nodes, scene.sph_bvh_rows,
-                         o, d, time, t_min, "sphere", fold)
-        if fold == "sphere":
-            best, aux = best
+    trees = tree_winners(scene, o, d, time, t_min, fold,
+                         (best[0], torch.full_like(z, -1, dtype=torch.int32)))
+    if trees is not None:
+        t, code, folded = trees
+        code = code.long()
+        hit = code >= 0
+        best = (t, torch.where(hit, code % 4, best[1]),
+                torch.where(hit, code // 4, best[2]))
+        if folded is not None:
+            aux = (fold,) + folded
     if scene.n_spheres and not scene.sph_in_bvh:
         best = _scan_kind(
             best, scene.n_spheres,

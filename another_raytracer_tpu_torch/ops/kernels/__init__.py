@@ -17,9 +17,9 @@ COUNTS = collections.Counter()
 # What ``launch_counts`` gives before any launch, in its order: the sweep's
 # forward (K1) and record (K2) instances, K3's forward and record instances
 # on tables in shared and in device memory, the replay, K5 and its launches
-# by part, K4 and the draws kernel.
+# by part, K4, the draws kernel and the bounce kernel.
 KEYS = ("K1", "K2", "K3", "K3_record", "K3_global", "K3_record_global",
-        "replay", "K5", "K5_by_tree", "K4", "draws")
+        "replay", "K5", "K5_by_tree", "K4", "draws", "bounce")
 
 
 def count(name: str, n: int = 1) -> None:

@@ -3,8 +3,9 @@
 Each target of ``TARGETS`` is one ``csrc/*.cu`` source compiled by ``nvcc``
 with the common flags plus its own into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds) under
-``another_raytracer_tpu_torch/_build/``, keyed by a hash of the source and
-the flags: a fresh checkout builds by itself, and an edited source rebuilds.
+``another_raytracer_tpu_torch/_build/``, keyed by a hash of the source, the
+headers it may include (``csrc/*.cuh``) and the flags: a fresh checkout
+builds by itself, and an edited source or header rebuilds.
 The compiler's report (``-Xptxas -v``: registers, shared memory, spills) is
 kept beside the library as ``<target>-<hash>.log``.
 """
@@ -31,7 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # record build's arithmetic (a measurement; the port's paths never launch
 # them).  The BVH (K5) and Perlin
 # (K4) kernels contract no FMA either, so they equal their plain versions
-# bit for bit.
+# bit for bit, and so does the bounce kernel, which equals the wavefront's
+# eager step.
 TARGETS = {
     "mega_kernel": ("mega_kernel.cu", ()),
     "mega_kernel_record": ("mega_kernel.cu", ("-DART_RECORD", "-fmad=false")),
@@ -40,6 +42,7 @@ TARGETS = {
     "bvh_kernel": ("bvh_kernel.cu", ("-fmad=false",)),
     "bvh_kernel_count": ("bvh_kernel.cu", ("-DART_COUNT", "-fmad=false")),
     "perlin_kernel": ("perlin_kernel.cu", ("-fmad=false",)),
+    "bounce_kernel": ("bounce_kernel.cu", ("-fmad=false",)),
 }
 
 _LOADED: dict = {}
@@ -64,6 +67,7 @@ def _flags(name: str) -> tuple:
 
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / TARGETS[name][0]).read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

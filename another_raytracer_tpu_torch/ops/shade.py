@@ -17,10 +17,12 @@ diffuse_light never scatters and emits its texture (material.h:101-118);
 isotropic scatters to random_in_unit_sphere with its texture's albedo.
 
 Perlin noise: ``perlin_noise`` is the plain version (direct ``index_select``
-gathers of the tables), differentiable in the point; the forward path
+gathers of the tables), differentiable in the point; the eager forward step
 (``fast_texel``) and differentiable renders whose trainable set cannot reach
 the noise argument (``noise_value_only``) evaluate it through the kernel K4
-(``ops/kernels/perlin_kernel.py``).  Image textures gather the atlas row of
+(``ops/kernels/perlin_kernel.py``).  On the card the wavefront's step runs
+all of this module's forward arithmetic in the bounce kernel
+(``ops/kernels/bounce_kernel.py``), K4's device code included, bit for bit.  Image textures gather the atlas row of
 the nearest texel.
 
 Left out (ROADMAP M21): the TPU-only packed atlas and its ``ATLAS_*``

@@ -63,6 +63,7 @@ PORT_KERNELS = (
     ("bvh_kernel", "K5 (BVH closest hit)"),
     ("perlin_kernel", "K4 (Perlin noise)"),
     ("uniform2_draws_kernel", "draws (threefry uniform2)"),
+    ("bounce_kernel", "bounce (wavefront step after K5)"),
 )
 COPY_CATEGORIES = ("gpu_memcpy", "gpu_memset")
 

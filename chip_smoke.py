@@ -137,8 +137,8 @@ MW, MH, MSPP, MDEPTH = 96, 72, 2, 8  # the media and mesh comparison
 GW, GH, GSPP, GDEPTH = 180, 135, 4, 6  # the media gradient step (scene 7)
 # Segments of the CLI renders through the wavefront at W x H, depth DEPTH
 # (scene 1 at SPP with MEGA_FORWARD = False, scenes 3 and 5 at TEX_SPP):
-# K5 and K4 are bit-equal to their plain versions, so these move only with
-# the wavefront's arithmetic (the sphere records' re-projection onto their
+# K5, K4 and the bounce kernel are bit-equal to their plain versions, so
+# these move only with the wavefront's arithmetic (the sphere records' re-projection onto their
 # spheres took scene 1 from 120,859,593, scene 3 from 16,145,816, scene 5
 # from 10,753,141 and scene 8 from 33,376,402).
 WAVEFRONT_SEGMENTS = {1: 115476704, 3: 15865454, 5: 10595931}
@@ -1169,6 +1169,89 @@ def threefry_draws_timings(dev, widths=(388800, 6144)):
     return out
 
 
+def bounce_timings(scenes, dev, widths=(388800, 48640, 6144)):
+    """The bounce kernel's device time a launch (``graph_ms``) at each
+    width, on the first step of each scene of ``scenes`` ({name: (scene,
+    camera parameters)}: W x H camera rays, all lanes alive, K5 run once
+    before), its carry bit-equal to the eager step's (``max_abs_err``, the
+    largest gap over the carry's tensors); beside its bytes
+    bound (the carry, the pixels and K5's outputs read, the carry and the
+    re-arm mask written), the eager step's time (its plain version, K5
+    included) and K5's over the same lanes, all by ``graph_ms``."""
+    import torch
+
+    from another_raytracer_tpu_torch.ops import bvh as bvh_ops
+    from another_raytracer_tpu_torch.ops import camera as camera_lib
+    from another_raytracer_tpu_torch.ops import integrator, intersect
+    from another_raytracer_tpu_torch.ops.kernels import bounce_kernel
+
+    out = {}
+    for name, (sc, cp) in scenes.items():
+        cam = camera_lib.make_camera(aspect_ratio=W / H, device=dev, **cp)
+        for n in widths:
+            pix = torch.arange(n, device=dev) % (W * H)
+            samp0 = torch.arange(n, device=dev) // (W * H)
+            args = (sc, cam, pix, 5, W, H, 1, TEX_SPP, DEPTH, 1e-3)
+            cam_rays, e_step, _ = integrator._eager_step_parts(*args)
+            state = integrator._regen_initial_state(cam_rays, samp0, TEX_SPP)
+            fold = intersect.fold_tree(sc, n)
+            init = (torch.full((n,), intersect.BIG, device=dev),
+                    torch.full((n,), -1, dtype=torch.int32, device=dev))
+
+            def k5(state=state, fold=fold, init=init):
+                return intersect.tree_winners(sc, *state[:3], 1e-3, fold,
+                                              init)
+
+            winners = k5()
+            kw = dict(fold=fold, sample_stride=1, limit=TEX_SPP,
+                      max_depth=DEPTH, t_min=1e-3,
+                      regen=torch.empty(n, dtype=torch.bool, device=dev),
+                      any_regen=torch.zeros((), dtype=torch.int32,
+                                            device=dev))
+
+            def prepare(state=state, pix=pix, winners=winners, kw=kw):
+                return bounce_kernel.prepare_launch(sc, state, pix, 5,
+                                                    winners, **kw)[0]
+
+            run, got = bounce_kernel.prepare_launch(sc, state, pix, 5,
+                                                    winners, **kw)
+            bare(run)()
+            want = e_step(state)[0]
+            pairs = list(zip(integrator._flatten(got),
+                             integrator._flatten(want)))
+            gap = max(float((a.double() - b.double()).abs().max())
+                      for a, b in pairs)
+            if not all(torch.equal(a, b) for a, b in pairs):
+                raise AssertionError(f"the bounce kernel differs from the "
+                                     f"eager step ({name}, {n} lanes): "
+                                     f"max abs err {gap}")
+
+            def calls(fn):
+                def go():
+                    fn()
+                    return 0
+                return lambda: go
+
+            flat = integrator._flatten(state)
+            aux = 0 if winners is None or winners[2] is None else (
+                bvh_ops.n_aux(fold, True, fold == "planar") * 4 * n)
+            k5_bytes = 0 if winners is None else 8 * n + aux
+            nbytes = (sum(t.nbytes for t in flat[:-1]) + pix.nbytes
+                      + k5_bytes + sum(t.nbytes for t in flat[:-1]
+                                       if t is not state[2]) + n)
+            b_ms, b_by = bound(0, nbytes)
+            ms = graph_ms(prepare, dev)[0]
+            out[f"{name}, {n} lanes"] = dict(
+                fold=fold, max_abs_err=gap, ms=round(ms, 5),
+                bound_ms=round(b_ms, 5),
+                bound_by=b_by, share_of_bound=round(b_ms / ms, 4),
+                k5_ms=(None if winners is None
+                       else round(graph_ms(calls(k5), dev, 20)[0], 5)),
+                eager_step_ms=round(graph_ms(
+                    calls(lambda: e_step(state)), dev, 5)[0], 5))
+    return out
+
+
 def plain_k5(nodes, rows, o, d, init_t, init_idx, *, leaf_size, t_min=1e-3,
              prim="planar", time=None, fold_record=False, fold_full=False,
              precomp=False, tables=None):
@@ -1184,26 +1267,29 @@ def plain_k5(nodes, rows, o, d, init_t, init_idx, *, leaf_size, t_min=1e-3,
 
 @contextlib.contextmanager
 def plain_wavefront():
-    """Run the wavefront's bounces through K5's, K4's and the draws
-    kernel's plain versions (on the card), eagerly: the plain walk reads
-    the card, which no CUDA graph may capture.  The plain versions count no
-    launch."""
+    """Run the wavefront's bounces through the eager step (the bounce
+    kernel's plain version) with K5's, K4's and the draws kernel's plain
+    versions (on the card), eagerly: the plain walk reads the card, which no
+    CUDA graph may capture.  The plain versions count no launch."""
     from another_raytracer_tpu_torch.ops import integrator, rng, shade
     from another_raytracer_tpu_torch.ops.kernels import (bvh_kernel,
                                                          perlin_kernel,
                                                          threefry_kernel)
 
     saved = (bvh_kernel.bvh_closest_hit, perlin_kernel.perlin_noise,
-             threefry_kernel.uniform2, integrator.GRAPHS)
+             threefry_kernel.uniform2, integrator.GRAPHS,
+             integrator._regen_step_parts)
     bvh_kernel.bvh_closest_hit = plain_k5
     perlin_kernel.perlin_noise = shade.perlin_noise
     threefry_kernel.uniform2 = rng.uniform2_plain
     integrator.GRAPHS = {}
+    integrator._regen_step_parts = integrator._eager_step_parts
     try:
         yield
     finally:
         (bvh_kernel.bvh_closest_hit, perlin_kernel.perlin_noise,
-         threefry_kernel.uniform2, integrator.GRAPHS) = saved
+         threefry_kernel.uniform2, integrator.GRAPHS,
+         integrator._regen_step_parts) = saved
 
 
 def reset_counts():
@@ -1329,9 +1415,11 @@ def media_phases(dev, mesh_dir):
             raise AssertionError(f"{what} reached the megakernel or the "
                                  f"replay: {launched}")
 
-    # The wavefront through the kernels against the same through their
-    # plain versions: every other operation is the same, and K5 and K4 are
-    # bit-equal to theirs, so the sums and segments must be equal.
+    # The wavefront through K5 and the bounce kernel against the eager step
+    # through K5's, K4's and the draws kernel's plain versions: each is
+    # bit-equal to its plain version, so the sums and segments must be
+    # equal.  The bounce kernel evaluates the noise itself: K4 launches
+    # nothing on the wavefront.
     wkw = dict(width=MW, height=MH, sample_start=0, n_samples=MSPP,
                spp_cap=MSPP, samples_per_pass=1, max_depth=MDEPTH, t_min=1e-3)
     want_trees = {7: set(), 8: {"rect/shared", "sphere/shared"},
@@ -1352,10 +1440,12 @@ def media_phases(dev, mesh_dir):
                   max_abs_err=max(float((a - b).abs().max())
                                   for a, b in zip(got, ref)),
                   K5=launched["K5"], K5_by_tree=launched["K5_by_tree"],
-                  K4=launched["K4"], draws=launched["draws"])
+                  K4=launched["K4"], draws=launched["draws"],
+                  bounce=launched["bounce"])
         untouched(launched, f"scene {sid}")
         if (not equal or set(launched["K5_by_tree"]) != want_trees[sid]
-                or (launched["K4"] > 0) != (sid == 8) or launched["draws"] < 1):
+                or launched["K4"] or launched["draws"] < 1
+                or launched["bounce"] < 1):
             raise AssertionError(f"scene {sid}: the wavefront through the "
                                  f"kernels against their plain versions: {st}")
         compare[sid] = st
@@ -1375,14 +1465,15 @@ def media_phases(dev, mesh_dir):
         if (rc != 0 or segs != MEDIA_SEGMENTS[f"scene {sid} {mode}"]
                 or img.shape != (H, W, 3) or img.mean() < 2.0
                 or set(launched["K5_by_tree"]) != want_trees[sid]
-                or (launched["K4"] > 0) != (sid == 8)):
+                or launched["K4"] or launched["bounce"] < 1):
             raise AssertionError(f"main path (scene {sid}, {mode}): rc={rc} "
                                  f"{launched}, {segs} segments, PNG mean "
                                  f"{img.mean():.2f}")
         renders[f"scene {sid} {mode}"] = dict(
             ms=wall_ms, segments=segs, mrays_per_s=mrays, K5=launched["K5"],
             K5_by_tree=launched["K5_by_tree"], K4=launched["K4"],
-            draws=launched["draws"], png_mean=round(float(img.mean()), 2))
+            draws=launched["draws"], bounce=launched["bounce"],
+            png_mean=round(float(img.mean()), 2))
         phase("main_path_media", f"scene {sid} {W}x{H} spp{TEX_SPP} "
               f"depth{DEPTH} {mode} (CLI): "
               f"{json.dumps(renders[f'scene {sid} {mode}'])}")
@@ -1394,16 +1485,17 @@ def media_phases(dev, mesh_dir):
         wall_ms, busy_ms, n_kern, launched, top = profile_render(
             scenes[sid][0], scenes[sid][1], 1, dev)
         k5_ms = sum(ms for nm, ms, _ in top if "bvh_kernel" in nm)
-        k4_ms = sum(ms for nm, ms, _ in top if "perlin_kernel" in nm)
+        bounce_ms = sum(ms for nm, ms, _ in top if "bounce_kernel" in nm)
         profiles[sid] = dict(wall_ms=round(wall_ms, 1),
                              busy_ms=round(busy_ms, 2),
                              busy_share=round(busy_ms / wall_ms, 4),
                              device_ops=n_kern, K5_launches=launched["K5"],
-                             K4_launches=launched["K4"],
+                             bounce_launches=launched["bounce"],
                              draws_launches=launched["draws"],
-                             K5_ms=round(k5_ms, 3), K4_ms=round(k4_ms, 3),
+                             K5_ms=round(k5_ms, 3),
+                             bounce_ms=round(bounce_ms, 3),
                              K5_share=round(k5_ms / busy_ms, 4),
-                             K4_share=round(k4_ms / busy_ms, 4))
+                             bounce_share=round(bounce_ms / busy_ms, 4))
         phase("profile_media", f"scene {sid} {W}x{H} spp1 depth{DEPTH}: "
               f"{json.dumps(profiles[sid])}; top by device time: "
               + "; ".join(f"{nm} {ms:.1f} ms / {c}" for nm, ms, c in top[:6]))
@@ -1513,9 +1605,13 @@ def media_phases(dev, mesh_dir):
     phase("media_gradient", f"scene 7 {GW}x{GH} spp{GSPP} depth{GDEPTH}, "
           f"med_neg_inv_density trainable, lockstep on the card: "
           f"{json.dumps(grad)}")
+    # The bounce kernel alone on scene 8's and the mesh's first step at the
+    # first, a middle and the narrowest stage width.
+    bounce = bounce_timings({"scene 8": scenes[8], "mesh": scenes[9]}, dev)
+    phase("timing_bounce", f"bounce kernel: {json.dumps(bounce)}")
     return dict(compare=compare, renders=renders, profiles=profiles,
                 scene8_first_call=scene8_first, mesh_first_call=first,
-                gradient=grad)
+                gradient=grad, bounce=bounce)
 
 
 def host_library_phase():
@@ -1912,7 +2008,7 @@ def jpeg_phase(dev, tmp):
                 rc, stdout, img, launched = run_cli(8, jw, jh, jspp, DEPTH,
                                                     tmp)
             renders[name] = (img, launched, cli_stats(stdout))
-            if rc != 0 or launched["K5"] < 1 or launched["K4"] < 1:
+            if rc != 0 or launched["K5"] < 1 or launched["bounce"] < 1:
                 raise AssertionError(f"scene 8 ({name}): rc={rc} {launched}")
     finally:
         if saved is None:
@@ -2161,17 +2257,19 @@ def train_demo_phase(dev):
 # ``kernels``; K3 and K3_record on either table route).
 BX_SIZE = (72, 36, 2, 4)
 BX_ROUTES = {
-    "sphere_ground": {"K1"}, "random": {"K3"}, "textures": {"K4"},
-    "cornell": {"K1"}, "mesh": {"K5"}, "final": {"K5", "K4"},
-    "mesh_hd": {"K5"}, "mesh_grad": {"K5"},
+    "sphere_ground": {"K1"}, "random": {"K3"}, "textures": {"bounce"},
+    "cornell": {"K1"}, "mesh": {"K5", "bounce"}, "final": {"K5", "bounce"},
+    "mesh_hd": {"K5", "bounce"}, "mesh_grad": {"K5"},
     "sphere_ground_grad": {"K2", "replay"},
     "metal_diel_grad": {"K2", "replay"}, "mesh_grad_bench": {"K5"},
     "random_grad": {"K3_record", "replay"},
     "final_grad_bench": {"K5"}, "textures_grad": set(),
-    "reference_default": {"K5"}}
-# (The gradient rows train tri_v* too, which ``render.noise_value_only``
-# takes as reaching the noise's argument, so their Perlin noise runs with
-# its gradient in the point, on the autograd path and not through K4.)
+    "reference_default": {"K5", "bounce"}}
+# (The forward rows through the wavefront evaluate their noise in the
+# bounce kernel.  The gradient rows train tri_v* too, which
+# ``render.noise_value_only`` takes as reaching the noise's argument, so
+# their Perlin noise runs with its gradient in the point, on the autograd
+# path and not through K4: no row launches K4.)
 # The rows whose calls take a second or more run here at their full width
 # with spp cut, one timed and one profiled call each, to keep the script
 # within its time; ``python -m another_raytracer_tpu_torch.bench_extra``
@@ -2180,7 +2278,7 @@ BX_SPP_CUTS = {"textures": 4, "mesh": 4, "final": 2, "textures_grad": 4,
                "final_grad_bench": 2, "mesh_grad_bench": 4,
                "reference_default": 4}
 BX_PROTOCOL = dict(reps=1, profiled_reps=1)
-ROUTE_KERNELS = ("K1", "K2", "K3", "K3_record", "replay", "K4", "K5")
+ROUTE_KERNELS = ("K1", "K2", "K3", "K3_record", "replay", "K5", "bounce")
 
 
 def route(launched):
@@ -2713,7 +2811,6 @@ def main(argv=None) -> int:
     from another_raytracer_tpu_torch.models.scene import SceneBuilder
     from another_raytracer_tpu_torch.ops import bvh as bvh_ops
     from another_raytracer_tpu_torch.ops import shade
-    from another_raytracer_tpu_torch.ops import kernels
     from another_raytracer_tpu_torch.ops.kernels import bvh_kernel, perlin_kernel
     from another_raytracer_tpu_torch.ops.vec3 import V3
 
@@ -2776,10 +2873,10 @@ def main(argv=None) -> int:
         torch.cuda.synchronize(dev)
         st = forward_bar(got, ref, got_segs, ref_segs, name)
         st.update(K5_launches=launched["K5"], K4_launches=launched["K4"],
-                  draws_launches=launched["draws"])
-        if (sc.has_accel and launched["K5"] < 1) or (
-                scene_lib.TEX_NOISE in sc.tex_kinds and launched["K4"] < 1) or (
-                launched["draws"] < 1):
+                  draws_launches=launched["draws"],
+                  bounce_launches=launched["bounce"])
+        if (sc.has_accel and launched["K5"] < 1) or launched["K4"] or (
+                launched["draws"] < 1) or launched["bounce"] < 1:
             raise AssertionError(f"{name}: the wavefront skipped a kernel {st}")
         phase("compare_wavefront", f"{name} {CW}x{CH} spp{CSPP} depth{DEPTH}: "
               f"{json.dumps(st)}")
@@ -2821,32 +2918,25 @@ def main(argv=None) -> int:
           + "; ".join(f"{nm} {ms:.1f} ms / {c}" for nm, ms, c in top[:8]))
 
     # 14. The texture main path: scenes 3, 4 and 5 through the CLI.
-    k4_launches = k4_points = 0
     tex_segments = {}
     for sid in (3, 4, 5):
         with tempfile.TemporaryDirectory() as tmp:
             rc, out, img, launched = run_cli(sid, W, H, TEX_SPP, DEPTH, tmp)
         wall_ms, mrays, segs = cli_stats(out)
-        if rc != 0 or segs <= 0 or (sid in (3, 5) and launched["K4"] < 1) or (
+        if rc != 0 or segs <= 0 or launched["K4"] or launched["bounce"] < 1 or (
                 segs != WAVEFRONT_SEGMENTS.get(sid, segs)):
             raise AssertionError(f"main path (scene {sid}): rc={rc} {launched}, "
                                  f"{segs} segments")
         if img.shape != (H, W, 3) or img.mean() < 2.0:
             raise AssertionError(f"scene {sid} image is wrong: {img.mean()}")
-        k4_launches += launched["K4"]
-        points = kernels.COUNTS["K4.points"]
-        k4_points += points
         tex_segments[sid] = segs
         phase("main_path_textures", f"scene {sid} {W}x{H} spp{TEX_SPP} "
               f"depth{DEPTH} (CLI): {wall_ms} ms wall, {segs} segments, "
-              f"{mrays} Mrays/s; launches {json.dumps(launched)}, "
-              f"{points} noise points; PNG mean "
+              f"{mrays} Mrays/s; launches {json.dumps(launched)}; PNG mean "
               f"{img.mean():.2f}")
-    # K4's width on the main path: the mean points per launch.
-    k4_width = round(k4_points / max(k4_launches, 1))
 
-    # 15. K5 and K4 alone at the main path's widths, beside their plain
-    # versions and their bounds.  ``graph_ms`` gives the device time of a
+    # 15. K5 alone at the main path's widths and K4 at a frame's points,
+    # beside their plain versions and their bounds.  ``graph_ms`` gives the device time of a
     # launch without the host's submission; ``cuda_ms``'s events around one
     # bare launch, which include it, are printed beside it.  K5: the first
     # call of the scene-1 render, its camera rays (388,800 lanes) against
@@ -2918,23 +3008,18 @@ def main(argv=None) -> int:
         lambda: perlin_kernel.prepare_launch(scene3, ids, pv)[0], dev)
     k4_event_ms = cuda_ms(bare(perlin_kernel.prepare_launch(scene3, ids, pv)[0]),
                           dev, 10)[0]
-    # The main path's branch, one table set and no id array, against the
-    # plain version at both widths, bit for bit.
-    for m in (n, k4_width):
-        pm = V3(*(c[:m] for c in pv))
-        run, got = perlin_kernel.prepare_launch(scene3, ids[:m], pm)
-        bare(run)()
-        want = shade.perlin_noise(scene3, ids[:m], pm)
-        torch.cuda.synchronize(dev)
-        k4_err = max(k4_err, float((got - want).abs().max()))
-        if not torch.equal(got, want):
-            raise AssertionError(f"K4 (one table set, {m} points) disagrees "
-                                 f"with its plain version: {k4_err}")
-    phase("compare_k4", f"one table set (no id array) at {n} and {k4_width} "
-          f"points: bit-equal")
-    pw = V3(*(c[:k4_width] for c in pv))
-    k4_width_ms = graph_ms(lambda: perlin_kernel.prepare_launch(
-        scene3, ids[:k4_width], pw)[0], dev)[0]
+    # The branch for one table set and no id array against the plain
+    # version, bit for bit.
+    run, got = perlin_kernel.prepare_launch(scene3, ids, pv)
+    bare(run)()
+    want = shade.perlin_noise(scene3, ids, pv)
+    torch.cuda.synchronize(dev)
+    k4_err = max(k4_err, float((got - want).abs().max()))
+    if not torch.equal(got, want):
+        raise AssertionError(f"K4 (one table set, {n} points) disagrees with "
+                             f"its plain version: {k4_err}")
+    phase("compare_k4", f"one table set (no id array) at {n} points: "
+          f"bit-equal")
     # One block's worth of points: the launch and the stage of the tables.
     p1 = V3(*(c[:256] for c in pv))
     k4_floor_ms = graph_ms(lambda: perlin_kernel.prepare_launch(
@@ -2948,16 +3033,11 @@ def main(argv=None) -> int:
                      m * (3 * 4 + 4) + perlin_kernel.TABLE_BYTES)
 
     k4_bound_ms, k4_bound_by = k4_bound(n)
-    k4_width_bound_ms = k4_bound(k4_width)[0]
     phase("timing_k4_k5", f"K4, {n} points of scene 3's table set: {k4_ms:.5f} "
           f"ms (runs {k4_runs}; events around one launch: {k4_event_ms:.4f} "
-          f"ms); at the main path's mean width of {k4_width} points "
-          f"{k4_width_ms:.5f} ms (bound {k4_width_bound_ms:.5f} ms); at 256 "
-          f"points (one block: the launch and the stage) {k4_floor_ms:.5f} "
-          f"ms; plain "
-          f"{k4_plain_ms:.3f} ms; bound {k4_bound_ms:.5f} ms by {k4_bound_by}; "
-          f"{k4_launches} launches of {k4_points} points in scenes 3, 4 and "
-          f"5's renders")
+          f"ms); at 256 points (one block: the launch and the stage) "
+          f"{k4_floor_ms:.5f} ms; plain {k4_plain_ms:.3f} ms; bound "
+          f"{k4_bound_ms:.5f} ms by {k4_bound_by}")
 
     # The draws kernel (rng.uniform2 on CUDA tensors) at the wavefront's
     # first and narrowest stage widths, with a [B] bounce (the scatter and
@@ -3371,18 +3451,13 @@ def main(argv=None) -> int:
         {"name": "perlin_kernel (K4, Perlin noise)",
          "route": "cuda", "source": SRC + "perlin_kernel.cu",
          "replaces": JAX_PALLAS + "perlin_kernel.py:136",
-         "launches": k4_launches, "max_abs_err": k4_err,
+         "max_abs_err": k4_err,
          "ms": k4_ms, "plain_ms": k4_plain_ms,
          "bound_ms": k4_bound_ms, "bound_by": k4_bound_by, "library_ms": None,
-         "event_ms": k4_event_ms, "points": n, "mean_width": k4_width,
-         "mean_width_ms": k4_width_ms,
-         "mean_width_bound_ms": k4_width_bound_ms,
-         "one_block_ms": k4_floor_ms,
+         "event_ms": k4_event_ms, "points": n, "one_block_ms": k4_floor_ms,
          "segments": tex_segments,
          "launches_scene8": media["renders"]["scene 8 single"]["K4"],
-         "device_share_scene8_spp1": media["profiles"][8]["K4_share"],
-         "launches_scene8_jpeg_earthmap": jpeg["scene8"]["launches"]["K4"],
-         "bench_extra_launches": bx["K4"]},
+         "launches_scene8_jpeg_earthmap": jpeg["scene8"]["launches"]["K4"]},
         {"name": "uniform2_draws_kernel (rng.uniform2 on CUDA tensors)",
          "route": "cuda", "source": SRC + "mega_kernel.cu",
          "replaces": None,  # XLA fuses the JAX package's int64 draws
@@ -3390,6 +3465,17 @@ def main(argv=None) -> int:
          "timings": draws, "library_ms": None,
          "launches_per_render": {k: v["draws"]
                                  for k, v in media["renders"].items()}},
+        {"name": "bounce_kernel (the wavefront's step after K5)",
+         "route": "cuda", "source": SRC + "bounce_kernel.cu",
+         "replaces": None,  # XLA fuses the JAX package's step
+         "max_abs_err": max(r["max_abs_err"]
+                            for r in media["bounce"].values()),
+         "timings": media["bounce"],
+         "launches_per_render": {k: v["bounce"]
+                                 for k, v in media["renders"].items()},
+         "device_share_spp1": {k: v["bounce_share"]
+                               for k, v in media["profiles"].items()},
+         "bench_extra_launches": bx["bounce"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

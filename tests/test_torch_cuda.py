@@ -146,14 +146,14 @@ def test_draws_kernel_refuses_what_it_does_not_take(dev):
     assert _launches("draws") == before
 
 
-@pytest.mark.parametrize("name,held", [("mesh", 4), ("final_scene", 6)])
+@pytest.mark.parametrize("name,held", [("mesh", 1), ("final_scene", 2)])
 def test_stage_graphs_hold_the_draw_launches(name, held, capsule_obj, dev,
                                              monkeypatch):
     """A captured stage's two graphs hold one draws launch per
-    ``rng.uniform2`` call of an iteration: the capsule (one medium, no
-    motion) 3 in the step (its medium, scatter A and B) and 1 in the re-arm
-    (the jitter); scene 8 (two media, motion) 4 and 2 (the jitter and the
-    shutter time)."""
+    ``rng.uniform2`` call of an iteration: the step none (the bounce kernel
+    draws its media's, scatter A's and B's uniforms itself, in its one
+    launch) and the re-arm the camera's, the capsule (no motion) 1 (the
+    jitter), scene 8 (motion) 2 (the jitter and the shutter time)."""
     import collections
 
     from another_raytracer_tpu_torch.ops import integrator
@@ -172,6 +172,7 @@ def test_stage_graphs_hold_the_draw_launches(name, held, capsule_obj, dev,
     assert stage.mode == "replay"
     assert stage.step.held["draws"] + stage.rearm.held["draws"] == held
     assert stage.rearm.held["draws"] == 1 + scene.has_motion
+    assert stage.step.held["bounce"] == 1 and stage.rearm.held["bounce"] == 0
 
 
 @pytest.mark.parametrize("name", list(SCENES))
@@ -612,8 +613,8 @@ def test_perlin_kernel_matches_plain(q, n, dev):
 
 def test_cli_renders_bvh_and_noise_scenes_through_the_kernels(dev, tmp_path):
     # Scene 1 takes the megakernel's accel mode (K3), scenes 3 and 5 the
-    # wavefront with the Perlin kernel (K4).
-    for scene_id, kernel in (("1", "K3"), ("3", "K4"), ("5", "K4")):
+    # wavefront, whose bounce kernel evaluates their noise.
+    for scene_id, kernel in (("1", "K3"), ("3", "bounce"), ("5", "bounce")):
         out = tmp_path / f"scene{scene_id}.png"
         before = _launches(kernel)
         assert cli.main(["--scene", scene_id, "--width", str(W), "--height",
@@ -837,9 +838,10 @@ def _media_scenes(obj):
 
 @pytest.mark.parametrize("name", ["cornell_smoke", "final_scene", "mesh"])
 def test_media_wavefront_matches_plain(name, capsule_obj, dev):
-    """The wavefront of scenes 7, 8 and a mesh through K5 and K4, bit-equal
-    to the same through their plain versions (every other operation is the
-    same); the megakernel launches nothing."""
+    """The wavefront of scenes 7, 8 and a mesh through K5 and the bounce
+    kernel, bit-equal to the eager step through K5's, K4's and the draws
+    kernel's plain versions; the megakernel launches nothing, and K4
+    nothing either (the bounce kernel evaluates scene 8's noise itself)."""
     scene, params = _media_scenes(capsule_obj)[name](device=dev)
     cam = camera.make_camera(aspect_ratio=W / H, device=dev, **params)
     kw = dict(width=W, height=H, sample_start=0, n_samples=2, spp_cap=2,
@@ -857,7 +859,7 @@ def test_media_wavefront_matches_plain(name, capsule_obj, dev):
                                                      "sphere/shared"},
              "mesh": {"planar/global"}}[name]
     assert set(launched["K5_by_tree"]) == trees
-    assert (launched["K4"] > 0) == (name == "final_scene")
+    assert launched["K4"] == 0 and launched["bounce"] > 0
 
 
 def test_media_gradient_is_finite_on_the_card(dev):
