@@ -53,8 +53,11 @@
 // the escape index.  The TPU kernel folds the winner's material columns at
 // every improvement (it has no gathers); here the walk keeps the winner's row
 // index and the shading reads its columns once, which is the same result.
-// The sphere test, the slab test from [t_min, best_t] and the hit normal
-// (o + t d - c) / r with 1/r = 1/(r != 0 ? r : 1) are K3's arithmetic.
+// The sphere test, the slab test from [t_min, best_t] and 1/r = 1/(r != 0 ?
+// r : 1) are K3's arithmetic.  The winner's hit point and normal are not
+// K3's o + t d and (o + t d - c) / r: in every instance a sphere winner is
+// re-projected onto its sphere (onto_sphere), as the port's wavefront
+// re-projects it (ops/intersect.py _onto_sphere).
 //
 // The walk reads compact tables (the wrapper's pack_accel_tables): a node
 // as 2 float4 (lo.xyz, escape | hi.xyz, meta), a sphere as 3 (c0.xyz, r |
@@ -166,6 +169,8 @@ constexpr int MAX_ROWS = 64;
 constexpr int META_SCALE = 64;  // node meta = first * 64 + count
 constexpr float BIG = 3e37f;
 constexpr float NEAR_ZERO_EPS = 1e-8f;
+// A component whose square sums without overflow (intersect.SQUARE_MAX).
+constexpr float SQUARE_MAX = 1e18f;
 constexpr float TWO_PI = 6.2831853071795864769f;
 constexpr int ROUNDS = 13;
 
@@ -232,6 +237,9 @@ struct Params {
   // Sweep forward and counting instances: the lane counter of lane fetch
   // (null: one lane per thread, lane = global thread index).
   int* next;
+  // Forward instances: the sphere hits of the launch, added to (null: not
+  // counted, as on a scene without spheres).
+  unsigned long long* sphere_hits;
 };
 
 // Residual outputs of the record instance: codes [iters][n] int32 and
@@ -373,15 +381,45 @@ __device__ __forceinline__ void sphere_center(const float4& g0,
   c[2] = g0.z + frac * g1.z;
 }
 
+// The sphere winner's normal and hit point (intersect._onto_sphere): the
+// offset off = o + t d - c of o + t d from the centre c at the ray's time,
+// rescaled to |r| (off * |r| / |off|) unless it is zero or too long to
+// square; the normal on * inv_r and the point (o + t d) + (on - off), the
+// form of intersect's records, which is o + t d itself wherever on is off.
+// Rounded one operation at a time in every build, as the plain version
+// rounds them, so the record and counting builds equal it bit for bit.
+__device__ __forceinline__ void onto_sphere(const float o[3], const float d[3],
+                                            float t, const float c[3],
+                                            float r, float inv_r, float bn[3],
+                                            float hp[3]) {
+  float p[3], off[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    p[k] = __fadd_rn(o[k], __fmul_rn(t, d[k]));
+    off[k] = __fsub_rn(p[k], c[k]);
+  }
+  const bool fits = fabsf(off[0]) < SQUARE_MAX &&
+                    fabsf(off[1]) < SQUARE_MAX && fabsf(off[2]) < SQUARE_MAX;
+  const float len2 = dot3_rn(off[0], off[1], off[2], off[0], off[1], off[2]);
+  const bool ok = fits && len2 > 0.0f;
+  const float scale = __fdiv_rn(fabsf(r), __fsqrt_rn(ok ? len2 : 1.0f));
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float on = ok ? __fmul_rn(off[k], scale) : off[k];
+    bn[k] = __fmul_rn(on, inv_r);
+    hp[k] = __fadd_rn(p[k], __fsub_rn(on, off[k]));
+  }
+}
+
 // Sweep mode: every row of the shared-memory tables (pack_sweep_tables),
 // spheres then rects, each read with 16-byte broadcast loads.  Returns the
-// winner's row (-1 on a miss), its t in best_t and its normal, computed
-// once for the winner.
+// winner's row (-1 on a miss), its t in best_t, its normal and its hit
+// point, computed once for the winner.
 __device__ __forceinline__ int sweep_hit(const Params& p,
                                          const float4* __restrict__ tab,
                                          const float o[3], const float d[3],
                                          float tm, float a_len, float& best_t,
-                                         float bn[3], Tally& tl) {
+                                         float bn[3], float hp[3], Tally& tl) {
   int best = -1;
   if constexpr (COUNT) {
     tl.spheres += p.n_spheres;
@@ -436,16 +474,15 @@ __device__ __forceinline__ int sweep_hit(const Params& p,
     bn[0] = g0.x;
     bn[1] = g0.y;
     bn[2] = g0.z;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) hp[k] = o[k] + best_t * d[k];
   } else if (best >= 0) {
-    // Sphere winner: (o + t d - c) / r.
+    // Sphere winner: re-projected onto its sphere at the ray's time.
     const float4* s = tab + SPHERE_F4 * best;
     const float4 g0 = s[0];
     float c3[3];
     sphere_center(g0, s[1], s[2].x, tm, c3);
-    const float inv_r = 1.0f / g0.w;
-    bn[0] = (o[0] + best_t * d[0] - c3[0]) * inv_r;
-    bn[1] = (o[1] + best_t * d[1] - c3[1]) * inv_r;
-    bn[2] = (o[2] + best_t * d[2] - c3[2]) * inv_r;
+    onto_sphere(o, d, best_t, c3, g0.w, 1.0f / g0.w, bn, hp);
   }
   return best;
 }
@@ -549,13 +586,14 @@ __device__ __forceinline__ void leaf_test(const Params& p,
 
 // Accel mode: the stackless walk of the sphere tree over the compact tables
 // (mega_kernel.py:384-500 there), with leaves postponed warp-wide.  Returns
-// the winner's leaf-order row (-1 on a miss), its t in best_t and its normal.
+// the winner's leaf-order row (-1 on a miss), its t in best_t, its normal
+// and its hit point.
 template <int WALK>
 __device__ __forceinline__ int accel_hit(const Params& p,
                                          const float4* __restrict__ tab,
                                          const float o[3], const float d[3],
                                          float tm, float a_len, float& best_t,
-                                         float bn[3], Tally& tl,
+                                         float bn[3], float hp[3], Tally& tl,
                                          int ground_node) {
   constexpr bool SH = WALK == ACCEL_SHARED;
   const float4* nodes = tab;
@@ -598,7 +636,8 @@ __device__ __forceinline__ int accel_hit(const Params& p,
     }
   }
   if (best >= 0) {
-    // The winner's outward normal, K3's formula (mega_kernel.py:462-465).
+    // The winner re-projected onto its sphere; 1/r as K3 takes it
+    // (mega_kernel.py:462-465 there).
     const float4* s = geo + SPHERE_F4 * best;
     const float4 g0 = ld4<SH>(s), g1 = ld4<SH>(s + 1);
     const float frac = (tm - g1.w) * ld1<SH>(s + 2);
@@ -606,10 +645,7 @@ __device__ __forceinline__ int accel_hit(const Params& p,
     const float c[3] = {__fadd_rn(g0.x, __fmul_rn(frac, g1.x)),
                         __fadd_rn(g0.y, __fmul_rn(frac, g1.y)),
                         __fadd_rn(g0.z, __fmul_rn(frac, g1.z))};
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      bn[k] = (__fadd_rn(o[k], __fmul_rn(best_t, d[k])) - c[k]) * inv_r;
-    }
+    onto_sphere(o, d, best_t, c, g0.w, inv_r, bn, hp);
   }
   return best;
 }
@@ -695,6 +731,8 @@ __global__ void mega_forward_kernel(const float* __restrict__ rows_g,
     return l;
   };
   int lane = fetch ? next_live_lane() : blockIdx.x * blockDim.x + threadIdx.x;
+  // Forward instances: this thread's sphere hits (every lane it ran).
+  uint32_t n_sphere_hits = 0;
 
   if (lane < p.n) {
     uint32_t pix, sample;
@@ -762,13 +800,16 @@ __global__ void mega_forward_kernel(const float* __restrict__ rows_g,
 
       // ---- closest hit (strict improvement keeps the earlier row on ties)
       float best_t = BIG;
-      float bn[3] = {0.0f, 0.0f, 0.0f};
+      float bn[3] = {0.0f, 0.0f, 0.0f}, hp[3];
       int best;
       if constexpr (ACCEL) {
-        best = accel_hit<WALK>(p, tab, o, d, tm, a_len, best_t, bn, tl,
+        best = accel_hit<WALK>(p, tab, o, d, tm, a_len, best_t, bn, hp, tl,
                                tly.ground_node);
       } else {
-        best = sweep_hit(p, tab, o, d, tm, a_len, best_t, bn, tl);
+        best = sweep_hit(p, tab, o, d, tm, a_len, best_t, bn, hp, tl);
+      }
+      if constexpr (!RECORD && !COUNT) {
+        if (best >= 0 && (ACCEL || best < p.n_spheres)) ++n_sphere_hits;
       }
 
       bool scattered = false;
@@ -781,12 +822,9 @@ __global__ void mega_forward_kernel(const float* __restrict__ rows_g,
         // ---- shade + scatter (shade.emit_and_scatter) ----------------------
         const Mat r(rows_g, best);
         const bool front = dot3(bn, d) < 0.0f;
-        float n[3], hp[3];
+        float n[3];
 #pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          n[k] = front ? bn[k] : -bn[k];
-          hp[k] = o[k] + best_t * d[k];
-        }
+        for (int k = 0; k < 3; ++k) n[k] = front ? bn[k] : -bn[k];
         const float mk = r[C_MKIND];
         float alb[3] = {r[C_CA], r[C_CA + 1], r[C_CA + 2]};
         if constexpr (RECORD) tid = (int)r[C_TID];
@@ -927,6 +965,16 @@ __global__ void mega_forward_kernel(const float* __restrict__ rows_g,
     // lane is left (each spent lane was finished above).
     if (lane < p.n) finish(lane);
   }
+  if constexpr (!RECORD && !COUNT) {
+    // One add per group of threads that get here together.
+    if (p.sphere_hits != nullptr) {
+      const unsigned m = __activemask();
+      const uint32_t sum = __reduce_add_sync(m, n_sphere_hits);
+      if ((int)(threadIdx.x & 31) == __ffs(m) - 1 && sum) {
+        atomicAdd(p.sphere_hits, (unsigned long long)sum);
+      }
+    }
+  }
 
   if constexpr (COUNT) {
     const unsigned long long v[TALLIES] = {
@@ -1035,6 +1083,7 @@ cudaError_t make_params(int n_spheres, int n_rects, const float* tab,
   p.leaf_size = leaf_size;
   p.smem_bytes = smem_bytes;
   p.next = next;
+  p.sphere_hits = nullptr;
   return cudaSuccess;
 }
 
@@ -1176,8 +1225,10 @@ extern "C" int art_mega_count(const float* rows, int n_spheres, int n_rects,
                      Tallies{tallies, ground_node, times}, stream);
 }
 #else
-// Launches the forward instance (K1, or K3's in accel mode) on `stream`.
-// Returns cudaGetLastError() (0 on success).
+// Launches the forward instance (K1, or K3's in accel mode) on `stream`,
+// adding the launch's sphere hits (the loop iterations whose closest hit is
+// a sphere) into `sphere_hits`, one u64 of device memory (null: not
+// counted).  Returns cudaGetLastError() (0 on success).
 extern "C" int art_mega_forward(const float* rows, int n_spheres, int n_rects,
                                 const float* tab, int n_nodes, int leaf_size,
                                 int smem_bytes, const float* camc,
@@ -1188,6 +1239,7 @@ extern "C" int art_mega_forward(const float* rows, int n_spheres, int n_rects,
                                 float t_min, int flags, int block,
                                 float* out_x, float* out_y, float* out_z,
                                 int* out_seg, int* lane_counter,
+                                unsigned long long* sphere_hits,
                                 void* stream) {
   Params p;
   const cudaError_t bad = make_params(
@@ -1195,6 +1247,7 @@ extern "C" int art_mega_forward(const float* rows, int n_spheres, int n_rects,
       limit, stride, width, height, max_depth, t_min, flags, block,
       lane_counter, p);
   if (bad != cudaSuccess) return (int)bad;
+  p.sphere_hits = sphere_hits;
   return (int)launch(rows, pixel_ids, sample_ids0, p, block, out_x, out_y,
                      out_z, out_seg, Record{}, Tallies{nullptr, -1, nullptr},
                      stream);

@@ -26,8 +26,11 @@ spent.  The closest hit is, per mode:
   which is what the TPU kernel's per-improvement material fold leaves
   behind.  K3's own arithmetic: dead lanes are parked (origin 1e8, direction
   0; here they do not walk at all, which tests nothing either), the slab
-  starts at ``[t_min, best_t]``, and the hit normal is
-  ``(o + t d - c) / r`` with ``1/r`` taken as ``1/where(r != 0, r, 1)``.
+  starts at ``[t_min, best_t]``, and ``1/r`` is taken as
+  ``1/where(r != 0, r, 1)``.  Not K3's: in both modes a sphere winner's hit
+  point and normal are re-projected onto its sphere
+  (``intersect._onto_sphere``), as the wavefront's records are, where the
+  JAX kernel takes ``o + t d`` and ``(o + t d - c) / r``.
   The CUDA walk reads the compact tables of ``pack_accel_tables`` from
   shared memory where they fit a block (``accel_walk``), else from device
   memory, and postpones leaves warp-wide (csrc/mega_kernel.cu); each lane's
@@ -40,10 +43,11 @@ spent.  The closest hit is, per mode:
   same per-lane algorithm as vectorised tensor ops on ``[B]`` lanes, with the
   same rows, keys and fold order (the accel walk through
   ``ops.bvh.traverse_packed``, the plain version of K5, whose sphere test is
-  K3's; the normal recomputed with K3's formula from the winner's row and
-  t).  It runs on any device; the CPU tests hold it against the JAX kernel
-  in interpret mode, and ``chip_smoke.py`` holds the CUDA kernel against it
-  on the card.
+  K3's; the winner re-projected from its row and t).  It runs on any
+  device; the CPU tests hold it against the JAX kernel in interpret mode
+  (with the re-projection patched out: the JAX kernel writes K3's point and
+  normal inline), and ``chip_smoke.py`` holds the CUDA kernel against it on
+  the card.
 * ``record_iters > 0`` selects record mode (K2 / K3's record instance, the
   primal of the fused differentiable path, ``mega_diff.py``): per lane and
   loop iteration one int32 code ``tid*16 + checker_odd*8 + chain_end*4 +
@@ -85,7 +89,7 @@ import torch
 
 from another_raytracer_tpu_torch.models import scene as scene_lib
 from another_raytracer_tpu_torch.ops import bvh as bvh_ops
-from another_raytracer_tpu_torch.ops import kernels, rng, vec3
+from another_raytracer_tpu_torch.ops import intersect, kernels, rng, vec3
 from another_raytracer_tpu_torch.ops.kernels import bvh_kernel
 from another_raytracer_tpu_torch.ops.vec3 import V3
 from another_raytracer_tpu_torch.utils import profiling
@@ -364,7 +368,8 @@ def _check_lanes(pixel_ids, sample_ids0, scene=None):
 def trace_regenerative_mega(scene, cam, pixel_ids, sample_ids0, seed, *,
                             width: int, height: int, sample_stride: int,
                             sample_end, spp_cap, max_depth: int, t_min: float,
-                            block: int | None = None, record_iters: int = 0):
+                            block: int | None = None, record_iters: int = 0,
+                            counts=None):
     """Drop-in counterpart of the JAX ``trace_regenerative_mega`` (same
     arguments and return contract) for scenes where ``supports()`` or
     ``supports_accel()`` holds; a scene with a sphere tree runs the accel
@@ -378,9 +383,12 @@ def trace_regenerative_mega(scene, cam, pixel_ids, sample_ids0, seed, *,
     tensor); with ``record_iters`` > 0 also (codes int32 [record_iters, B],
     tprev V3 of [record_iters, B]) — see the module docstring.
     ``record_iters`` must bound every lane's loop iterations
-    (``_check_record_iters``).  CUDA tensors launch
-    ``csrc/mega_kernel.cu``; CPU tensors run the plain version; any other
-    device raises.
+    (``_check_record_iters``).  ``counts`` (a dict, forward renders of a
+    scene with spheres): receives under ``"sphere_hits"`` the loop
+    iterations whose closest hit is a sphere, an int64 scalar tensor
+    counted on the device, as the wavefront gives it; a scene without
+    spheres counts nothing.  CUDA tensors launch ``csrc/mega_kernel.cu``;
+    CPU tensors run the plain version; any other device raises.
     """
     if not (supports(scene, cam) or supports_accel(scene, cam)):
         raise ValueError("trace_regenerative_mega: scene not supported "
@@ -391,10 +399,22 @@ def trace_regenerative_mega(scene, cam, pixel_ids, sample_ids0, seed, *,
               t_min=t_min, record_iters=record_iters)
     if pixel_ids.device.type == "cpu":
         return trace_regenerative_mega_reference(
-            scene, cam, pixel_ids, sample_ids0, seed, **kw)
+            scene, cam, pixel_ids, sample_ids0, seed, counts=counts, **kw)
     if pixel_ids.device.type != "cuda":
         raise ValueError(f"no megakernel for device {pixel_ids.device}")
-    return _launch(scene, cam, pixel_ids, sample_ids0, seed, block=block, **kw)
+    return _launch(scene, cam, pixel_ids, sample_ids0, seed, block=block,
+                   hits=_sphere_hit_counter(scene, counts, record_iters,
+                                            pixel_ids.device), **kw)
+
+
+def _sphere_hit_counter(scene, counts, record_iters, device):
+    """A forward render's sphere-hit counter (a 0-d int64 tensor on
+    ``device``), put in ``counts`` under ``"sphere_hits"``; None where
+    nothing is counted: no ``counts``, a record launch, or no sphere."""
+    if counts is None or record_iters or not scene.n_spheres:
+        return None
+    counts["sphere_hits"] = torch.zeros((), dtype=torch.int64, device=device)
+    return counts["sphere_hits"]
 
 
 def _check_record_iters(record_iters, *, sample_end, spp_cap, sample_stride,
@@ -437,7 +457,7 @@ def _lib(build="forward"):
         lib.art_mega_count.restype = I
         return lib
     lib = _build.load("mega_kernel")
-    lib.art_mega_forward.argtypes = args + [P, P]
+    lib.art_mega_forward.argtypes = args + [P, P, P]
     lib.art_mega_forward.restype = I
     lib.art_threefry_words.argtypes = [U, U, P, P, I, P, P, P, P, P]
     lib.art_threefry_words.restype = I
@@ -479,7 +499,7 @@ def launch_shape(scene, record_iters=0, lane_fetch=True, block=None):
 def prepare_launch(scene, cam, pixel_ids, sample_ids0, seed, *, width,
                    height, sample_stride, sample_end, spp_cap, max_depth,
                    t_min, block=None, record_iters=0, tally=False,
-                   lane_fetch=True):
+                   lane_fetch=True, sphere_hits=None):
     """Everything one CUDA launch needs, built on the lanes' device: returns
     (run, output tensors).  ``run()`` is the bare launch (it returns the
     CUDA error code); the wrapper adds the checks, the launch count and the
@@ -489,7 +509,10 @@ def prepare_launch(scene, cam, pixel_ids, sample_ids0, seed, *, width,
     ``lane_fetch`` applies to the sweep's forward and counting instances: a
     persistent grid with lane fetch, or one lane per thread (as the other
     instances run); each lane's outputs are the same bits either way.  ``block``
-    defaults to ``K1_BLOCK`` with lane fetch, else ``DEFAULT_BLOCK``."""
+    defaults to ``K1_BLOCK`` with lane fetch, else ``DEFAULT_BLOCK``.
+    ``sphere_hits`` (forward instances only): a 0-d int64 tensor on the
+    lanes' device that each run adds the launch's sphere hits into (the
+    loop iterations whose closest hit is a sphere)."""
     dev = pixel_ids.device
     if sample_stride < 1:
         raise ValueError("sample_stride must be >= 1")
@@ -497,6 +520,11 @@ def prepare_launch(scene, cam, pixel_ids, sample_ids0, seed, *, width,
                         sample_stride=sample_stride, max_depth=max_depth)
     if tally and record_iters:
         raise ValueError("tally counts a forward launch, without record_iters")
+    if sphere_hits is not None and (tally or record_iters
+                                    or sphere_hits.dtype != torch.int64
+                                    or sphere_hits.device != dev):
+        raise ValueError("sphere_hits is a 0-d int64 tensor on the lanes' "
+                         "device, counted by the forward instances only")
     lib = _lib("count" if tally else "record" if record_iters else "forward")
     accel = scene.n_sph_bvh_nodes > 0
     with profiling.span("mega.prepare",
@@ -556,7 +584,7 @@ def prepare_launch(scene, cam, pixel_ids, sample_ids0, seed, *, width,
             outputs = (out, seg, totals, times)
         else:
             entry = lib.art_mega_forward
-            args += (counter,)
+            args += (counter, sphere_hits)
             outputs = (out, seg)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -570,10 +598,10 @@ def prepare_launch(scene, cam, pixel_ids, sample_ids0, seed, *, width,
 
 
 def _launch(scene, cam, pixel_ids, sample_ids0, seed, *, block, record_iters,
-            **kw):
+            hits, **kw):
     run, outputs = prepare_launch(
         scene, cam, pixel_ids, sample_ids0, seed, block=block,
-        record_iters=record_iters, **kw)
+        record_iters=record_iters, sphere_hits=hits, **kw)
     with torch.cuda.device(pixel_ids.device), profiling.span("mega.launch"):
         err = run()
     if err != 0:
@@ -712,7 +740,7 @@ def trace_regenerative_mega_reference(scene, cam, pixel_ids, sample_ids0, seed,
                                       sample_stride: int, sample_end, spp_cap,
                                       max_depth: int, t_min: float,
                                       record_iters: int = 0,
-                                      work: bool = False):
+                                      work: bool = False, counts=None):
     """The kernel's per-lane algorithm as tensor ops on [B] lanes (any
     device).  Every lane steps once per loop iteration while any lane is
     alive; a dead lane changes nothing, so each lane's result equals the
@@ -722,7 +750,9 @@ def trace_regenerative_mega_reference(scene, cam, pixel_ids, sample_ids0, seed,
     totals, the work the kernel does on these inputs, which its counting
     instance must equal: in accel mode the walk's (slab tests, sphere tests)
     (``walk_tallies``), in sweep mode the (sphere row tests, rect row tests)
-    of every alive lane's every loop iteration (``sweep_tallies``)."""
+    of every alive lane's every loop iteration (``sweep_tallies``).
+    ``counts`` as the wrapper's: the alive lanes' loop iterations whose
+    closest hit is a sphere, counted as the forward instances count them."""
     _check_lanes(pixel_ids, sample_ids0, scene)
     _check_record_iters(record_iters, sample_end=sample_end, spp_cap=spp_cap,
                         sample_stride=sample_stride, max_depth=max_depth)
@@ -810,15 +840,18 @@ def trace_regenerative_mega_reference(scene, cam, pixel_ids, sample_ids0, seed,
     n_textures = scene.tex_kind.shape[0]
     it = 0
     walked = [0, 0]
+    sphere_hits = _sphere_hit_counter(scene, counts, record_iters, fi.device)
 
     while bool(alive.any()):
         a_len = vec3.dot(d, d)
         if accel:
-            best_t, r, b_n = _accel_hit(scene, rows, walk_rows, row_of, o, d,
-                                        tm, alive, t_min, walked)
+            best_t, r, b_n, p = _accel_hit(scene, rows, walk_rows, row_of, o,
+                                           d, tm, alive, t_min, walked)
+            is_sph = True
         else:
-            best_t, best, b_n = _sweep(tab, ns, o, d, tm, a_len, t_min)
+            best_t, best, b_n, p = _sweep(tab, ns, o, d, tm, a_len, t_min)
             r = rows[best]
+            is_sph = best < ns
             if work:
                 n_alive = int(alive.sum())
                 walked[0] += ns * n_alive
@@ -826,11 +859,12 @@ def trace_regenerative_mega_reference(scene, cam, pixel_ids, sample_ids0, seed,
         hit = alive & (best_t < BIG)
         miss_now = alive & ~hit
         tp_entry = tp
+        if sphere_hits is not None:
+            sphere_hits.add_((hit & is_sph).sum())
 
         # ---- shade + scatter (shade.emit_and_scatter) ---------------------
         front = vec3.dot(b_n, d) < 0.0
         n = vec3.where(front, b_n, -b_n)
-        p = o + d * best_t
         mk = r[:, _C_MKIND]
         alb = V3.from_array(r[:, _C_CA:_C_CA + 3])
         if has_checker:
@@ -946,10 +980,11 @@ def _accel_hit(scene, rows, walk_rows, row_of, o: V3, d: V3, tm, alive,
                t_min, walked):
     """K3's closest hit for the alive lanes: the stackless walk of the
     sphere tree (``ops.bvh.traverse_packed``, the plain version of K5, whose
-    sphere test and strict-``<`` leaf fold are K3's), then the winner's
-    normal with K3's own formula (mega_kernel.py:462-465 there).  Same
-    returns as ``_sweep``; adds the walk's slab and sphere tests to
-    ``walked``."""
+    sphere test and strict-``<`` leaf fold are K3's), then the winner
+    re-projected onto its sphere (``_onto_winner``, with K3's 1/r,
+    mega_kernel.py:462-465 there).  Returns (best_t, the winner's widened
+    row, normal, hit point), as ``_sweep``; adds the walk's slab and sphere
+    tests to ``walked``."""
     B = o.x.shape[0]
     dev = o.x.device
     best_t = torch.full((B,), BIG, dtype=torch.float32, device=dev)
@@ -972,9 +1007,20 @@ def _accel_hit(scene, rows, walk_rows, row_of, o: V3, d: V3, tm, alive,
     frac = (tm - r[:, 6]) * r[:, 7]
     rad = r[:, 8]
     inv_r = 1.0 / torch.where(rad != 0.0, rad, torch.ones_like(rad))
-    b_n = V3(*((o[c] + best_t * d[c] - (r[:, c] + frac * r[:, 3 + c])) * inv_r
-               for c in range(3)))
-    return best_t, r, b_n
+    center = V3(*(r[:, c] + frac * r[:, 3 + c] for c in range(3)))
+    return (best_t, r) + _onto_winner(o, d, best_t, center, rad, inv_r)
+
+
+def _onto_winner(o: V3, d: V3, t, center: V3, rad, inv_r):
+    """(normal, hit point) of sphere winners hit at ``t``: the offset of
+    ``o + d t`` from the centre re-projected onto the sphere
+    (``intersect._onto_sphere``, the rule's one definition), the normal
+    ``on * inv_r`` and the point ``(o + d t) + (on - off)``, intersect's
+    form, which is ``o + d t`` itself wherever ``on`` is ``off``."""
+    p = o + d * t
+    off = p - center
+    on = intersect._onto_sphere(off, rad)
+    return on * inv_r, p + (on - off)
 
 
 def _sweep(tab, ns, o: V3, d: V3, tm, a_len, t_min):
@@ -983,7 +1029,7 @@ def _sweep(tab, ns, o: V3, d: V3, tm, a_len, t_min):
     winner is the first row attaining the minimum, which is what the
     kernel's sequential strict-`<` fold keeps.  Returns (best_t [B] with BIG
     on a miss, the winner's row index [B] (row 0 on a miss: read only where
-    there is a hit), hit normal V3)."""
+    there is a hit), hit normal V3, hit point V3)."""
     cands = []
     inf = float("inf")
     s = tab[:3 * ns].reshape(ns, 3, 4)
@@ -1024,18 +1070,20 @@ def _sweep(tab, ns, o: V3, d: V3, tm, a_len, t_min):
     best_t, best = torch.min(t_all, dim=1)
     best_t = torch.where(best_t < BIG, best_t, torch.full_like(best_t, BIG))
 
-    # The winner's normal: a rect's n; a sphere's (o + t d - c) / r from its
-    # centre at tm.
+    # The winner's normal and point: a rect's n at o + t d; a sphere's
+    # re-projected from its centre at tm.
     is_sph = best < ns
     rq = q[torch.clamp(best - ns, min=0)] if q.shape[0] else None
     b_n = (V3.from_array(rq[:, 0, :3]) if rq is not None
            else V3(*(torch.zeros_like(best_t) for _ in range(3))))
+    p = o + d * best_t
     if ns:
         w = s[torch.clamp(best, max=ns - 1)]
         frac = (tm - w[:, 1, 3]) * w[:, 2, 0]
         center = V3(w[:, 0, 0] + frac * w[:, 1, 0], w[:, 0, 1] + frac * w[:, 1, 1],
                     w[:, 0, 2] + frac * w[:, 1, 2])
-        inv_r = 1.0 / w[:, 0, 3]
-        n_sph = ((o + d * best_t) - center) * inv_r
+        n_sph, p_sph = _onto_winner(o, d, best_t, center, w[:, 0, 3],
+                                    1.0 / w[:, 0, 3])
         b_n = vec3.where(is_sph, n_sph, b_n)
-    return best_t, best, b_n
+        p = vec3.where(is_sph, p_sph, p)
+    return best_t, best, b_n, p

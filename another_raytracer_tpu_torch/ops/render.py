@@ -57,8 +57,10 @@ def radiance_batch(scene, cam, pixel_ids, seed, *, width, height,
     trainable scene leaves; the fused path engages only for a declared set
     free of geometry leaves (``mega_diff.enabled``).
 
-    ``counts`` (a dict, forward renders): receives the wavefront's device
-    counts (``integrator.trace_regenerative``); the megakernel gives none.
+    ``counts`` (a dict, forward renders): receives the device counts of
+    the wavefront (``integrator.trace_regenerative``) or of the megakernel
+    (``mega_kernel.trace_regenerative_mega``): the sphere hits, on a scene
+    with spheres.
 
     Returns (radiance_sum V3 of [Np], segments int64 scalar tensor).
     """
@@ -80,16 +82,14 @@ def radiance_batch(scene, cam, pixel_ids, seed, *, width, height,
             # Pad lanes start past every sample limit -> born dead.
             samp0 = torch.where(lane_mask.repeat(spass), samp0,
                                 torch.full_like(samp0, rng.MASK32))
-    if mega_kernel.enabled(scene, cam):
-        trace_fn = mega_kernel.trace_regenerative_mega
-    else:
-        trace_fn = functools.partial(integrator.trace_regenerative,
-                                     counts=counts)
+    trace_fn = (mega_kernel.trace_regenerative_mega
+                if mega_kernel.enabled(scene, cam)
+                else integrator.trace_regenerative)
     acc, segments = trace_fn(
         scene, cam, pix, samp0, seed,
         width=width, height=height, sample_stride=spass,
         sample_end=int(sample_start) + n_samples, spp_cap=spp_cap,
-        max_depth=max_depth, t_min=t_min,
+        max_depth=max_depth, t_min=t_min, counts=counts,
     )
     acc = acc.map(lambda c: c.reshape(spass, n_pixels).sum(dim=0))
     return acc, segments
@@ -257,7 +257,7 @@ def render(scene, cam, config: RenderConfig, progress=None, partition=None):
     default to every visible CUDA device.
 
     The ``render`` span counts the render's ``segments`` and, in single mode
-    through the wavefront on a scene with spheres, ``sphere_hits``: the
+    on a scene with spheres (the wavefront, K1 or K3), ``sphere_hits``: the
     paths' segments whose closest hit is a sphere, read with the segments.
     """
     counts = {}

@@ -172,10 +172,14 @@ PEAK_OPS, PEAK_BYTES = 67e12, 3.35e12
 # a sphere row's test, a rect row's test, and the rest of a segment (one
 # 13-round threefry call, direction sampling, shading, carry updates).
 OPS_SPHERE_ROW, OPS_RECT_ROW, OPS_SEGMENT = 30, 35, 144
-# K3 per segment: OPS_SEGMENT, the winner's normal (9), and the walk's slab
-# and sphere tests (ops/bvh.py's OPS_PER_SLAB, OPS_PER_TEST), counted by the
-# plain version on the same inputs.
-OPS_K3_NORMAL = 9
+# K3 per segment: OPS_SEGMENT, the winner's point and normal re-projected
+# onto its sphere (46, csrc/mega_kernel.cu's accel_hit and onto_sphere: the
+# centre at the ray's time 8, 1/r 2, o + t d 6, the offset 3, the range
+# test 6, |off|^2 5, the test of it 1, |r| / |off| 3, on 3, the normal 3,
+# the point 6), and the walk's slab and sphere tests (ops/bvh.py's
+# OPS_PER_SLAB, OPS_PER_TEST), counted by the plain version on the same
+# inputs.
+OPS_K3_WINNER = 46
 # Operations per live residual row of the replay, and per point of K4
 # (csrc/mega_replay.cu, csrc/perlin_kernel.cu).
 OPS_REPLAY_ROW, OPS_PERLIN = 15, 96
@@ -532,22 +536,6 @@ def fused_vs_lockstep(scene, cam, target, params, kw, dev, seed=555):
     trainable = tuple(sorted(params))
     spp = kw["spp"]
 
-    @contextlib.contextmanager
-    def route(flag):
-        """The fused path (None) or the lockstep path (False), the latter
-        without the sphere records' re-projection onto their spheres:
-        K2, K3 and the replay do not re-project yet, so the two routes are
-        held to the arithmetic they share."""
-        from another_raytracer_tpu_torch.ops import intersect
-
-        saved = intersect._onto_sphere
-        if flag is False:
-            intersect._onto_sphere = lambda off, r: off
-        try:
-            with fused(flag):
-                yield
-        finally:
-            intersect._onto_sphere = saved
     # The two routes' float arithmetic flips a few paths.  Find the pixels
     # where a path differs: render both routes with every texture and the
     # background recoloured (colours steer no path, and with a lit background
@@ -562,7 +550,7 @@ def fused_vs_lockstep(scene, cam, target, params, kw, dev, seed=555):
     def images(sc):
         out = []
         for flag in (None, False):
-            with route(flag), torch.no_grad():
+            with fused(flag), torch.no_grad():
                 a, _ = render_lib.render_radiance(sc, cam, seed,
                                                   differentiable=True,
                                                   trainable=trainable, **kw)
@@ -586,7 +574,7 @@ def fused_vs_lockstep(scene, cam, target, params, kw, dev, seed=555):
         raise AssertionError(f"{n_flipped} of {flipped.numel()} pixels flipped")
 
     def value_and_grads(flag, tgt):
-        with route(flag):
+        with fused(flag):
             return diff.render_value_and_grad(params, scene, cam, tgt, seed,
                                               **kw)
 
@@ -2493,9 +2481,9 @@ def main(argv=None) -> int:
     regs = {(build, walk): kernel_usage(_build.build_log(build),
                                         f"mega_forward_kernelILi{tag}EE")
             for build in mega_builds for tag, walk in WALK_NAMES.items()}
-    if any(regs["mega_kernel", w][1] for w in WALK_NAMES.values()):
-        raise AssertionError("a forward instance of the megakernel spills "
-                             "registers")
+    if any(spilled for _, spilled in regs.values()):
+        raise AssertionError(f"an instance of the megakernel spills "
+                             f"registers: {regs}")
     k1_regs, k2_regs = regs["mega_kernel", "sweep"][0], regs[
         "mega_kernel_record", "sweep"][0]
     k3_regs = {w: regs["mega_kernel", w][0] for w in ("shared", "global")}
@@ -3131,6 +3119,15 @@ def main(argv=None) -> int:
     if not np.array_equal(pngs["adaptive"][corners], pngs["single"][corners]):
         raise AssertionError("adaptive corners differ from the single render")
     k3_launches = accel_cli["single"][3]["K3"]
+    # K3 and the wavefront both re-project sphere hits onto their spheres:
+    # the README render through K3 traces within 1% of the wavefront's
+    # segments (section 13's pinned count).
+    k3_segs, wave_segs = accel_cli["single"][2], WAVEFRONT_SEGMENTS[1]
+    if abs(k3_segs - wave_segs) > 0.01 * wave_segs:
+        raise AssertionError(f"scene 1: K3 traces {k3_segs} segments, the "
+                             f"wavefront {wave_segs}")
+    phase("main_path_accel", f"scene 1 segments: K3 {k3_segs}, the "
+          f"wavefront {wave_segs} ({k3_segs / wave_segs - 1:+.4%})")
     phase("main_path_accel", f"adaptive vs single: corners equal, median |diff| "
           f"{np.median(np.abs(pngs['adaptive'].astype(int) - pngs['single'])):.1f}"
           f", {accel_cli['adaptive'][2] / accel_cli['single'][2]:.3f} of the "
@@ -3212,7 +3209,7 @@ def main(argv=None) -> int:
     k3_bound_ms, k3_bound_by = bound(
         slabs3 * bvh_ops.OPS_PER_SLAB
         + tests3 * bvh_ops.OPS_PER_TEST["sphere", False]
-        + segs_k3 * (OPS_SEGMENT + OPS_K3_NORMAL),
+        + segs_k3 * (OPS_SEGMENT + OPS_K3_WINNER),
         W * H * 24 + rows_bytes + nodes_bytes)
     simt = {m: round(tal[m], 4) for m in ("slab_simt", "leaf_simt",
                                           "ground_share")}
@@ -3301,7 +3298,7 @@ def main(argv=None) -> int:
     k3r_bound_ms, k3r_bound_by = bound(
         slabs3r * bvh_ops.OPS_PER_SLAB
         + tests3r * bvh_ops.OPS_PER_TEST["sphere", False]
-        + st_k3r["segments"] * (OPS_SEGMENT + OPS_K3_NORMAL),
+        + st_k3r["segments"] * (OPS_SEGMENT + OPS_K3_WINNER),
         BW * BH * 24 + rows_bytes + nodes_bytes + resid)
     rp485_t = replay_timings(rp485_args, dev, sms)
     phase("timing_k3", f"scene 1 {BW}x{BH} spp{BSPP} depth{BDEPTH}: K3 record "

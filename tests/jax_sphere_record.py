@@ -12,7 +12,17 @@ in a child process (``test_torch_media.jax_reference``) starts with
 object-space offset from the centre with the record's own operations, moves
 the point and the normal as the port does, and takes the UV of the moved
 normal from the JAX package's own code (``_sphere_record_aux``, which
-computes the spherical UV of the normal it is given)."""
+computes the spherical UV of the normal it is given).
+
+The JAX package's Pallas megakernel writes its sphere point and normal
+inline, where no wrapper reaches them.  The tests that hold the port's
+megakernel (its plain version, K1's and K3's, and their record instances)
+against it, or against a JAX path that takes sphere hits as ``o + t d``,
+take the port's re-projection out instead: ``megakernel_as_jax()``
+(and the fixture ``megakernel_like_jax``) puts
+``jax_kernel_winner`` in place of the megakernel's ``_onto_winner``."""
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -101,3 +111,28 @@ def jax_reprojects_spheres(monkeypatch):
     yield
     monkeypatch.undo()
     jax.clear_caches()
+
+
+def jax_kernel_winner(o, d, t, center, rad, inv_r):
+    """The megakernel's sphere winner as the JAX kernel takes it: the point
+    ``o + d t`` and the normal ``(o + d t - c) * inv_r``, not re-projected
+    (the port's ``mega_kernel._onto_winner`` without ``_onto_sphere``)."""
+    p = o + d * t
+    return (p - center) * inv_r, p
+
+
+@contextlib.contextmanager
+def megakernel_as_jax():
+    """``jax_kernel_winner`` in the port's megakernel inside the block."""
+    from another_raytracer_tpu_torch.ops.kernels import mega_kernel
+
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(mega_kernel, "_onto_winner", jax_kernel_winner)
+        yield
+
+
+@pytest.fixture
+def megakernel_like_jax():
+    """``megakernel_as_jax()`` for the test."""
+    with megakernel_as_jax():
+        yield

@@ -5,7 +5,9 @@ K3's plain version is held against the Pallas kernel in accel mode
 (interpret) with the bar of tests/test_mega.py:37-45 (segment drift <=
 max(4, 1%), <= 2% of lane values off by more than 2e-2, median difference
 < 1e-5), on the 81-sphere tree of tests/test_mega.py:74-95 and on scene 1
-(the random scene: 871 spheres, 485 textures, lens and motion).  Its record
+(the random scene: 871 spheres, 485 textures, lens and motion), with the
+port's re-projection of sphere hits taken out (``megakernel_like_jax``,
+tests/jax_sphere_record.py: the Pallas kernel takes ``o + t d``).  Its record
 instance and the fused gradients are tests/test_torch_accel_diff.py's.
 """
 
@@ -27,6 +29,7 @@ from another_raytracer_tpu_torch.ops import render as trender
 from another_raytracer_tpu_torch.ops import vec3 as tvec3
 from another_raytracer_tpu_torch.ops.kernels import mega_kernel as tmk
 from test_mega import _bvh_sphere_scene
+from jax_sphere_record import megakernel_like_jax  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -103,7 +106,7 @@ def _forward_bar(want, got):
 
 
 @pytest.mark.parametrize("name", ["bvh_sphere_scene", "random_scene"])
-def test_plain_accel_matches_pallas(name):
+def test_plain_accel_matches_pallas(name, megakernel_like_jax):
     (ref, ref_cam), (port, cam) = _both(name)
     assert tmk.supports_accel(port, cam) and jmk.supports_accel(ref, ref_cam)
     assert not tmk.supports(port, cam)

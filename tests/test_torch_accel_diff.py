@@ -13,8 +13,12 @@ sums run in another order).  Gradients use the bar of
 tests/test_mega_diff.py:264-266 (3e-4 of the scale), after a check that the
 renders trace the same paths (equal segments, radiance to 1e-5): the port
 takes sqrt / sin / cos correctly rounded and XLA does not always, and K3's
-hit normal differs from the wavefront's at the ulp level, so a path flips
-now and then at an edge (tests/test_torch_diff.py says more).
+hit point differs from the lockstep path's at the ulp level, so a path flips
+now and then at an edge (tests/test_torch_diff.py says more).  Against the
+JAX kernel, which takes sphere hits as ``o + t d``, the port's megakernel
+does too (``megakernel_like_jax``, tests/jax_sphere_record.py); its
+fused path and its lockstep path both re-project, and are held to each
+other as they are.
 """
 
 import contextlib
@@ -28,24 +32,14 @@ import torch
 from another_raytracer_tpu.ops import render as jrender
 from another_raytracer_tpu.ops import vec3 as jvec3
 from another_raytracer_tpu.ops.pallas import mega_diff as jmd
-from another_raytracer_tpu_torch.ops import intersect as tix
 from another_raytracer_tpu_torch.ops import render as trender
 from another_raytracer_tpu_torch.ops import vec3 as tvec3
 from another_raytracer_tpu_torch.ops.kernels import mega_diff as tmd
+from jax_sphere_record import megakernel_like_jax  # noqa: F401
+from jax_sphere_record import megakernel_as_jax
 from test_torch_accel import DEPTH, H, W, _both, _forward_bar, _kw, _run_both
 
 torch.set_num_threads(1)
-
-
-@contextlib.contextmanager
-def unprojected():
-    """The port's sphere records without the re-projection onto the
-    sphere, inside the block: the arithmetic of K3 and its plain version,
-    which do not re-project yet (ROADMAP), so the lockstep path is held to
-    the fused one on what the two share."""
-    with pytest.MonkeyPatch.context() as m:
-        m.setattr(tix, "_onto_sphere", lambda off, r: off)
-        yield
 
 
 @pytest.fixture
@@ -62,7 +56,7 @@ def flags():
     jrender.clear_trace_caches()
 
 
-def test_record_accel_matches_pallas():
+def test_record_accel_matches_pallas(megakernel_like_jax):
     ref, want, got = _run_both("bvh_sphere_scene",
                                **_kw(spp=2, record_iters=2 * DEPTH))
     _forward_bar(want, got)
@@ -123,9 +117,10 @@ def test_replay_reference_matches_bwd_large():
 def test_fused_accel_grads_match_jax_and_lockstep(flags):
     """Gradients of sum(w * radiance) in tex_ca, tex_cb and background on the
     70-sphere scene: the port's fused path (K3's record instance and the
-    replay, plain versions) against JAX's fused path (interpret) and against
-    the port's lockstep autograd path."""
-    # Seed 1: the three renders trace the same paths (at 5 of seeds 0-7 an
+    replay, plain versions) against JAX's fused path (interpret), the
+    megakernel's re-projection taken out as JAX's kernel has none, and
+    against the port's lockstep autograd path, both re-projecting."""
+    # Seed 1: the four renders trace the same paths (at 5 of seeds 0-7 an
     # ulp-level difference flips one, module docstring).
     w_, h_, spp, depth, seed = 16, 12, 4, 4, 1
     (ref, ref_cam), (port, cam) = _both("seventy_spheres", w_, h_)
@@ -153,29 +148,32 @@ def test_fused_accel_grads_match_jax_and_lockstep(flags):
                                            differentiable=True,
                                            trainable=keys, **kw)
 
-    def port_grads(fused):
+    def port_grads(fused, like_jax=False):
         flags(port=fused)
         leaves = {k: getattr(port, k).clone().requires_grad_(True)
                   for k in keys}
-        with unprojected():
+        with (megakernel_as_jax() if like_jax
+              else contextlib.nullcontext()):
             acc, segs = trender.render_radiance(
                 port.replace(**leaves), cam, seed, differentiable=True,
                 trainable=keys, **kw)
         loss = (torch.stack(tuple(acc), dim=1) * torch.from_numpy(w)).sum()
         return acc, int(segs), torch.autograd.grad(loss, list(leaves.values()))
 
+    acc_u, seg_u, g_u = port_grads(True, like_jax=True)
     acc_f, seg_f, g_f = port_grads(True)
     acc_l, seg_l, g_l = port_grads(False)
     # Same paths first (module docstring).
-    assert seg_f == int(seg_w) == seg_l
-    for acc in (acc_f, acc_l):
-        np.testing.assert_allclose(tvec3.to_numpy(acc), jvec3.to_numpy(acc_w),
-                                   rtol=0, atol=1e-5)
-    for key, gw, gf, gl in zip(keys, want, g_f, g_l):
+    assert seg_u == int(seg_w) and seg_f == seg_l
+    for acc, acc_want in ((acc_u, jvec3.to_numpy(acc_w)),
+                          (acc_f, tvec3.to_numpy(acc_l))):
+        np.testing.assert_allclose(tvec3.to_numpy(acc), acc_want, rtol=0,
+                                   atol=1e-5)
+    for key, gw, gu, gf, gl in zip(keys, want, g_u, g_f, g_l):
         gw = np.asarray(gw)
-        scale = max(np.abs(gw).max(), 1e-9)
-        for g in (gf, gl):
-            np.testing.assert_allclose(g.numpy(), gw, atol=3e-4 * scale,
+        for g, g_want in ((gu, gw), (gf, gl.numpy())):
+            scale = max(np.abs(g_want).max(), 1e-9)
+            np.testing.assert_allclose(g.numpy(), g_want, atol=3e-4 * scale,
                                        rtol=3e-4, err_msg=key)
         assert np.abs(gw).max() > 0, key  # tex_cb: checker odd cells
 
@@ -193,10 +191,9 @@ def test_fused_path_takes_scene1_textures(flags):
         flags(port=fused)
         leaves = {k: getattr(port, k).clone().requires_grad_(True)
                   for k in keys}
-        with unprojected():
-            acc, segs = trender.render_radiance(
-                port.replace(**leaves), cam, 1, differentiable=True,
-                trainable=keys, **kw)
+        acc, segs = trender.render_radiance(
+            port.replace(**leaves), cam, 1, differentiable=True,
+            trainable=keys, **kw)
         loss = sum(c.sum() for c in acc)
         out[fused] = (int(segs), torch.autograd.grad(loss, list(leaves.values())))
     assert out[True][0] == out[False][0]

@@ -6,7 +6,9 @@ version: K1's on the Cornell box, K3's on the sphere tree).  Both decide the
 subdivision of each level from the traced corners' colours, so a pixel whose
 path flips between the packages at an edge (tests/test_mega.py:37-45) can
 flip a square.  The bar: each level's subdivision masks equal on >= 98% of
-its squares, and the uint8 images equal on >= 98% of pixels.
+its squares, and the uint8 images equal on >= 98% of pixels.  The port's
+megakernel takes sphere hits as ``o + t d`` there, as JAX's does
+(``megakernel_like_jax``, tests/jax_sphere_record.py).
 """
 
 import numpy as np
@@ -29,6 +31,7 @@ from another_raytracer_tpu_torch.ops import camera as tcam
 from another_raytracer_tpu_torch.ops import kernels as tkernels
 from another_raytracer_tpu_torch.ops import render as trender
 from another_raytracer_tpu_torch.ops.kernels import mega_kernel as tmk
+from jax_sphere_record import megakernel_like_jax  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -72,7 +75,7 @@ def _masks(monkeypatch, module):
 
 
 @pytest.mark.parametrize("name", list(SCENES))
-def test_adaptive_matches_jax(name, monkeypatch):
+def test_adaptive_matches_jax(name, monkeypatch, megakernel_like_jax):
     ref, params = SCENES[name]()
     ref_cam = jcam.make_camera(aspect_ratio=W / H, **params)
     port = tscene.scene_from_reference(ref, device="cpu")

@@ -8,7 +8,8 @@ rows on a small capsule that ``chip_smoke.write_capsule`` writes into a
 temporary directory (``test_torch_bench_extra_grad.py`` holds the gradient
 rows).  Forward rows are held to the segment and radiance bar of
 tests/test_mega.py:37-45; the adaptive row's traced pixels and image must
-be equal.  The JAX side runs in one child process whose XLA:CPU emits no
+be equal.  The port's megakernel takes sphere hits as ``o + t d`` there, as
+the JAX side does (``megakernel_like_jax``, tests/jax_sphere_record.py).  The JAX side runs in one child process whose XLA:CPU emits no
 FMA (``test_torch_media.jax_reference``); the script is imported with its
 persistent compilation cache in the test's temporary directory, so the
 raw outputs, computed by the same calls as the runners', reuse the
@@ -28,6 +29,7 @@ from another_raytracer_tpu_torch import bench_extra, trace_scene
 from another_raytracer_tpu_torch.ops import vec3 as tvec3
 from test_torch_media import forward_bar, jax_reference
 from test_torch_scene import _assert_scene_equal
+from jax_sphere_record import megakernel_like_jax  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -129,7 +131,7 @@ def test_configs_match_jax(jbe):
 
 
 @pytest.mark.parametrize("name", ROWS)
-def test_row_matches_jax(jax_side, name):
+def test_row_matches_jax(jax_side, name, megakernel_like_jax):
     obj, want = jax_side
     wl = bench_extra.setup(name, "cpu", obj, SIZE)
     rec, run = bench_extra.measure(wl)

@@ -8,7 +8,9 @@ rtol 1e-4 and the gradient norm to 1e-2 relative (with the segments to the
 bar of tests/test_mega.py:37-45).  Routes differ by design: on the CPU the
 JAX package leaves every row on its autodiff path, while the port's fused
 path (the plain versions of K2 or K3's record instance and the replay)
-takes sphere_ground_grad, metal_diel_grad and random_grad.
+takes sphere_ground_grad, metal_diel_grad and random_grad, whose
+megakernel takes sphere hits as ``o + t d`` here, as JAX's autodiff path
+does (``megakernel_like_jax``, tests/jax_sphere_record.py).
 """
 
 import numpy as np
@@ -17,6 +19,7 @@ import torch
 
 from another_raytracer_tpu_torch import bench_extra
 from test_torch_bench_extra import jax_rows
+from jax_sphere_record import megakernel_like_jax  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -32,7 +35,8 @@ def jax_side(tmp_path_factory):
 
 
 @pytest.mark.parametrize("name", ROWS)
-def test_grad_row_matches_jax(jax_side, name, monkeypatch):
+def test_grad_row_matches_jax(jax_side, name, monkeypatch,
+                              megakernel_like_jax):
     from another_raytracer_tpu_torch.ops.kernels import mega_diff
 
     obj, want = jax_side

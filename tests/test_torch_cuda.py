@@ -710,6 +710,34 @@ def test_walk_tallies_equal_plain_work(name, dev):
     assert 0 < t["ground_tests"] <= t["sphere_tests"]
 
 
+@pytest.mark.parametrize("name", ["random_scene", "dense_spheres_scene",
+                                  "lens_motion_metal_dielectric_checker",
+                                  "cornell_box"])
+def test_forward_instances_count_sphere_hits(name, dev):
+    # K3's and K1's forward instances count their sphere winners on the
+    # card as their plain version counts them (its paths to the bar of
+    # tests/test_mega.py:37-45: the forward build contracts FMA); a scene
+    # without spheres counts none.
+    scene, params = {**SCENES, **ACCEL_SCENES}[name](device=dev)
+    cam = camera.make_camera(aspect_ratio=W / H, device=dev, **params)
+    pix = torch.arange(W * H, device=dev)
+    samp = torch.zeros(W * H, dtype=torch.int64, device=dev)
+    kw = dict(width=W, height=H, sample_stride=1, sample_end=8, spp_cap=8,
+              max_depth=50, t_min=1e-3)
+    counts = {}
+    _, segs = mega_kernel.trace_regenerative_mega(scene, cam, pix, samp, 3,
+                                                  counts=counts, **kw)
+    if not scene.n_spheres:
+        assert counts == {} and int(segs) > 0
+        return
+    want = {}
+    mega_kernel.trace_regenerative_mega_reference(scene, cam, pix, samp, 3,
+                                                  counts=want, **kw)
+    got, want = int(counts["sphere_hits"]), int(want["sphere_hits"])
+    assert abs(got - want) <= max(4, 0.01 * want)
+    assert 0 < got < int(segs)
+
+
 def _large_t_replay_args(dev):
     scene, got, _ = _accel("random_scene", dev, record_iters=4 * 8, depth=8)
     T = scene.tex_ca.shape[0]

@@ -8,7 +8,9 @@ equal on >= 98% of lanes (event and end bit on every row; texture id and
 checker bit where the event is a scatter or a light hit — on idle rows the
 JAX kernel may carry a stale checker bit and writes the stale throughput,
 which the replay ignores) and tprev within 1e-5 on the live rows of equal
-lanes.  The replay's plain version gets the same numpy residuals and
+lanes.  Where the port's megakernel meets JAX's on sphere scenes it takes
+sphere hits as ``o + t d``, as JAX's does (``megakernel_like_jax``,
+tests/jax_sphere_record.py).  The replay's plain version gets the same numpy residuals and
 cotangents as JAX's ``_traced_bwd`` and must agree to rtol 1e-5 (the sums
 run in another order).
 
@@ -47,6 +49,7 @@ from another_raytracer_tpu_torch.ops import render as trender
 from another_raytracer_tpu_torch.ops import vec3 as tvec3
 from another_raytracer_tpu_torch.ops.kernels import mega_diff as tmd
 from another_raytracer_tpu_torch.ops.kernels import mega_kernel as tmk
+from jax_sphere_record import megakernel_like_jax  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -140,7 +143,7 @@ def fused_flag():
 
 
 @pytest.mark.parametrize("name", ["cornell", "mixed"])
-def test_record_mode_matches_pallas(name):
+def test_record_mode_matches_pallas(name, megakernel_like_jax):
     (ref, ref_cam), (port, cam) = _both(name)
     kw = _record_kw()
     want = jmk.trace_regenerative_mega(
@@ -238,7 +241,8 @@ LOSS_CASES = [
 
 
 @pytest.mark.parametrize("name,path,seed", LOSS_CASES)
-def test_render_loss_matches_jax(name, path, seed, fused_flag):
+def test_render_loss_matches_jax(name, path, seed, fused_flag,
+                                 megakernel_like_jax):
     """The port's lockstep path against JAX's (its default on the CPU), and
     the port's fused path (its default on every device) against JAX's fused
     path in interpret mode."""

@@ -2,7 +2,9 @@
 version, held against the Pallas kernel in interpret mode with the bar of
 tests/test_mega.py:37-45 (segment drift <= max(4, 1%), <= 2% of lane values
 off by more than 2e-2, median difference < 1e-5: ulp-level differences in
-sin/cos/sqrt between XLA and PyTorch can flip a path at an edge)."""
+sin/cos/sqrt between XLA and PyTorch can flip a path at an edge), with the
+port's re-projection of sphere hits taken out (``megakernel_like_jax``,
+tests/jax_sphere_record.py: the Pallas kernel takes ``o + t d``)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +22,7 @@ from another_raytracer_tpu_torch.ops import camera as tcam
 from another_raytracer_tpu_torch.ops import render as trender
 from another_raytracer_tpu_torch.ops import vec3 as tvec3
 from another_raytracer_tpu_torch.ops.kernels import mega_kernel as tmk
+from jax_sphere_record import megakernel_like_jax  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -78,7 +81,7 @@ def test_pack_rows_matches_reference(name):
 
 
 @pytest.mark.parametrize("name", list(SCENES))
-def test_plain_kernel_matches_reference(name):
+def test_plain_kernel_matches_reference(name, megakernel_like_jax):
     (ref, ref_cam), (port, cam) = _both(name)
     want, want_segs = jmk.trace_regenerative_mega(
         ref, ref_cam, jnp.arange(W * H, dtype=jnp.uint32),

@@ -3,8 +3,10 @@
 
 Bars: the progressive image against JAX's ``render_progressive`` as
 tests/test_torch_render.py holds single mode (>= 98% of uint8 channels
-within 2; segments within max(4, 1%)); resume bit-equal to an
-uninterrupted run (the float64 accumulator is saved exactly).
+within 2; segments within max(4, 1%)), the port's megakernel taking sphere
+hits as ``o + t d`` as JAX's path does (``megakernel_like_jax``,
+tests/jax_sphere_record.py); resume bit-equal to an uninterrupted run (the
+float64 accumulator is saved exactly).
 """
 
 import warnings
@@ -24,6 +26,7 @@ from another_raytracer_tpu_torch.ops import camera as tcam
 from another_raytracer_tpu_torch.ops import render as trender
 from another_raytracer_tpu_torch.utils import imageio
 from another_raytracer_tpu_torch.utils import preview
+from jax_sphere_record import megakernel_like_jax  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -49,7 +52,7 @@ def port():
                                                                 **CAM)
 
 
-def test_progressive_matches_jax(port, tmp_path):
+def test_progressive_matches_jax(port, tmp_path, megakernel_like_jax):
     scene, cam = port
     png = tmp_path / "preview.png"
     prev = preview.ProgressivePreview(str(png), W, H, interval=2)
