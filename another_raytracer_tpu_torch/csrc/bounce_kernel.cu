@@ -1,7 +1,8 @@
 // The bounce kernel for NVIDIA Hopper (sm_90a): one step of the
 // regenerating wavefront after the BVH closest-hit kernel K5, one thread a
 // lane: the kinds no tree holds and the media's free flights, the winner's
-// hit record, its texture and material, the scatter and the carry update.
+// hit record, its texture and material, the scatter, the carry update and
+// the re-arm of the lanes whose paths end.
 //
 // Replaces no TPU kernel: the JAX package's XLA fuses the same per-lane
 // arithmetic (ops/integrator.py _advance and the regenerating step) into a
@@ -10,7 +11,7 @@
 // ops/integrator.py::_kernel_step_parts through ops/kernels/bounce_kernel.py
 // on every CUDA step of trace_regenerative; its plain version is the eager
 // step (ops/integrator.py::_eager_step_parts), which every CPU tensor and
-// the differentiable trace run.
+// the differentiable trace run, followed by its re-arm (_cam_rearm).
 //
 // Per lane, in the eager step's order and with its arithmetic:
 // * the winner: K5's (t, code) chained over the scene's trees (code -1: no
@@ -28,8 +29,12 @@
 //   draws kernel's threefry (threefry.cuh);
 // * the carry update of the regenerating step: miss -> background, emission,
 //   throughput, origin, direction, bounce, the ended lanes' totals, their
-//   next sample, the re-arm mask; the segments, the sphere winners and the
-//   "any lane re-arms" flag by integer atomics (exact, free of order).
+//   next sample; the segments and the sphere winners by integer atomics
+//   (exact, free of order);
+// * the re-arm (integrator._cam_rearm): a lane that ends with samples left
+//   gets its next sample's primary ray (camera.generate_rays, from the
+//   camera in Params), throughput 1 and bounce 0, so the host reads nothing
+//   after the step.
 //
 // What bounds it on this card: at the main path's widths (10^5 lanes) the
 // bytes of the carry (~90 a lane in and out) and the divergent per-kind
@@ -49,14 +54,15 @@
 //   block per counter.
 //
 // Numerics: built with -fmad=false (ops/kernels/_build.py) and IEEE division
-// and sqrt.  Each operation rounds as the eager step's on the card:
+// and sqrt.  Each operation rounds as the eager step's and re-arm's on the
+// card:
 // float64 sqrt, sin, cos, log and pow(u, 1/3) cast to float where ops/vec3.py
 // takes them through float64; acosf and atan2f where the record takes
 // torch.acos / atan2 in float32; x / c for a Python float c as
 // x * (1 / c) in float32, which is how PyTorch's CUDA division by a host
 // scalar computes it; torch.minimum / maximum / clamp's NaN rules; sums in
 // the eager order.  The card tests hold the carry bit for bit against the
-// eager step (tests/test_torch_bounce_cuda.py).
+// eager step followed by its re-arm (tests/test_torch_bounce_cuda.py).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -fmad=false  (ops/kernels/_build.py)
@@ -90,6 +96,8 @@ constexpr int TEX_CHECKER = 1, TEX_NOISE = 2, TEX_IMAGE = 3,
               TEX_BARYCENTRIC = 4;
 constexpr int MED_SPHERE = 0;
 constexpr uint32_t DIM_SCATTER_A = 0, DIM_SCATTER_B = 2, DIM_MEDIUM = 8;
+constexpr uint32_t CAMERA_BOUNCE = 0xFF00, DIM_PIXEL_JITTER = 0, DIM_LENS = 2,
+                   DIM_TIME = 4;
 constexpr int FOLD_NONE = 0, FOLD_PLANAR = 1, FOLD_SPHERE = 2;
 // Float4s of one packed Perlin table set (perlin_kernel.py's TABLE_BYTES).
 constexpr int PERLIN_F4 = PERLIN_N + 3 * PERLIN_N * 2 / 16;
@@ -110,12 +118,11 @@ struct Params {
   bool* out_alive;
   int64_t* out_sample;
   int64_t* out_bounce;
-  const float* time;
+  const float* in_time;
+  float* out_time;  // may be in_time
   const int64_t* pix;
   int64_t* segments;     // 0-d, added to
   int64_t* sphere_hits;  // 0-d, added to; null on a scene without spheres
-  bool* regen;           // [n] the lanes to re-arm
-  int* any_regen;        // 0-d, set to 1 where a lane re-arms
   const int64_t* seed_at;
   // K5's chained winner (null on a scene without trees) and its fold.
   const float* k5_t;
@@ -130,6 +137,13 @@ struct Params {
   int64_t n_xf, n_sph, n_rect, n_tri, n_med, n_mat, n_tex, n_img, n_perlin;
   int64_t sweep_sph, sweep_rect, sweep_tri;
   double t_min;
+  // The camera (ops/camera.py's Camera, its float32 values held exactly):
+  // the image's width and height, the lens and the shutter switches
+  // (uniform across a launch), then the vectors and scalars.
+  int64_t width, height, lens, shutter;
+  double origin[3], lower_left[3], horizontal[3], vertical[3], cam_u[3],
+      cam_v[3];
+  double lens_radius, time0, time1;
 };
 
 // Float rows (float4s a row) and int rows (one int4 a row) of the tables.
@@ -668,13 +682,67 @@ __device__ __forceinline__ bool scatter(const Params& p, const Rec& rec,
 }
 
 // --------------------------------------------------------------------------
+// The re-arm's camera ray (camera.generate_rays)
+// --------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t launch_seed(const Params& p) {
+  return (uint32_t)(p.seed_at != nullptr ? *p.seed_at : p.seed);
+}
+
+__device__ __forceinline__ V cam_vec(const double (&a)[3]) {
+  return {(float)a[0], (float)a[1], (float)a[2]};
+}
+
+// The primary ray of (pix, sample): origin, direction and time, as the
+// eager re-arm computes them on the card: x / c for a host scalar c as
+// x * (1 / c), base = lower_left - origin, (base + hor s) + ver t, the lens
+// disk of vec3.in_unit_disk_from_uniforms, time0 + tu (time1 - time0).  The
+// lens disk comes first: in this order every instance builds in at most 80
+// registers without a spill (the other order spills 4 bytes in one).
+__device__ __forceinline__ void camera_ray(const Params& p, uint32_t seed,
+                                           int64_t pix, uint32_t sample, V& o,
+                                           V& d, float& time) {
+  float rdx = 0.0f, rdy = 0.0f;
+  if (p.lens) {
+    float lu, lv;
+    uniform2(seed, (uint32_t)pix, sample, CAMERA_BOUNCE, DIM_LENS, lu, lv);
+    const float r = sqrt_(lu), phi = TWO_PI * lv;
+    const float radius = (float)p.lens_radius;
+    rdx = radius * (r * cos_(phi));
+    rdy = radius * (r * sin_(phi));
+  }
+  const float i = (float)(pix % p.width), j = (float)(pix / p.width);
+  float ju, jv;
+  uniform2(seed, (uint32_t)pix, sample, CAMERA_BOUNCE, DIM_PIXEL_JITTER, ju,
+           jv);
+  const float s = (i + ju) * (1.0f / (float)(p.width - 1));
+  const float t =
+      ((float)(p.height - 1) - j + jv) * (1.0f / (float)(p.height - 1));
+  const V origin = cam_vec(p.origin);
+  d = ((cam_vec(p.lower_left) - origin) + cam_vec(p.horizontal) * s) +
+      cam_vec(p.vertical) * t;
+  o = origin;
+  if (p.lens) {
+    const V offset = cam_vec(p.cam_u) * rdx + cam_vec(p.cam_v) * rdy;
+    o = offset + origin;
+    d = d - offset;
+  }
+  time = (float)p.time0;
+  if (p.shutter) {
+    float tu, unused;
+    uniform2(seed, (uint32_t)pix, sample, CAMERA_BOUNCE, DIM_TIME, tu, unused);
+    time = time + tu * ((float)p.time1 - time);
+  }
+}
+
+// --------------------------------------------------------------------------
 // The step
 // --------------------------------------------------------------------------
 
 template <int FOLD, bool MEDIA>
 __global__ void __launch_bounds__(BLOCK) bounce_kernel(const Params p) {
-  __shared__ int s_count[3];  // segments, sphere winners, re-armed lanes
-  if (threadIdx.x < 3) s_count[threadIdx.x] = 0;
+  __shared__ int s_count[2];  // segments, sphere winners
+  if (threadIdx.x < 2) s_count[threadIdx.x] = 0;
   __syncthreads();
   const int64_t i = (int64_t)blockIdx.x * BLOCK + threadIdx.x;
   bool scattered = false, regen = false, sphere_hit = false;
@@ -692,9 +760,8 @@ __global__ void __launch_bounds__(BLOCK) bounce_kernel(const Params p) {
     V miss_part = {0.0f, 0.0f, 0.0f}, hit_part = {0.0f, 0.0f, 0.0f};
     V hit_p, new_dir, att;
     if (alive) {
-      const float time = p.time[i];
-      const uint32_t seed =
-          (uint32_t)(p.seed_at != nullptr ? *p.seed_at : p.seed);
+      const float time = p.in_time[i];
+      const uint32_t seed = launch_seed(p);
       const uint32_t pix = (uint32_t)p.pix[i];
       const uint32_t s32 = (uint32_t)sample, b32 = (uint32_t)bounce;
       // The winner: K5's trees, the swept kinds, the media.
@@ -822,16 +889,33 @@ __global__ void __launch_bounds__(BLOCK) bounce_kernel(const Params p) {
         ended ? ((sample + p.stride) & MASK32) : sample;
     regen = ended & (next_sample < p.limit);
     alive_next = alive_next | regen;
-
-    const float cols[15] = {o.x, o.y, o.z, d.x, d.y, d.z, thr.x, thr.y,
-                            thr.z, total.x, total.y, total.z, prad.x,
-                            prad.y, prad.z};
+    const float tail[6] = {total.x, total.y, total.z, prad.x, prad.y, prad.z};
 #pragma unroll
-    for (int k = 0; k < 15; ++k) p.out_f[k][i] = cols[k];
+    for (int k = 0; k < 6; ++k) p.out_f[9 + k][i] = tail[k];
     p.out_alive[i] = alive_next;
     p.out_sample[i] = next_sample;
-    p.out_bounce[i] = bounce;
-    p.regen[i] = regen;
+    if (regen) {
+      // The re-arm: the next sample's primary ray.  What the step leaves of
+      // the lane is written or dead by now, and the seed and the pixel are
+      // read again, so the camera's draws take no registers from the step.
+      V o2, d2;
+      float time2;
+      camera_ray(p, launch_seed(p), p.pix[i], (uint32_t)next_sample, o2, d2,
+                 time2);
+      const float head[9] = {o2.x, o2.y, o2.z, d2.x, d2.y, d2.z,
+                             1.0f, 1.0f, 1.0f};
+#pragma unroll
+      for (int k = 0; k < 9; ++k) p.out_f[k][i] = head[k];
+      p.out_bounce[i] = 0;
+      p.out_time[i] = time2;
+    } else {
+      const float head[9] = {o.x, o.y, o.z, d.x, d.y, d.z,
+                             thr.x, thr.y, thr.z};
+#pragma unroll
+      for (int k = 0; k < 9; ++k) p.out_f[k][i] = head[k];
+      p.out_bounce[i] = bounce;
+      if (p.out_time != p.in_time) p.out_time[i] = p.in_time[i];
+    }
   }
   const unsigned b_scat = __ballot_sync(FULL_MASK, scattered);
   const unsigned b_regen = __ballot_sync(FULL_MASK, regen);
@@ -841,7 +925,6 @@ __global__ void __launch_bounds__(BLOCK) bounce_kernel(const Params p) {
       atomicAdd(&s_count[0], __popc(b_scat) + __popc(b_regen));
     }
     if (b_sph) atomicAdd(&s_count[1], __popc(b_sph));
-    if (b_regen) atomicAdd(&s_count[2], __popc(b_regen));
   }
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -853,7 +936,6 @@ __global__ void __launch_bounds__(BLOCK) bounce_kernel(const Params p) {
       atomicAdd(reinterpret_cast<unsigned long long*>(p.sphere_hits),
                 (unsigned long long)s_count[1]);
     }
-    if (s_count[2]) *p.any_regen = 1;
   }
 }
 
@@ -878,7 +960,8 @@ extern "C" int art_bounce(const void* params, int fold, int media,
                           void* stream_ptr) {
   if (params == nullptr) return (int)cudaErrorInvalidValue;
   const Params& p = *static_cast<const Params*>(params);
-  if (p.n < 0 || fold < 0 || fold > 2 || (media != 0) != (p.n_med > 0)) {
+  if (p.n < 0 || fold < 0 || fold > 2 || (media != 0) != (p.n_med > 0) ||
+      p.width < 1 || p.height < 1) {
     return (int)cudaErrorInvalidValue;
   }
   if (p.n == 0) return (int)cudaSuccess;

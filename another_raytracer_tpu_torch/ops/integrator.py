@@ -21,11 +21,12 @@ megakernel does not take (BVH scenes, noise / image / barycentric textures,
 triangles, media): each lane re-arms with its next sample the moment its path
 ends, and the alive lanes are compacted into narrower buffers as the tail
 thins out.  On CUDA tensors each step is K5 (BVH closest hit) over the
-scene's trees and one launch of the bounce kernel for everything after
-(``_kernel_step_parts``); the CPU runs the eager step (``_eager_step_parts``,
-``_advance``'s tensor ops), whose bits the kernel's equal.  On the card it
-replays each stage's loop body from CUDA graphs (``_Stage``; the host's
-launches an iteration become two graph launches), captured once a key per
+scene's trees and one launch of the bounce kernel for everything after,
+the re-arm included (``_kernel_step_parts``); the CPU runs the eager step
+(``_eager_step_parts``, ``_advance``'s tensor ops) and then, where a lane
+re-arms, the re-arm's, whose bits the kernel's equal.  On the card it
+replays each stage's loop body from a CUDA graph (``_Stage``; the host's
+launches an iteration become one graph launch), captured once a key per
 stage width.
 
 Left out on purpose (ROADMAP M21): the XLA schedule arguments ``remat`` and
@@ -165,20 +166,23 @@ def _regen_step_parts(scene, cam, pix_ids, seed, width, height,
                       sample_stride, limit, max_depth, t_min,
                       sphere_hits=None):
     """(cam_rays, step, rearm) of the regenerating wavefront, bound to one
-    lane -> pixel assignment: the loop body split at its one read of the
-    card.  ``step(carry, into=None)`` maps the 10-tuple carry (o, d, time,
-    throughput, total, path_rad, alive, sample, bounce, segments) to (the
-    carry with the ended lanes' next samples and the re-armed lanes alive,
-    ``regen``: the lanes to re-arm, ``any_regen``: a 0-d tensor, true where
-    one does), adding its sphere winners into ``sphere_hits`` where given;
-    ``into``, where given, is a carry of buffers that the step may write
-    into (the stage's, in place).  ``rearm(carry, regen)`` gives those lanes
-    their next sample's primary ray.  ``seed`` is an int or a 0-d int64
-    tensor (the same bits); ``step.kind`` names the step's path.
+    lane -> pixel assignment.  ``step(carry, into=None)`` maps the 10-tuple
+    carry (o, d, time, throughput, total, path_rad, alive, sample, bounce,
+    segments) to (the carry with the ended lanes' next samples and the
+    re-armed lanes alive, ``regen``: the lanes to re-arm, ``any_regen``: a
+    0-d tensor, true where one does), adding its sphere winners into
+    ``sphere_hits`` where given; ``into``, where given, is a carry of
+    buffers that the step may write into (the stage's, in place).
+    ``rearm(carry, regen)`` gives those lanes their next sample's primary
+    ray.  A step with ``step.rearms`` gives them their rays itself: its
+    ``regen`` and ``any_regen`` are None, ``rearm`` is None, and the loop
+    reads nothing after it.  ``seed`` is an int or a 0-d int64 tensor (the
+    same bits); ``step.kind`` names the step's path.
 
-    CUDA lanes step through K5 and the bounce kernel
+    CUDA lanes step through K5 and the bounce kernel, which re-arms
     (``_kernel_step_parts``); every other device runs the eager step
-    (``_eager_step_parts``), the kernel's plain version."""
+    (``_eager_step_parts``), whose re-arm is a step of its own, the
+    kernel's plain version."""
     parts = _kernel_step_parts if pix_ids.is_cuda else _eager_step_parts
     return parts(scene, cam, pix_ids, seed, width, height, sample_stride,
                  limit, max_depth, t_min, sphere_hits)
@@ -248,7 +252,7 @@ def _eager_step_parts(scene, cam, pix_ids, seed, width, height,
         return (o, d, time, throughput, total, path_rad, alive_next,
                 next_sample, bounce, segments), regen, regen.any()
 
-    step.kind = "eager"
+    step.kind, step.rearms = "eager", False
     return cam_rays, step, rearm
 
 
@@ -257,17 +261,17 @@ def _kernel_step_parts(scene, cam, pix_ids, seed, width, height,
                        sphere_hits=None):
     """``_regen_step_parts`` on CUDA lanes: K5 over the scene's trees
     (``intersect.tree_winners``), then one launch of the bounce kernel
-    (``ops/kernels/bounce_kernel.py``) for everything after, which writes
-    the carry into ``into`` where given.  The re-arm mask, the re-arm flag
-    and K5's first inputs are buffers made here, outside any capture; the
-    re-arm clears the flag."""
+    (``ops/kernels/bounce_kernel.py``) for everything after, the re-arm
+    included, which writes the carry into ``into`` where given.  K5's first
+    inputs are buffers made here, outside any capture, and the camera's
+    launch arguments are read off the card here, once."""
     from another_raytracer_tpu_torch.ops.kernels import bounce_kernel
 
-    cam_rays, cam_rearm = _cam_rearm(scene, cam, pix_ids, seed, width, height)
+    cam_rays, _ = _cam_rearm(scene, cam, pix_ids, seed, width, height)
     B, dev = pix_ids.shape[0], pix_ids.device
     fold = intersect.fold_tree(scene, B)
-    regen = torch.empty(B, dtype=torch.bool, device=dev)
-    any_regen = torch.zeros((), dtype=torch.int32, device=dev)
+    camera = bounce_kernel.camera_fields(cam, width, height,
+                                         scene.has_motion)
     init = (torch.full((B,), intersect.BIG, dtype=torch.float32, device=dev),
             torch.full((B,), -1, dtype=torch.int32, device=dev))
 
@@ -275,19 +279,13 @@ def _kernel_step_parts(scene, cam, pix_ids, seed, width, height,
         o, d, time = state[:3]
         winners = intersect.tree_winners(scene, o, d, time, t_min, fold, init)
         new = bounce_kernel.launch(
-            scene, state, pix_ids, seed, winners, fold=fold,
+            scene, state, pix_ids, seed, winners, fold=fold, camera=camera,
             sample_stride=sample_stride, limit=limit, max_depth=max_depth,
-            t_min=t_min, regen=regen, any_regen=any_regen,
-            sphere_hits=sphere_hits, into=into)
-        return new, regen, any_regen
+            t_min=t_min, sphere_hits=sphere_hits, into=into)
+        return new, None, None
 
-    def rearm(state, regen):
-        state = cam_rearm(state, regen)
-        any_regen.zero_()
-        return state
-
-    step.kind = "kernel"
-    return cam_rays, step, rearm
+    step.kind, step.rearms = "kernel", True
+    return cam_rays, step, None
 
 
 def _regen_loop_parts(scene, cam, pix_ids, seed, width, height,
@@ -296,17 +294,24 @@ def _regen_loop_parts(scene, cam, pix_ids, seed, width, height,
     """(cam_rays, body) of the regenerating wavefront, bound to one
     lane -> pixel assignment; a compaction stage rebinds to the gathered
     survivors' pixels.  ``body`` maps the 10-tuple carry to the next: the
-    ``step`` of ``_regen_step_parts``, the host's read of whether any lane
-    re-arms, and the ``rearm`` where one does; ``body.step`` is the step's
-    ``kind``."""
+    ``step`` of ``_regen_step_parts``, then, unless the step re-arms, the
+    host's read of whether any lane re-arms and the ``rearm`` where one
+    does.  It counts on the span it runs in (the iteration's) how the lanes
+    were re-armed, ``rearm``: ``kernel`` (the step did), ``ops`` (the
+    re-arm ran) or ``none`` (the host read that no lane re-arms).
+    ``body.step`` is the step's ``kind``."""
     cam_rays, step, rearm = _regen_step_parts(
         scene, cam, pix_ids, seed, width, height, sample_stride, limit,
         max_depth, t_min, sphere_hits)
 
     def body(state):
         state, regen, any_regen = step(state)
+        if step.rearms:
+            profiling.count(rearm="kernel")
+            return state
         with profiling.span("wavefront.wait", what="regen"):
             any_regen = bool(any_regen)
+        profiling.count(rearm="ops" if any_regen else "none")
         if any_regen:
             state = rearm(state, regen)
         return state
@@ -462,13 +467,14 @@ def _counted(capture, fn):
 class _Stage:
     """One compaction stage's graphs and the buffers they read and write,
     for one key (``_stage``).  The carry, the stage's pixels and the seed
-    live in the buffers; graph A (``step``) is the loop body up to its read
-    of the card, the re-arm flag, and graph B (``rearm``) the re-arm, each
-    writing the carry back in place (the bounce kernel writes it there
-    itself).  On a scene with spheres
-    graph A also adds its sphere winners into ``hits``, which ``load``
-    zeroes.  The key's first iteration runs eagerly (``ran``); its second
-    captures both graphs, and every later one replays them."""
+    live in the buffers; graph A (``step``) is the step, which writes the
+    carry back in place (the bounce kernel writes it there itself).  A step
+    that re-arms (the bounce kernel's, on the card) is the whole loop body;
+    after any other, the body reads the re-arm flag and graph B (``rearm``)
+    is the re-arm, which writes the carry back likewise.  On a scene with spheres graph A also adds its sphere
+    winners into ``hits``, which ``load`` zeroes.  The key's first
+    iteration runs eagerly (``ran``); its second captures the graphs, and
+    every later one replays them."""
 
     def __init__(self, device, parts_args):
         self.device = device
@@ -499,16 +505,21 @@ class _Stage:
         return _unflatten(self.bufs[:-1])
 
     def iterate(self):
-        """One iteration of the loop body over the buffers: replay A, read
-        whether any lane re-arms, and replay B where one does."""
+        """One iteration of the loop body over the buffers: replay A, and
+        unless its step re-arms, read whether any lane re-arms and replay B
+        where one does; counts ``rearm`` as the body does."""
         state = _unflatten(self.bufs[:-1])
         if self.step is None:
             self._capture(state)
         self.regen, any_regen = self.step()
+        if self._step.rearms:
+            profiling.count(rearm="kernel")
+            return state
         if self.rearm is None:
             self._capture_rearm(state)
         with profiling.span("wavefront.wait", what="regen"):
             any_regen = bool(any_regen)
+        profiling.count(rearm="ops" if any_regen else "none")
         if any_regen:
             self.rearm()
         return state
@@ -576,16 +587,17 @@ def trace_regenerative(scene, cam, pixel_ids, sample_ids0, seed, *,
     then the survivors (with their running totals) are gathered into the
     narrower buffer, and at the end every stage's totals are scattered back
     to the lanes they came from.  The alive count is the one read of the
-    card a loop step makes besides ``body``'s own.
+    card a loop step makes besides ``body``'s own, where it has one.
 
     CUDA graphs: on a device that ``GRAPHS`` names, each stage's loop body
-    is replayed from two CUDA graphs (``_Stage``) once its key (scene and
+    is replayed from CUDA graphs (``_Stage``) once its key (scene and
     camera, the fixed arguments, the stage's width, its fold) has run
-    one iteration eagerly, so the host issues two graph launches and its
-    two reads an iteration instead of the body's launches (K5's and the
-    bounce kernel's, and the re-arm's ~40 ops).  The ops are the eager
-    body's, so images and segments are the same bits; a stage of one
-    iteration never captures.  Fixed widths replay across renders
+    one iteration eagerly, so the host issues one graph launch (K5's and
+    the bounce kernel's launches) and one read, the alive count, an
+    iteration on the card; after a step that does not re-arm (the eager
+    one), a second read and graph B (the re-arm's ~40 ops).  The ops are
+    the eager body's, so images and segments are the same bits; a stage of
+    one iteration never captures.  Fixed widths replay across renders
     (single, shards, progressive passes); data-dependent widths (adaptive
     levels) capture once a level.
 

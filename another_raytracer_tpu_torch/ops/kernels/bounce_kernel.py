@@ -3,10 +3,12 @@ launch (``csrc/bounce_kernel.cu``).
 
 * ``launch`` is the wrapper: on CUDA tensors it launches the kernel over a
   stage's carry, after K5's chained winners (``intersect.tree_winners``),
-  or raises; ``prepare_launch`` is everything one launch needs.  ``integrator._kernel_step_parts`` calls it on every CUDA step
-  of ``trace_regenerative``; the eager step (``integrator._eager_step_parts``)
-  is its plain version, which CPU tensors and the differentiable ``trace``
-  run.
+  or raises; ``prepare_launch`` is everything one launch needs.
+  ``integrator._kernel_step_parts`` calls it on every CUDA step of
+  ``trace_regenerative``; the eager step (``integrator._eager_step_parts``)
+  followed by its re-arm is its plain version, which CPU tensors run.
+* ``camera_fields`` reads the camera's launch arguments off the card, once
+  a stage.
 * ``pack_tables`` packs a scene's primitive, transform, material, texture,
   medium and image tables for the kernel, once per scene
   (``SceneData.bounce_tables``).
@@ -14,8 +16,9 @@ launch (``csrc/bounce_kernel.cu``).
 It replaces no TPU kernel: the JAX package's XLA fuses the step's per-lane
 arithmetic into a few loop fusions, where eager PyTorch launches ~650-1,000
 elementwise kernels an iteration.  The kernel runs the eager step's
-operations in its order, so the carry it writes is the eager step's bit for
-bit (``tests/test_torch_bounce_cuda.py``).
+operations in its order, and gives each lane whose path ends with samples
+left its next sample's camera ray, so the carry it writes is the eager step
+followed by its re-arm, bit for bit (``tests/test_torch_bounce_cuda.py``).
 """
 
 from __future__ import annotations
@@ -40,6 +43,14 @@ INT_SECTIONS = ("sph_i", "rect_i", "tri_i", "med_i", "mat_i", "tex_i",
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
 # The carry's 15 float columns: o, d, throughput, total, path_rad.
 N_FLOAT = 15
+# The camera's float32 tensors that ``camera.generate_rays`` reads, by
+# ``Params`` field: its 3-vectors (Camera attribute -> field) and scalars.
+CAMERA_VECTORS = {"origin": "origin", "lower_left": "lower_left",
+                  "horizontal": "horizontal", "vertical": "vertical",
+                  "u": "cam_u", "v": "cam_v"}
+CAMERA_SCALARS = ("lens_radius", "time0", "time1")
+CAMERA_FIELDS = (("width", "height", "lens", "shutter")
+                 + tuple(CAMERA_VECTORS.values()) + CAMERA_SCALARS)
 
 
 class Params(ctypes.Structure):
@@ -49,8 +60,8 @@ class Params(ctypes.Structure):
                  ("in_bounce", _P), ("out_f", _P * N_FLOAT),
                  ("out_alive", _P), ("out_sample", _P), ("out_bounce", _P)]
                 + [(n, _P) for n in (
-                    "time", "pix", "segments", "sphere_hits", "regen",
-                    "any_regen", "seed_at", "k5_t", "k5_code", "aux")]
+                    "in_time", "out_time", "pix", "segments", "sphere_hits",
+                    "seed_at", "k5_t", "k5_code", "aux")]
                 + [(n, _P) for n, _ in FLOAT_ROWS]
                 + [(n, _P) for n in INT_SECTIONS]
                 + [("atlas", _P), ("perlin", _P)]
@@ -59,7 +70,10 @@ class Params(ctypes.Structure):
                     "n_sph", "n_rect", "n_tri", "n_med", "n_mat", "n_tex",
                     "n_img", "n_perlin", "sweep_sph", "sweep_rect",
                     "sweep_tri")]
-                + [("t_min", _D)])
+                + [("t_min", _D)]
+                + [(n, _I) for n in CAMERA_FIELDS[:4]]
+                + [(n, _D * 3) for n in CAMERA_VECTORS.values()]
+                + [(n, _D) for n in CAMERA_SCALARS])
 
 
 def _rows(cols, width):
@@ -155,6 +169,29 @@ def _lib():
     return _fn
 
 
+def camera_fields(cam, width, height, needs_time) -> dict:
+    """The camera's launch arguments, {``Params`` field: value}, for a
+    ``width`` x ``height`` image: the float32 values that
+    ``camera.generate_rays`` reads (one transfer off the card), the lens
+    switch (``cam.has_lens``) and the shutter's (``cam.has_time`` where
+    ``needs_time``, the scene reads ray time: ``scene.has_motion``).  A
+    launch takes the values read here: a camera changed in place later is
+    not seen, as the scene's packed tables are not."""
+    flat = torch.cat([getattr(cam, k).reshape(-1) for k in
+                      (*CAMERA_VECTORS, *CAMERA_SCALARS)])
+    if flat.dtype != torch.float32 or flat.numel() != 21:
+        raise ValueError("the camera's tensors must be float32 3-vectors "
+                         "and scalars")
+    values = iter(flat.tolist())
+    out = {"width": operator.index(width), "height": operator.index(height),
+           "lens": int(bool(cam.has_lens)),
+           "shutter": int(bool(cam.has_time and needs_time))}
+    for field in CAMERA_VECTORS.values():
+        out[field] = (next(values), next(values), next(values))
+    out.update((field, next(values)) for field in CAMERA_SCALARS)
+    return out
+
+
 def _check(name, t, n, dtype, dev):
     if (not isinstance(t, torch.Tensor) or t.dtype != dtype
             or t.device != dev or t.shape != (n,) or not t.is_contiguous()):
@@ -179,21 +216,22 @@ def launch(scene, state, pix, seed, winners, **kw):
     return into
 
 
-def prepare_launch(scene, state, pix, seed, winners, *, fold, sample_stride,
-                   limit, max_depth, t_min, regen, any_regen,
-                   sphere_hits=None, into=None):
+def prepare_launch(scene, state, pix, seed, winners, *, fold, camera,
+                   sample_stride, limit, max_depth, t_min, sphere_hits=None,
+                   into=None):
     """Everything one launch needs: returns (run, the next carry).
     ``run()`` is the bare launch on the current stream and returns the CUDA
     error code.
 
     ``winners``: ``intersect.tree_winners``' (t, code, folded) or None (a
     scene without trees); ``fold``: ``intersect.fold_tree``'s answer at this
-    width.  ``regen`` ([B] bool) receives the lanes to re-arm and
-    ``any_regen`` (0-d int32) is set to 1 where one re-arms; the segments
-    (and the sphere winners into ``sphere_hits``, a 0-d int64) are added on
-    the card.  ``seed``: an int or a 0-d int64 tensor on the carry's device
-    (read at launch, so a CUDA graph's replay takes the seed it holds
-    then).  Raises on anything the kernel does not take."""
+    width; ``camera``: ``camera_fields``' for the stage, which the lanes
+    that end with samples left below ``limit`` take their next sample's
+    ray from.  The segments (and the sphere winners into ``sphere_hits``, a
+    0-d int64) are added on the card.  ``seed``: an int or a 0-d int64
+    tensor on the carry's device (read at launch, so a CUDA graph's replay
+    takes the seed it holds then).  Raises on anything the kernel does not
+    take."""
     (o, d, time, thr, total, prad, alive, sample, bounce, segments) = state
     dev, n = o.x.device, o.x.shape[0]
     if dev.type != "cuda":
@@ -206,9 +244,7 @@ def prepare_launch(scene, state, pix, seed, winners, *, fold, sample_stride,
     _check("sample", sample, n, torch.int64, dev)
     _check("bounce", bounce, n, torch.int64, dev)
     _check("pix", pix, n, torch.int64, dev)
-    _check("regen", regen, n, torch.bool, dev)
     for name, t, dtype in (("segments", segments, torch.int64),
-                           ("any_regen", any_regen, torch.int32),
                            ("sphere_hits", sphere_hits, torch.int64)):
         if t is not None and (t.dtype != dtype or t.device != dev
                               or t.dim() != 0):
@@ -221,7 +257,8 @@ def prepare_launch(scene, state, pix, seed, winners, *, fold, sample_stride,
                          "scene and fold")
     if into is None:
         into = (type(o)(*(torch.empty_like(c) for c in o)),
-                type(d)(*(torch.empty_like(c) for c in d)), time,
+                type(d)(*(torch.empty_like(c) for c in d)),
+                torch.empty_like(time),
                 type(thr)(*(torch.empty_like(c) for c in thr)),
                 type(total)(*(torch.empty_like(c) for c in total)),
                 type(prad)(*(torch.empty_like(c) for c in prad)),
@@ -232,9 +269,7 @@ def prepare_launch(scene, state, pix, seed, winners, *, fold, sample_stride,
     out_cols = (*o2, *d2, *thr2, *total2, *prad2)
     for k, c in enumerate(out_cols):
         _check(f"output column {k}", c, n, torch.float32, dev)
-    if time2 is not time:
-        raise ValueError("the step leaves time as it is: into's time must be "
-                         "the carry's")
+    _check("output time", time2, n, torch.float32, dev)
 
     f, i, layout = scene.bounce_tables()
     if f.device != dev:
@@ -249,10 +284,9 @@ def prepare_launch(scene, state, pix, seed, winners, *, fold, sample_stride,
     p.out_alive, p.out_sample, p.out_bounce = (alive2.data_ptr(),
                                                sample2.data_ptr(),
                                                bounce2.data_ptr())
-    p.time, p.pix, p.segments = (time.data_ptr(), pix.data_ptr(),
-                                 segments2.data_ptr())
+    p.in_time, p.out_time = time.data_ptr(), time2.data_ptr()
+    p.pix, p.segments = pix.data_ptr(), segments2.data_ptr()
     p.sphere_hits = None if sphere_hits is None else sphere_hits.data_ptr()
-    p.regen, p.any_regen = regen.data_ptr(), any_regen.data_ptr()
     if isinstance(seed, torch.Tensor):
         if seed.dtype != torch.int64 or seed.dim() != 0 or seed.device != dev:
             raise ValueError(f"a tensor seed must be a 0-d int64 tensor on "
@@ -288,13 +322,17 @@ def prepare_launch(scene, state, pix, seed, winners, *, fold, sample_stride,
     p.sweep_rect = int(bool(scene.n_rects) and not scene.rect_in_bvh)
     p.sweep_tri = int(bool(scene.n_triangles) and not scene.tri_in_bvh)
     p.t_min = float(t_min)
+    if set(camera) != set(CAMERA_FIELDS):
+        raise ValueError("camera must be camera_fields' for the stage")
+    for field, value in camera.items():
+        setattr(p, field, value)
     fn = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
     instance = (FOLDS[fold], int(scene.n_media > 0))
 
-    def run(_inputs=(state, into, pix, seed, winners, regen, any_regen,
-                     sphere_hits, f, i, perlin, atlas)):
+    def run(_inputs=(state, into, pix, seed, winners, sphere_hits, f, i,
+                     perlin, atlas)):
         # The default keeps the tensors behind p's pointers alive.
         return fn(ctypes.byref(p), *instance, stream)
 

@@ -21,8 +21,10 @@ the profiler slows every launch), the device's idle ms a run in each span
 (a gap between the card's activities goes to the innermost span open at its
 middle) and the ``GAPS`` longest gaps; last the ``render`` span's counts
 a run, ``segments`` and, where the wavefront renders spheres,
-``sphere_hits``.  On the CPU (``--cpu``) the tables hold the host's
-top-level operators (no device time exists there, nor idle time).  The
+``sphere_hits``, and the wavefront's iterations a run by their ``rearm``
+(``kernel`` where the bounce kernel re-armed the lanes).  On the CPU
+(``--cpu``) the tables hold the host's top-level operators (no device time
+exists there, nor idle time).  The
 trace is written under ``--log-dir`` where given, else into a
 temporary directory that is removed.  Runs on the card unless ``--cpu`` is
 given, and raises when no CUDA device is visible.  On the card the trace
@@ -234,6 +236,15 @@ def render_counts(spans, runs) -> dict:
             if any(k in s.attrs for s in roots)}
 
 
+def rearm_counts(spans, runs) -> dict:
+    """The wavefront's iterations a run by how their lanes were re-armed,
+    the ``rearm`` count of ``wavefront.iteration``: ``kernel`` (the bounce
+    kernel's step), ``ops`` (the re-arm's ops) or ``none``."""
+    its = collections.Counter(s.attrs.get("rearm") for s in spans
+                              if s.name == "wavefront.iteration")
+    return {str(k): v / runs for k, v in sorted(its.items(), key=str)}
+
+
 def trace(name, device, obj_path=None, size=None, log_dir=None,
           entry=False) -> dict:
     """Warm up, trace RUNS calls of row ``name`` (through ``entry_call``
@@ -267,6 +278,7 @@ def trace(name, device, obj_path=None, size=None, log_dir=None,
                                                        ("cpu_op",)))
     return {"scene": name, "config": wl.config, "device": dev.type,
             "entry": entry, "counts": render_counts(spans, RUNS),
+            "rearm": rearm_counts(spans, RUNS),
             **summarize(events, RUNS, wall_s),
             **span_table(spans, RUNS,
                          events if dev.type == "cuda" else None, bare)}
@@ -301,6 +313,9 @@ def report(s: dict, out=print) -> None:
     if s["counts"]:
         out("--- the render span's counts a run: " + ", ".join(
             f"{k} {v:.1f}" for k, v in s["counts"].items()) + " ---")
+    if s["rearm"]:
+        out("--- wavefront iterations a run by re-arm: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in s["rearm"].items()) + " ---")
 
 
 def main(argv=None) -> int:

@@ -15,8 +15,9 @@ on ``torch.profiler``).
     every time taken on it;
   * ``span(name, **attrs)`` records a span of the host's time at a layer
     boundary of the program (``Span``), while a ``torch.profiler`` session
-    is active in the process or inside ``recording()``; ``spans()`` returns
-    them and ``clear_spans()`` forgets them.
+    is active in the process or inside ``recording()``; ``count(**counts)``
+    adds counts to the innermost open one; ``spans()`` returns them and
+    ``clear_spans()`` forgets them.
 
 The CLI times its render with ``timed`` and prints ``RayStats``' Mrays/s.
 """
@@ -225,6 +226,14 @@ def span(name: str, **attrs):
     if _forced or _profiler_on():
         return _On(name, attrs)
     return _OFF
+
+
+def count(**counts):
+    """Add counts to the innermost open span: counts that code deep inside
+    the span's work knows, where the span's owner cannot hand it the span
+    (nothing where no span records)."""
+    if _open:
+        _open[-1].record.attrs.update(counts)
 
 
 @contextlib.contextmanager

@@ -1161,11 +1161,13 @@ def bounce_timings(scenes, dev, widths=(388800, 48640, 6144)):
     """The bounce kernel's device time a launch (``graph_ms``) at each
     width, on the first step of each scene of ``scenes`` ({name: (scene,
     camera parameters)}: W x H camera rays, all lanes alive, K5 run once
-    before), its carry bit-equal to the eager step's (``max_abs_err``, the
-    largest gap over the carry's tensors); beside its bytes
-    bound (the carry, the pixels and K5's outputs read, the carry and the
-    re-arm mask written), the eager step's time (its plain version, K5
-    included) and K5's over the same lanes, all by ``graph_ms``."""
+    before), its carry bit-equal to the eager step's followed by the
+    re-arm (``max_abs_err``, the largest gap over the carry's tensors);
+    beside its bytes bound (the carry, the pixels and K5's outputs read,
+    the carry written, time too: the launch writes a new carry), the
+    re-armed lanes' share, the eager step's and re-arm's time (its plain
+    version, K5 included) and K5's over the same lanes, all by
+    ``graph_ms``."""
     import torch
 
     from another_raytracer_tpu_torch.ops import bvh as bvh_ops
@@ -1180,7 +1182,7 @@ def bounce_timings(scenes, dev, widths=(388800, 48640, 6144)):
             pix = torch.arange(n, device=dev) % (W * H)
             samp0 = torch.arange(n, device=dev) // (W * H)
             args = (sc, cam, pix, 5, W, H, 1, TEX_SPP, DEPTH, 1e-3)
-            cam_rays, e_step, _ = integrator._eager_step_parts(*args)
+            cam_rays, e_step, e_rearm = integrator._eager_step_parts(*args)
             state = integrator._regen_initial_state(cam_rays, samp0, TEX_SPP)
             fold = intersect.fold_tree(sc, n)
             init = (torch.full((n,), intersect.BIG, device=dev),
@@ -1193,9 +1195,8 @@ def bounce_timings(scenes, dev, widths=(388800, 48640, 6144)):
             winners = k5()
             kw = dict(fold=fold, sample_stride=1, limit=TEX_SPP,
                       max_depth=DEPTH, t_min=1e-3,
-                      regen=torch.empty(n, dtype=torch.bool, device=dev),
-                      any_regen=torch.zeros((), dtype=torch.int32,
-                                            device=dev))
+                      camera=bounce_kernel.camera_fields(cam, W, H,
+                                                         sc.has_motion))
 
             def prepare(state=state, pix=pix, winners=winners, kw=kw):
                 return bounce_kernel.prepare_launch(sc, state, pix, 5,
@@ -1204,7 +1205,8 @@ def bounce_timings(scenes, dev, widths=(388800, 48640, 6144)):
             run, got = bounce_kernel.prepare_launch(sc, state, pix, 5,
                                                     winners, **kw)
             bare(run)()
-            want = e_step(state)[0]
+            want, regen, _ = e_step(state)
+            want = e_rearm(want, regen)
             pairs = list(zip(integrator._flatten(got),
                              integrator._flatten(want)))
             gap = max(float((a.double() - b.double()).abs().max())
@@ -1224,19 +1226,20 @@ def bounce_timings(scenes, dev, widths=(388800, 48640, 6144)):
             aux = 0 if winners is None or winners[2] is None else (
                 bvh_ops.n_aux(fold, True, fold == "planar") * 4 * n)
             k5_bytes = 0 if winners is None else 8 * n + aux
-            nbytes = (sum(t.nbytes for t in flat[:-1]) + pix.nbytes
-                      + k5_bytes + sum(t.nbytes for t in flat[:-1]
-                                       if t is not state[2]) + n)
+            nbytes = (2 * sum(t.nbytes for t in flat[:-1]) + pix.nbytes
+                      + k5_bytes)
             b_ms, b_by = bound(0, nbytes)
             ms = graph_ms(prepare, dev)[0]
             out[f"{name}, {n} lanes"] = dict(
                 fold=fold, max_abs_err=gap, ms=round(ms, 5),
+                rearmed=round(float(regen.float().mean()), 4),
                 bound_ms=round(b_ms, 5),
                 bound_by=b_by, share_of_bound=round(b_ms / ms, 4),
                 k5_ms=(None if winners is None
                        else round(graph_ms(calls(k5), dev, 20)[0], 5)),
                 eager_step_ms=round(graph_ms(
-                    calls(lambda: e_step(state)), dev, 5)[0], 5))
+                    calls(lambda: e_rearm(*e_step(state)[:2])), dev,
+                    5)[0], 5))
     return out
 
 
@@ -2498,10 +2501,13 @@ def main(argv=None) -> int:
     for build, per_walk in census.items():
         for walk, ops in per_walk.items():
             phase("census", f"{build} {walk}: {json.dumps(ops)}")
-    for target in ("bvh_kernel", "perlin_kernel"):
+    for target in ("bvh_kernel", "perlin_kernel", "bounce_kernel"):
         entries = kernel_entries(_build.build_log(target))
         if not entries:
             raise AssertionError(f"no kernel in {target}'s build report")
+        if target == "bounce_kernel" and any(sp for _, _, sp in entries):
+            raise AssertionError(f"an instance of the bounce kernel spills "
+                                 f"registers: {entries}")
         phase("build", f"{target}: " + "; ".join(
             f"{nm}: {regs} registers, {spill} bytes spilled"
             for nm, regs, spill in entries))

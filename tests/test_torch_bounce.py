@@ -125,6 +125,33 @@ def test_params_layout():
         assert name in text, name
 
 
+@pytest.mark.parametrize("name,lens,shutter", [
+    ("random_scene", 1, 1), ("final_scene", 0, 1), ("simple_light", 0, 0)])
+def test_camera_fields_read_back(name, lens, shutter):
+    """The camera's launch arguments, packed into ``Params``, read back as
+    the float32 tensors ``camera.generate_rays`` reads, bit for bit; the
+    lens switch is the camera's thin lens, the shutter's its shutter where
+    the scene moves (scene 1: both; scene 8: a pinhole; the simple light:
+    a shutter over a still scene)."""
+    scene, cam = _library(name)
+    fields = bounce_kernel.camera_fields(cam, W, H, scene.has_motion)
+    assert set(fields) == set(bounce_kernel.CAMERA_FIELDS)
+    p = bounce_kernel.Params()
+    for field, value in fields.items():
+        setattr(p, field, value)
+    for attr, field in bounce_kernel.CAMERA_VECTORS.items():
+        got = torch.tensor(getattr(p, field)[:], dtype=torch.float64)
+        assert torch.equal(got, getattr(cam, attr).double()), field
+    for field in bounce_kernel.CAMERA_SCALARS:
+        assert getattr(p, field) == float(getattr(cam, field)), field
+    assert (p.width, p.height, p.lens, p.shutter) == (W, H, lens, shutter)
+    with pytest.raises(ValueError, match="float32"):
+        bounce_kernel.camera_fields(
+            camera.Camera(**{k: getattr(cam, k).double() for k in (
+                "origin", "lower_left", "horizontal", "vertical", "u", "v",
+                "lens_radius", "time0", "time1")}), W, H, True)
+
+
 def _flat(values):
     return [c for v in values for c in (v if isinstance(v, tuple) else (v,))]
 

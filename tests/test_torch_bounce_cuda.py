@@ -8,12 +8,14 @@ test configuration:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_bounce_cuda.py -q
 
 Each step compares the kernel step (``integrator._kernel_step_parts``: K5
-over the trees, then the kernel) with the eager step
+over the trees, then the kernel, which re-arms the lanes whose paths end)
+with the eager step followed by its re-arm
 (``integrator._eager_step_parts``: the same K5, K4 and draws kernels and
-PyTorch's ops) on one carry: the whole next carry, the re-arm mask and
-flag, the segments and the sphere winners.  The scenes hold every
-primitive, material, texture and medium kind between them; the widths take
-each of K5's record folds (planar, sphere) and none.
+PyTorch's ops; the re-arm ``camera.generate_rays``) on one carry: the whole
+next carry, the segments and the sphere winners.  The scenes hold every
+primitive, material, texture and medium kind between them, and cameras
+with and without a thin lens and a shutter; the widths take each of K5's
+record folds (planar, sphere) and none.
 """
 
 import collections
@@ -138,9 +140,10 @@ def _flat(state):
 def _check_steps(scene, cam, width, spp, dev, iters=7, seed=11,
                  max_depth=8):
     """``iters`` steps of a ``width``-lane stage (``spp`` lanes a pixel):
-    the kernel step against the eager step on each carry the eager loop
-    reaches, in new tensors and in place.  Returns the folds and how many
-    lanes were alive, hit a sphere and re-armed, summed over the steps."""
+    the kernel step against the eager step followed by its re-arm on each
+    carry the eager loop reaches, in new tensors and in place.  Returns how
+    many lanes were alive, hit a sphere and re-armed, summed over the
+    steps."""
     n_pix = width // spp
     pix = (torch.arange(width, device=dev) % n_pix)
     samp0 = torch.arange(width, device=dev) // n_pix
@@ -150,18 +153,19 @@ def _check_steps(scene, cam, width, spp, dev, iters=7, seed=11,
     cam_rays, k_step, k_rearm = integrator._kernel_step_parts(*args, k_hits)
     _, e_step, e_rearm = integrator._eager_step_parts(*args, e_hits)
     assert k_step.kind == "kernel" and e_step.kind == "eager"
+    assert k_step.rearms and k_rearm is None and not e_step.rearms
     state = integrator._regen_initial_state(cam_rays, samp0, 3 * spp)
     seen = collections.Counter()
     for it in range(iters):
         before = kernels.COUNTS["bounce"]
         got, g_regen, g_any = k_step(state)
         assert kernels.COUNTS["bounce"] == before + 1
+        assert g_regen is None and g_any is None
         want, w_regen, w_any = e_step(state)
+        if bool(w_any):
+            want = e_rearm(want, w_regen)
         for k, (a, b) in enumerate(zip(_flat(got), _flat(want))):
             assert _same(a, b), f"step {it}: carry tensor {k}: {_diff(a, b)}"
-        assert _same(g_regen, w_regen), f"step {it}: regen: " + _diff(
-            g_regen, w_regen)
-        assert bool(g_any) == bool(w_any)
         assert int(k_hits) == int(e_hits)
         # In place, into a copy of the carry: the same bits.
         bufs = [t.clone() for t in _flat(state)]
@@ -173,12 +177,7 @@ def _check_steps(scene, cam, width, spp, dev, iters=7, seed=11,
         k_hits.copy_(e_hits)
         seen["alive"] += int(state[6].sum())
         seen["regen"] += int(w_regen.sum())
-        if bool(w_any):
-            state = e_rearm(want, w_regen)
-            k_rearm(got, g_regen)  # clears the kernel's flag
-            assert int(g_any) == 0
-        else:
-            state = want
+        state = want
     seen["sphere_hits"] = int(e_hits)
     return seen
 
@@ -187,16 +186,18 @@ def _check_steps(scene, cam, width, spp, dev, iters=7, seed=11,
 @pytest.mark.parametrize("name", BENCH + tuple(LIBRARY))
 def test_kernel_step_equals_eager_step(name, fold, dev, tmp_path,
                                        monkeypatch):
-    """The kernel step's carry, re-arm mask and flag, segments and sphere
-    winners equal the eager step's, step by step, at a width where K5 folds
+    """The kernel step's carry, segments and sphere winners equal the eager
+    step's followed by its re-arm, step by step, at a width where K5 folds
     its winner record ("record": 8,192 lanes with the gates lowered to 4,096)
-    and one where it does not (2,048 lanes)."""
+    and one where it does not (2,048 lanes); lanes re-arm in the steps.
+    Scene 8, scene 1 (``random_scene``) and the metal scene take the
+    shutter, the last two the thin lens too."""
     monkeypatch.setattr(intersect, "FOLD_RECORD_MIN_B", 4096)
     monkeypatch.setattr(intersect, "FOLD_SPH_MIN_B", 4096)
     scene, cam = _scene(name, tmp_path, dev)
     width = 8192 if fold == "record" else 2048
     seen = _check_steps(scene, cam, width, width // (W * H), dev)
-    assert seen["alive"] > 0
+    assert seen["alive"] > 0 and seen["regen"] > 0
     want_fold = ({"mesh_capsule": "planar", "final_scene": "sphere",
                   "random_scene": "sphere"}.get(name)
                  if fold == "record" else None)
@@ -246,6 +247,61 @@ def test_graph_replay_equals_eager(name, dev, tmp_path, monkeypatch):
         if st.mode == "replay":
             assert st.step.held["bounce"] == 1
             assert st.step.held["draws"] == st.step.held["K4"] == 0
+
+
+@pytest.mark.parametrize("name", BENCH)
+def test_warm_wavefront_reads_the_alive_count_alone(name, dev, tmp_path,
+                                                    monkeypatch):
+    """A warmed ``trace_regenerative`` on the capsule and scene 8: every
+    iteration replays graph A alone, whose bounce kernel re-armed the
+    lanes (``rearm`` "kernel"), no stage holds a graph B, and the
+    ``wavefront.wait`` spans number the iterations, the stages and the
+    compactions.  The image and segments equal the eager step's with its
+    re-arm through graphs A and B, which reads twice an iteration."""
+    from another_raytracer_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(integrator, "REGEN_COMPACT_MIN_B", 1024)
+    monkeypatch.setattr(integrator, "_stages", collections.OrderedDict())
+    scene, cam = _scene(name, tmp_path, dev)
+    pix = torch.arange(W * H, device=dev).repeat(2)
+    samp0 = torch.arange(2, device=dev).repeat_interleave(W * H)
+    kw = dict(width=W, height=H, sample_stride=2, sample_end=6, spp_cap=6,
+              max_depth=8, t_min=T_MIN)
+
+    def warm_run():
+        for seed in (5, 6):  # the first captures, the second replays
+            integrator.trace_regenerative(scene, cam, pix, samp0, seed, **kw)
+        profiling.clear_spans()
+        with profiling.recording():
+            acc, segs = integrator.trace_regenerative(scene, cam, pix, samp0,
+                                                      7, **kw)
+        spans = profiling.spans()
+        profiling.clear_spans()
+        its = [s for s in spans if s.name == "wavefront.iteration"]
+        waits = sum(s.name == "wavefront.wait" for s in spans)
+        stages = sum(s.attrs["stages"] for s in spans
+                     if s.name == "wavefront")
+        compactions = sum(s.name == "wavefront.compact" for s in spans)
+        assert its and stages >= 2 and compactions == stages - 1
+        return (torch.stack(tuple(acc)), int(segs), its,
+                waits - stages - compactions)
+
+    img, segs, its, reads = warm_run()
+    assert {(s.attrs["graph"], s.attrs["step"], s.attrs["rearm"])
+            for s in its} == {("replay", "kernel", "kernel")}
+    assert reads == len(its)
+    for st in integrator._stages.values():
+        assert st.rearm is None and st.step.held["bounce"] == 1
+        assert st.step.held["draws"] == 0
+
+    with monkeypatch.context() as m:
+        m.setattr(integrator, "_regen_step_parts",
+                  integrator._eager_step_parts)
+        m.setattr(integrator, "_stages", collections.OrderedDict())
+        want_img, want_segs, want_its, want_reads = warm_run()
+    assert _same(img, want_img) and segs == want_segs
+    assert len(its) == len(want_its) and want_reads == 2 * len(want_its)
+    assert {s.attrs["rearm"] for s in want_its} == {"ops", "none"}
 
 
 @pytest.mark.parametrize("name", BENCH + ("cornell_smoke",))

@@ -149,30 +149,41 @@ def test_draws_kernel_refuses_what_it_does_not_take(dev):
 @pytest.mark.parametrize("name,held", [("mesh", 1), ("final_scene", 2)])
 def test_stage_graphs_hold_the_draw_launches(name, held, capsule_obj, dev,
                                              monkeypatch):
-    """A captured stage's two graphs hold one draws launch per
-    ``rng.uniform2`` call of an iteration: the step none (the bounce kernel
-    draws its media's, scatter A's and B's uniforms itself, in its one
-    launch) and the re-arm the camera's, the capsule (no motion) 1 (the
-    jitter), scene 8 (motion) 2 (the jitter and the shutter time)."""
+    """A captured stage's graphs hold one draws launch per ``rng.uniform2``
+    call of an iteration.  Through the bounce kernel: none, and no graph B
+    (the kernel draws its media's, scatter A's and B's uniforms and the
+    re-armed lanes' camera draws itself, in its one launch).  Through the
+    eager step: graph B, the re-arm, holds the camera's, the capsule (no
+    motion) 1 (the jitter), scene 8 (motion) 2 (the jitter and the shutter
+    time)."""
     import collections
 
     from another_raytracer_tpu_torch.ops import integrator
 
     monkeypatch.setattr(integrator, "REGEN_COMPACT_MIN_B", 1024)
-    monkeypatch.setattr(integrator, "_stages", collections.OrderedDict())
     scene, params = _media_scenes(capsule_obj)[name](device=dev)
     cam = camera.make_camera(aspect_ratio=W / H, device=dev, **params)
     pix = torch.arange(W * H, device=dev)
     samp0 = torch.zeros_like(pix)
     kw = dict(width=W, height=H, sample_stride=1, sample_end=4, spp_cap=4,
               max_depth=8, t_min=1e-3)
-    for seed in (5, 6):
-        integrator.trace_regenerative(scene, cam, pix, samp0, seed, **kw)
-    stage = next(iter(integrator._stages.values()))
-    assert stage.mode == "replay"
-    assert stage.step.held["draws"] + stage.rearm.held["draws"] == held
-    assert stage.rearm.held["draws"] == 1 + scene.has_motion
-    assert stage.step.held["bounce"] == 1 and stage.rearm.held["bounce"] == 0
+
+    def first_stage():
+        monkeypatch.setattr(integrator, "_stages", collections.OrderedDict())
+        for seed in (5, 6):
+            integrator.trace_regenerative(scene, cam, pix, samp0, seed, **kw)
+        stage = next(iter(integrator._stages.values()))
+        assert stage.mode == "replay"
+        return stage
+
+    stage = first_stage()
+    assert stage.rearm is None and stage._step.rearms
+    assert stage.step.held["draws"] == 0 and stage.step.held["bounce"] == 1
+    monkeypatch.setattr(integrator, "_regen_step_parts",
+                        integrator._eager_step_parts)
+    stage = first_stage()
+    assert stage.rearm.held["draws"] == held == 1 + scene.has_motion
+    assert stage.rearm.held["bounce"] == 0
 
 
 @pytest.mark.parametrize("name", list(SCENES))

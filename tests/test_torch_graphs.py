@@ -13,6 +13,9 @@ on the card.  The card's own graphs are tested in ``test_torch_cuda.py``.
   captures.  The cache keeps ``GRAPH_CACHE_SIZE`` stages.
 * A replay adds the launches its graph holds to the kernels' counts, under
   any name; a stage's key holds the tree K5 folds at its width.
+* A step that re-arms its lanes itself (the bounce kernel's contract, here
+  the eager step composed with its re-arm) gives the same bits and
+  iterations with one read of the card an iteration and no graph B.
 """
 
 import collections
@@ -273,3 +276,87 @@ def test_stage_key_holds_the_fold(monkeypatch):
     unfolded = integrator._stage(dev, width, parts_args)
     assert unfolded is not folded
     assert [k[-1] for k in integrator._stages] == ["sphere", None]
+
+
+def _rearming_parts(*args):
+    """The eager step composed with its re-arm, marked as a step that
+    re-arms its lanes: the bounce kernel's contract on the CPU."""
+    cam_rays, step, rearm = integrator._eager_step_parts(*args)
+
+    def rearming(state, into=None):
+        new, regen, _ = step(state)
+        return rearm(new, regen), None, None
+
+    rearming.kind, rearming.rearms = "eager", True
+    return cam_rays, rearming, None
+
+
+def _recorded(scene, cam, seed):
+    """Radiance sums, segments and the spans of a render of two samples a
+    pixel over ``W * H`` pixels, in three stages."""
+    profiling.clear_spans()
+    with profiling.recording():
+        acc, segs = render.radiance_batch(
+            scene, cam, torch.arange(W * H), seed, width=W, height=H,
+            sample_start=0, n_samples=4, spp_cap=4, samples_per_pass=2,
+            max_depth=8, t_min=1e-3)
+    spans = profiling.spans()
+    profiling.clear_spans()
+    return torch.stack(tuple(acc)), int(segs), spans
+
+
+def _reads(spans):
+    """(iteration spans, the ``wavefront.wait`` spans less one a stage and
+    one a compaction: the reads the loop bodies made)."""
+    its = [s for s in spans if s.name == "wavefront.iteration"]
+    stages = sum(s.attrs["stages"] for s in spans if s.name == "wavefront")
+    compactions = sum(s.name == "wavefront.compact" for s in spans)
+    assert stages == 3 and compactions == 2
+    waits = sum(s.name == "wavefront.wait" for s in spans)
+    return its, waits - stages - compactions
+
+
+@pytest.mark.parametrize("with_graphs", [True, False])
+def test_a_step_that_rearms_reads_once_an_iteration(with_graphs, graphs,
+                                                    monkeypatch):
+    """The eager loop against the same loop whose step re-arms its lanes
+    (``step.rearms``), with the graph path or without: the same radiance
+    and segments bit for bit, the same iterations and widths, one
+    ``wavefront.wait`` fewer an iteration and no graph B; each iteration
+    counts ``rearm``: "kernel" where the step re-armed, else "ops" where
+    the host read that a lane re-arms and "none" where it read none."""
+    if not with_graphs:
+        monkeypatch.delitem(integrator.GRAPHS, "cpu")
+    scene, cam = _scene("two_perlin_spheres")
+    runs = {}
+    for rearms in (False, True):
+        with monkeypatch.context() as m:
+            if rearms:
+                m.setattr(integrator, "_regen_step_parts", _rearming_parts)
+            m.setattr(integrator, "_stages", collections.OrderedDict())
+            captures = graphs.captures
+            runs[rearms] = [_recorded(scene, cam, seed) for seed in (5, 6)]
+            runs[rearms] += [graphs.captures - captures,
+                             list(integrator._stages.values())]
+    *want, want_captures, want_stages = runs[False]
+    *got, got_captures, got_stages = runs[True]
+    for (img, segs, spans), (w_img, w_segs, w_spans) in zip(got, want):
+        assert torch.equal(img, w_img) and segs == w_segs
+        its, reads = _reads(spans)
+        w_its, w_reads = _reads(w_spans)
+        assert ([(s.attrs["width"], s.attrs["alive"]) for s in its]
+                == [(s.attrs["width"], s.attrs["alive"]) for s in w_its])
+        assert reads == len(its) and w_reads == 2 * len(w_its)
+        assert {s.attrs["rearm"] for s in its} == {"kernel"}
+        assert {s.attrs["rearm"] for s in w_its} == {"ops", "none"}
+    if with_graphs:
+        # Graph A a stage where the step re-arms; A and B otherwise.
+        assert 2 * got_captures == want_captures == 2 * 3
+        assert len(got_stages) == len(want_stages) == 3
+        assert all(st.rearm is None for st in got_stages)
+        assert all(st.rearm is not None for st in want_stages)
+        assert {s.attrs["what"] for _, _, spans in got for s in spans
+                if s.name == "wavefront.capture"} == {"step"}
+    else:
+        assert got_captures == want_captures == 0
+        assert not got_stages and not want_stages

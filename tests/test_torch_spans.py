@@ -7,7 +7,9 @@ train paths, on the CPU at small sizes.
   child inside its parent, one request id, all inside a host-clock bracket
   taken around the call.
 * The wavefront's iteration spans count ``body``'s calls and carry the
-  alive lanes it started from, and ``graph``: ``eager`` on the CPU.
+  alive lanes it started from, ``graph``: ``eager`` on the CPU, and
+  ``rearm``: ``ops`` or ``none`` there; ``profiling.count`` adds a count
+  to the innermost open span.
 * Recording changes no image and no segment count.
 """
 
@@ -150,6 +152,46 @@ def test_iterations_run_eagerly_on_the_cpu(mode, narrow_stages):
         assert its and {s.attrs["graph"] for s in its} == {"eager"}
         assert "wavefront.capture" not in {s.name for s in spans}
     assert "cpu" not in integrator.GRAPHS
+
+
+def test_count_goes_to_the_innermost_open_span():
+    """``profiling.count`` adds counts to the innermost open span, and
+    does nothing where no span records."""
+    profiling.count(lost=1)
+    with profiling.span("off"):
+        profiling.count(lost=1)
+    with profiling.recording():
+        with profiling.span("outer", a=1):
+            with profiling.span("inner"):
+                pass
+            profiling.count(b=2)
+            with profiling.span("last"):
+                profiling.count(c=3)
+    assert [(s.name, s.attrs) for s in profiling.spans()] == [
+        ("outer", {"a": 1, "b": 2}), ("inner", {}), ("last", {"c": 3})]
+
+
+def test_iterations_count_their_rearm(narrow_stages):
+    """On the CPU the eager step's body reads whether a lane re-arms: each
+    iteration counts ``rearm`` "ops" (the re-arm ran) or "none", one
+    ``wavefront.wait`` "regen" an iteration, and ``trace_scene`` counts
+    them by kind."""
+    from another_raytracer_tpu_torch import trace_scene
+
+    scene, params = SCENES["wavefront"](device="cpu")
+    cam = camera.make_camera(aspect_ratio=W / H, device="cpu", **params)
+    with profiling.recording():  # two samples a lane
+        render.render(scene, cam, RenderConfig(
+            width=W, height=H, samples_per_pixel=4, samples_per_pass=2,
+            max_depth=8, seed=3))
+    spans = profiling.spans()
+    its = [s for s in spans if s.name == "wavefront.iteration"]
+    assert {s.attrs["rearm"] for s in its} == {"ops", "none"}
+    assert len(its) == sum(s.name == "wavefront.wait"
+                           and s.attrs["what"] == "regen" for s in spans)
+    by_kind = trace_scene.rearm_counts(spans, 2)
+    assert set(by_kind) == {"ops", "none"}
+    assert sum(by_kind.values()) == len(its) / 2
 
 
 @pytest.mark.parametrize("kind,mode", [
