@@ -29,8 +29,9 @@
 //   draws kernel's threefry (threefry.cuh);
 // * the carry update of the regenerating step: miss -> background, emission,
 //   throughput, origin, direction, bounce, the ended lanes' totals, their
-//   next sample; the segments and the sphere winners by integer atomics
-//   (exact, free of order);
+//   next sample; the segments, the sphere winners and (MEDIA) the medium
+//   winners, each a scatter in a medium, by integer atomics (exact, free
+//   of order);
 // * the re-arm (integrator._cam_rearm): a lane that ends with samples left
 //   gets its next sample's primary ray (camera.generate_rays, from the
 //   camera in Params), throughput 1 and bounce 0, so the host reads nothing
@@ -123,6 +124,7 @@ struct Params {
   const int64_t* pix;
   int64_t* segments;     // 0-d, added to
   int64_t* sphere_hits;  // 0-d, added to; null on a scene without spheres
+  int64_t* medium_scatters;  // 0-d, added to; null on a scene without media
   const int64_t* seed_at;
   // K5's chained winner (null on a scene without trees) and its fold.
   const float* k5_t;
@@ -741,11 +743,12 @@ __device__ __forceinline__ void camera_ray(const Params& p, uint32_t seed,
 
 template <int FOLD, bool MEDIA>
 __global__ void __launch_bounds__(BLOCK) bounce_kernel(const Params p) {
-  __shared__ int s_count[2];  // segments, sphere winners
-  if (threadIdx.x < 2) s_count[threadIdx.x] = 0;
+  __shared__ int s_count[3];  // segments, sphere winners, medium winners
+  if (threadIdx.x < 3) s_count[threadIdx.x] = 0;
   __syncthreads();
   const int64_t i = (int64_t)blockIdx.x * BLOCK + threadIdx.x;
-  bool scattered = false, regen = false, sphere_hit = false;
+  bool scattered = false, regen = false, sphere_hit = false,
+       medium_hit = false;
   if (i < p.n) {
     const bool alive = p.in_alive[i];
     V o = {p.in_f[0][i], p.in_f[1][i], p.in_f[2][i]};
@@ -838,6 +841,7 @@ __global__ void __launch_bounds__(BLOCK) bounce_kernel(const Params p) {
       }
       const bool hit = kind >= 0;
       sphere_hit = hit & (kind == PRIM_SPHERE);
+      if (MEDIA) medium_hit = kind == PRIM_MEDIUM;
       if (!hit) {
         const float4 bg = p.bg[0];
         miss_part = thr * xyz(bg);
@@ -920,11 +924,13 @@ __global__ void __launch_bounds__(BLOCK) bounce_kernel(const Params p) {
   const unsigned b_scat = __ballot_sync(FULL_MASK, scattered);
   const unsigned b_regen = __ballot_sync(FULL_MASK, regen);
   const unsigned b_sph = __ballot_sync(FULL_MASK, sphere_hit);
+  const unsigned b_med = MEDIA ? __ballot_sync(FULL_MASK, medium_hit) : 0u;
   if ((threadIdx.x & 31) == 0) {
     if (b_scat | b_regen) {
       atomicAdd(&s_count[0], __popc(b_scat) + __popc(b_regen));
     }
     if (b_sph) atomicAdd(&s_count[1], __popc(b_sph));
+    if (b_med) atomicAdd(&s_count[2], __popc(b_med));
   }
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -935,6 +941,10 @@ __global__ void __launch_bounds__(BLOCK) bounce_kernel(const Params p) {
     if (s_count[1] && p.sphere_hits != nullptr) {
       atomicAdd(reinterpret_cast<unsigned long long*>(p.sphere_hits),
                 (unsigned long long)s_count[1]);
+    }
+    if (MEDIA && s_count[2] && p.medium_scatters != nullptr) {
+      atomicAdd(reinterpret_cast<unsigned long long*>(p.medium_scatters),
+                (unsigned long long)s_count[2]);
     }
   }
 }

@@ -56,6 +56,26 @@ REGEN_COMPACT_MIN_B = 8192
 REGEN_COMPACT_SHRINK = 8
 REGEN_COMPACT_ROUND = 128
 
+# The regenerating wavefront's device counts (``trace_regenerative``'s
+# ``counts``), in the order of the step parts' last arguments, which take
+# them: the live lanes whose winner is a sphere, and those whose winner is
+# a medium (each a scatter in it), by the scene's field that counts that
+# kind; a scene without the kind runs no op for its count.
+COUNTED = (("sphere_hits", "n_spheres"), ("medium_scatters", "n_media"))
+
+
+def _counters(scene, device) -> dict:
+    """{name: a 0-d int64 zero on ``device``} of each count of ``COUNTED``
+    whose kind ``scene`` has."""
+    return {name: torch.zeros((), dtype=torch.int64, device=device)
+            for name, kind in COUNTED if getattr(scene, kind)}
+
+
+def _count_args(counters) -> list:
+    """``counters``' tensors in ``COUNTED``'s order, None for a count it
+    lacks: the step parts' last arguments."""
+    return [counters.get(name) for name, _ in COUNTED]
+
 
 def media_uniforms(scene, pixel_ids, sample_ids, bounce, seed):
     """One uniform per (ray, medium) for the free flights, [B, Nm]: lanes
@@ -72,7 +92,8 @@ def media_uniforms(scene, pixel_ids, sample_ids, bounce, seed):
 
 
 def _advance(scene, o, d, time, throughput, alive, pixel_ids, sample_ids,
-             bounce, seed, t_min, fast_texel=False, sphere_hits=None):
+             bounce, seed, t_min, fast_texel=False, sphere_hits=None,
+             medium_scatters=None):
     """The bounce contract (engine.h:447-466): winner search, miss ->
     background, emission, branchless scatter.
 
@@ -80,7 +101,8 @@ def _advance(scene, o, d, time, throughput, alive, pixel_ids, sample_ids,
     a backward (Perlin, K4), and the BVH kernel folds the winner's record of
     the tree ``intersect.fold_tree`` names at this width.
     ``sphere_hits``: a 0-d int64 tensor that the live lanes whose winner is
-    a sphere are added into, in place, on the device.
+    a sphere are added into, in place, on the device; ``medium_scatters``
+    the same for a medium (each such lane scatters in the medium).
 
     Returns (radiance_delta V3, hit_p V3, new_dir V3, attenuation V3,
     scattered [B] bool = alive & hit & scatter_ok).
@@ -102,6 +124,8 @@ def _advance(scene, o, d, time, throughput, alive, pixel_ids, sample_ids,
     hit = (kind >= 0) & alive
     if sphere_hits is not None:
         sphere_hits.add_((hit & (kind == scene_lib.PRIM_SPHERE)).sum())
+    if medium_scatters is not None:
+        medium_scatters.add_((hit & (kind == scene_lib.PRIM_MEDIUM)).sum())
 
     # Miss -> background * throughput, then die (engine.h:455-457).
     miss_now = alive & ~hit
@@ -164,15 +188,16 @@ def trace(scene, o: V3, d: V3, time, pixel_ids, sample_ids, seed,
 
 def _regen_step_parts(scene, cam, pix_ids, seed, width, height,
                       sample_stride, limit, max_depth, t_min,
-                      sphere_hits=None):
+                      sphere_hits=None, medium_scatters=None):
     """(cam_rays, step, rearm) of the regenerating wavefront, bound to one
     lane -> pixel assignment.  ``step(carry, into=None)`` maps the 10-tuple
     carry (o, d, time, throughput, total, path_rad, alive, sample, bounce,
     segments) to (the carry with the ended lanes' next samples and the
     re-armed lanes alive, ``regen``: the lanes to re-arm, ``any_regen``: a
     0-d tensor, true where one does), adding its sphere winners into
-    ``sphere_hits`` where given; ``into``, where given, is a carry of
-    buffers that the step may write into (the stage's, in place).
+    ``sphere_hits`` and its medium winners into ``medium_scatters`` where
+    given; ``into``, where given, is a carry of buffers that the step may
+    write into (the stage's, in place).
     ``rearm(carry, regen)`` gives those lanes their next sample's primary
     ray.  A step with ``step.rearms`` gives them their rays itself: its
     ``regen`` and ``any_regen`` are None, ``rearm`` is None, and the loop
@@ -185,7 +210,7 @@ def _regen_step_parts(scene, cam, pix_ids, seed, width, height,
     kernel's plain version."""
     parts = _kernel_step_parts if pix_ids.is_cuda else _eager_step_parts
     return parts(scene, cam, pix_ids, seed, width, height, sample_stride,
-                 limit, max_depth, t_min, sphere_hits)
+                 limit, max_depth, t_min, sphere_hits, medium_scatters)
 
 
 def _cam_rearm(scene, cam, pix_ids, seed, width, height):
@@ -214,7 +239,7 @@ def _cam_rearm(scene, cam, pix_ids, seed, width, height):
 
 def _eager_step_parts(scene, cam, pix_ids, seed, width, height,
                       sample_stride, limit, max_depth, t_min,
-                      sphere_hits=None):
+                      sphere_hits=None, medium_scatters=None):
     """``_regen_step_parts`` as tensor ops (``_advance``), on any device:
     the bounce kernel's plain version."""
     cam_rays, rearm = _cam_rearm(scene, cam, pix_ids, seed, width, height)
@@ -224,7 +249,8 @@ def _eager_step_parts(scene, cam, pix_ids, seed, width, height,
          segments) = state
         delta, hit_p, new_dir, attenuation, scattered = _advance(
             scene, o, d, time, throughput, alive, pix_ids, sample, bounce,
-            seed, t_min, fast_texel=True, sphere_hits=sphere_hits)
+            seed, t_min, fast_texel=True, sphere_hits=sphere_hits,
+            medium_scatters=medium_scatters)
         path_rad = path_rad + delta
         throughput = vec3.where(scattered, throughput * attenuation, throughput)
         o = vec3.where(scattered, hit_p, o)
@@ -258,7 +284,7 @@ def _eager_step_parts(scene, cam, pix_ids, seed, width, height,
 
 def _kernel_step_parts(scene, cam, pix_ids, seed, width, height,
                        sample_stride, limit, max_depth, t_min,
-                       sphere_hits=None):
+                       sphere_hits=None, medium_scatters=None):
     """``_regen_step_parts`` on CUDA lanes: K5 over the scene's trees
     (``intersect.tree_winners``), then one launch of the bounce kernel
     (``ops/kernels/bounce_kernel.py``) for everything after, the re-arm
@@ -281,7 +307,8 @@ def _kernel_step_parts(scene, cam, pix_ids, seed, width, height,
         new = bounce_kernel.launch(
             scene, state, pix_ids, seed, winners, fold=fold, camera=camera,
             sample_stride=sample_stride, limit=limit, max_depth=max_depth,
-            t_min=t_min, sphere_hits=sphere_hits, into=into)
+            t_min=t_min, sphere_hits=sphere_hits,
+            medium_scatters=medium_scatters, into=into)
         return new, None, None
 
     step.kind, step.rearms = "kernel", True
@@ -290,7 +317,7 @@ def _kernel_step_parts(scene, cam, pix_ids, seed, width, height,
 
 def _regen_loop_parts(scene, cam, pix_ids, seed, width, height,
                       sample_stride, limit, max_depth, t_min,
-                      sphere_hits=None):
+                      sphere_hits=None, medium_scatters=None):
     """(cam_rays, body) of the regenerating wavefront, bound to one
     lane -> pixel assignment; a compaction stage rebinds to the gathered
     survivors' pixels.  ``body`` maps the 10-tuple carry to the next: the
@@ -302,7 +329,7 @@ def _regen_loop_parts(scene, cam, pix_ids, seed, width, height,
     ``body.step`` is the step's ``kind``."""
     cam_rays, step, rearm = _regen_step_parts(
         scene, cam, pix_ids, seed, width, height, sample_stride, limit,
-        max_depth, t_min, sphere_hits)
+        max_depth, t_min, sphere_hits, medium_scatters)
 
     def body(state):
         state, regen, any_regen = step(state)
@@ -471,16 +498,16 @@ class _Stage:
     carry back in place (the bounce kernel writes it there itself).  A step
     that re-arms (the bounce kernel's, on the card) is the whole loop body;
     after any other, the body reads the re-arm flag and graph B (``rearm``)
-    is the re-arm, which writes the carry back likewise.  On a scene with spheres graph A also adds its sphere
-    winners into ``hits``, which ``load`` zeroes.  The key's first
-    iteration runs eagerly (``ran``); its second captures the graphs, and
-    every later one replays them."""
+    is the re-arm, which writes the carry back likewise.  Graph A also adds
+    the scene's counts (``COUNTED``) into ``counters``, which ``load``
+    zeroes.  The key's first iteration runs eagerly (``ran``); its second
+    captures the graphs, and every later one replays them."""
 
     def __init__(self, device, parts_args):
         self.device = device
         self.parts_args = parts_args  # (scene, cam, width, ..., t_min)
         self.ran = 0
-        self.bufs = self.seed = self.hits = self.capture = None
+        self.bufs = self.seed = self.counters = self.capture = None
         self.step = self.rearm = self.regen = self._step = self._rearm = None
 
     @property
@@ -496,12 +523,11 @@ class _Stage:
         if self.bufs is None:
             self.bufs = [torch.empty_like(t) for t in flat]
             self.seed = torch.empty((), dtype=torch.int64, device=self.device)
-            if self.parts_args[0].n_spheres:
-                self.hits = torch.empty_like(self.seed)
+            self.counters = _counters(self.parts_args[0], self.device)
         _copy_into(self.bufs, flat)
         self.seed.fill_(seed)
-        if self.hits is not None:
-            self.hits.zero_()
+        for count in self.counters.values():
+            count.zero_()
         return _unflatten(self.bufs[:-1])
 
     def iterate(self):
@@ -529,7 +555,8 @@ class _Stage:
         self.capture = GRAPHS[self.device.type](self.device)
         # The stage keeps the parts: the graphs read buffers they hold.
         _, self._step, self._rearm = _regen_step_parts(
-            scene, cam, self.bufs[-1], self.seed, *rest, self.hits)
+            scene, cam, self.bufs[-1], self.seed, *rest,
+            *_count_args(self.counters))
 
         def run_step():
             new, regen, any_regen = self._step(state, into=state)
@@ -604,9 +631,11 @@ def trace_regenerative(scene, cam, pixel_ids, sample_ids0, seed, *,
     ``pixel_ids`` / ``sample_ids0`` are int64 [B] tensors of uint32 values.
     Returns (radiance V3 [B] per-lane sums, segments int64 scalar tensor).
     On a scene with spheres the loop also counts the live lanes whose
-    winner is a sphere, on the device (graphs and eager alike); ``counts``
-    (a dict, optional) then receives that count under ``"sphere_hits"``
-    (an int64 scalar tensor).  A scene without spheres runs no op for it.
+    winner is a sphere, and on one with media those whose winner is a
+    medium, each a scatter in it, on the device (graphs and eager alike);
+    ``counts`` (a dict, optional) then receives each count under its name
+    in ``COUNTED``, ``"sphere_hits"`` and ``"medium_scatters"`` (int64
+    scalar tensors).  A scene without the kind runs no op for its count.
     Not differentiable: the loop's trip count depends on the data.
     """
     limit = min(int(sample_end), int(spp_cap), rng.MASK32)
@@ -614,11 +643,11 @@ def trace_regenerative(scene, cam, pixel_ids, sample_ids0, seed, *,
     widths = _stage_widths(B)
     parts_args = (scene, cam, width, height, sample_stride, limit, max_depth,
                   t_min)
-    hits = (torch.zeros((), dtype=torch.int64, device=pixel_ids.device)
-            if scene.n_spheres else None)
+    counters = _counters(scene, pixel_ids.device)
     with profiling.span("wavefront", lanes=B, stages=len(widths)):
         cam_rays, body = _regen_loop_parts(scene, cam, pixel_ids, seed,
-                                           *parts_args[2:], hits)
+                                           *parts_args[2:],
+                                           *_count_args(counters))
         state = _regen_initial_state(cam_rays, sample_ids0 & rng.MASK32,
                                      limit)
         pix = pixel_ids
@@ -630,7 +659,8 @@ def trace_regenerative(scene, cam, pixel_ids, sample_ids0, seed, *,
                                                alive_count)
                 backmaps.append(backmap)
                 _, body = _regen_loop_parts(scene, cam, pix, seed,
-                                            *parts_args[2:], hits)
+                                            *parts_args[2:],
+                                            *_count_args(counters))
             in_bufs = False  # the carry lives in the stage's graph buffers
             # The alive count only shrinks (a lane that has spent its
             # samples never re-arms), so it is <= the floor on exit.
@@ -653,8 +683,9 @@ def trace_regenerative(scene, cam, pixel_ids, sample_ids0, seed, *,
                             state = stage.load(state, pix, seed)
                             in_bufs = True
                         state = stage.iterate()
-            if in_bufs and hits is not None:
-                hits.add_(stage.hits)
+            if in_bufs:
+                for name, count in counters.items():
+                    count.add_(stage.counters[name])
 
         total, segments = state[4], state[9]
         if in_bufs:  # nothing returned may alias a graph's buffer
@@ -665,6 +696,6 @@ def trace_regenerative(scene, cam, pixel_ids, sample_ids0, seed, *,
             count = src.shape[0]
             total = V3(*(p.index_copy(0, src, c[:count])
                          for p, c in zip(parent, total)))
-    if counts is not None and hits is not None:
-        counts["sphere_hits"] = hits
+    if counts is not None:
+        counts.update(counters)
     return total, segments

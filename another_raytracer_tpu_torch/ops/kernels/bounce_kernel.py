@@ -61,7 +61,7 @@ class Params(ctypes.Structure):
                  ("out_alive", _P), ("out_sample", _P), ("out_bounce", _P)]
                 + [(n, _P) for n in (
                     "in_time", "out_time", "pix", "segments", "sphere_hits",
-                    "seed_at", "k5_t", "k5_code", "aux")]
+                    "medium_scatters", "seed_at", "k5_t", "k5_code", "aux")]
                 + [(n, _P) for n, _ in FLOAT_ROWS]
                 + [(n, _P) for n in INT_SECTIONS]
                 + [("atlas", _P), ("perlin", _P)]
@@ -218,7 +218,7 @@ def launch(scene, state, pix, seed, winners, **kw):
 
 def prepare_launch(scene, state, pix, seed, winners, *, fold, camera,
                    sample_stride, limit, max_depth, t_min, sphere_hits=None,
-                   into=None):
+                   medium_scatters=None, into=None):
     """Everything one launch needs: returns (run, the next carry).
     ``run()`` is the bare launch on the current stream and returns the CUDA
     error code.
@@ -227,11 +227,12 @@ def prepare_launch(scene, state, pix, seed, winners, *, fold, camera,
     scene without trees); ``fold``: ``intersect.fold_tree``'s answer at this
     width; ``camera``: ``camera_fields``' for the stage, which the lanes
     that end with samples left below ``limit`` take their next sample's
-    ray from.  The segments (and the sphere winners into ``sphere_hits``, a
-    0-d int64) are added on the card.  ``seed``: an int or a 0-d int64
-    tensor on the carry's device (read at launch, so a CUDA graph's replay
-    takes the seed it holds then).  Raises on anything the kernel does not
-    take."""
+    ray from.  The segments (and the sphere winners into ``sphere_hits``
+    and the medium winners, each a scatter in a medium, into
+    ``medium_scatters``, each a 0-d int64) are added on the card.
+    ``seed``: an int or a 0-d int64 tensor on the carry's device (read at
+    launch, so a CUDA graph's replay takes the seed it holds then).  Raises
+    on anything the kernel does not take."""
     (o, d, time, thr, total, prad, alive, sample, bounce, segments) = state
     dev, n = o.x.device, o.x.shape[0]
     if dev.type != "cuda":
@@ -245,7 +246,9 @@ def prepare_launch(scene, state, pix, seed, winners, *, fold, camera,
     _check("bounce", bounce, n, torch.int64, dev)
     _check("pix", pix, n, torch.int64, dev)
     for name, t, dtype in (("segments", segments, torch.int64),
-                           ("sphere_hits", sphere_hits, torch.int64)):
+                           ("sphere_hits", sphere_hits, torch.int64),
+                           ("medium_scatters", medium_scatters,
+                            torch.int64)):
         if t is not None and (t.dtype != dtype or t.device != dev
                               or t.dim() != 0):
             raise ValueError(f"{name} must be a 0-d {dtype} tensor on {dev}")
@@ -287,6 +290,8 @@ def prepare_launch(scene, state, pix, seed, winners, *, fold, camera,
     p.in_time, p.out_time = time.data_ptr(), time2.data_ptr()
     p.pix, p.segments = pix.data_ptr(), segments2.data_ptr()
     p.sphere_hits = None if sphere_hits is None else sphere_hits.data_ptr()
+    p.medium_scatters = (None if medium_scatters is None
+                         else medium_scatters.data_ptr())
     if isinstance(seed, torch.Tensor):
         if seed.dtype != torch.int64 or seed.dim() != 0 or seed.device != dev:
             raise ValueError(f"a tensor seed must be a 0-d int64 tensor on "
@@ -331,8 +336,8 @@ def prepare_launch(scene, state, pix, seed, winners, *, fold, camera,
         stream = torch.cuda.current_stream(dev).cuda_stream
     instance = (FOLDS[fold], int(scene.n_media > 0))
 
-    def run(_inputs=(state, into, pix, seed, winners, sphere_hits, f, i,
-                     perlin, atlas)):
+    def run(_inputs=(state, into, pix, seed, winners, sphere_hits,
+                     medium_scatters, f, i, perlin, atlas)):
         # The default keeps the tensors behind p's pointers alive.
         return fn(ctypes.byref(p), *instance, stream)
 

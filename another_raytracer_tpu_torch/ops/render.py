@@ -60,7 +60,7 @@ def radiance_batch(scene, cam, pixel_ids, seed, *, width, height,
     ``counts`` (a dict, forward renders): receives the device counts of
     the wavefront (``integrator.trace_regenerative``) or of the megakernel
     (``mega_kernel.trace_regenerative_mega``): the sphere hits, on a scene
-    with spheres.
+    with spheres, and the medium scatters, on a scene with media.
 
     Returns (radiance_sum V3 of [Np], segments int64 scalar tensor).
     """
@@ -258,7 +258,9 @@ def render(scene, cam, config: RenderConfig, progress=None, partition=None):
 
     The ``render`` span counts the render's ``segments`` and, in single mode
     on a scene with spheres (the wavefront, K1 or K3), ``sphere_hits``: the
-    paths' segments whose closest hit is a sphere, read with the segments.
+    paths' segments whose closest hit is a sphere; on a scene with media
+    (the wavefront), ``medium_scatters``: those whose closest hit is a
+    medium, each a scatter in it; all read in one transfer.
     """
     counts = {}
     with profiling.span("render", mode=config.mode.value, width=config.width,
@@ -300,9 +302,11 @@ def _render(scene, cam, config, progress, partition, counts):
         img = color_lib.to_uint8(torch.stack(tuple(acc), dim=-1),
                                  config.samples_per_pixel)
         img = img.cpu().numpy().reshape(config.height, config.width, 3)
-        if "sphere_hits" in counts:  # one read for both counts
-            segments, counts["sphere_hits"] = torch.stack(
-                (segments, counts["sphere_hits"])).tolist()
+        if counts:  # one read for the segments and the counts
+            names = list(counts)
+            segments, *values = torch.stack(
+                (segments, *(counts[k] for k in names))).tolist()
+            counts.update(zip(names, values))
         else:
             segments = int(segments)
     if progress is not None:  # single mode: one final frame

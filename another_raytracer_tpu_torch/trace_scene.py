@@ -21,8 +21,9 @@ the profiler slows every launch), the device's idle ms a run in each span
 (a gap between the card's activities goes to the innermost span open at its
 middle) and the ``GAPS`` longest gaps; last the ``render`` span's counts
 a run, ``segments`` and, where the wavefront renders spheres,
-``sphere_hits``, and the wavefront's iterations a run by their ``rearm``
-(``kernel`` where the bounce kernel re-armed the lanes).  On the CPU
+``sphere_hits``, where it renders media, ``medium_scatters``, and the
+wavefront's iterations a run by their ``rearm`` (``kernel`` where the
+bounce kernel re-armed the lanes).  On the CPU
 (``--cpu``) the tables hold the host's top-level operators (no device time
 exists there, nor idle time).  The
 trace is written under ``--log-dir`` where given, else into a
@@ -229,10 +230,11 @@ def span_table(spans, runs, events=None, bare=None) -> dict:
 
 def render_counts(spans, runs) -> dict:
     """The counts of the ``render`` root spans (``segments``,
-    ``sphere_hits``) a run, those that some span holds."""
+    ``sphere_hits``, ``medium_scatters``) a run, those that some span
+    holds."""
     roots = [s for s in spans if s.parent < 0 and s.name == "render"]
     return {k: sum(s.attrs.get(k, 0) for s in roots) / runs
-            for k in ("segments", "sphere_hits")
+            for k in ("segments", "sphere_hits", "medium_scatters")
             if any(k in s.attrs for s in roots)}
 
 

@@ -141,17 +141,19 @@ def _check_steps(scene, cam, width, spp, dev, iters=7, seed=11,
                  max_depth=8):
     """``iters`` steps of a ``width``-lane stage (``spp`` lanes a pixel):
     the kernel step against the eager step followed by its re-arm on each
-    carry the eager loop reaches, in new tensors and in place.  Returns how
-    many lanes were alive, hit a sphere and re-armed, summed over the
-    steps."""
+    carry the eager loop reaches, in new tensors and in place, with the
+    sphere winners and the medium scatters each counts.  Returns how many
+    lanes were alive, hit a sphere, scattered in a medium and re-armed,
+    summed over the steps."""
     n_pix = width // spp
     pix = (torch.arange(width, device=dev) % n_pix)
     samp0 = torch.arange(width, device=dev) // n_pix
     args = (scene, cam, pix, seed, W, H, spp, 3 * spp, max_depth, T_MIN)
-    k_hits = torch.zeros((), dtype=torch.int64, device=dev)
-    e_hits = torch.zeros((), dtype=torch.int64, device=dev)
-    cam_rays, k_step, k_rearm = integrator._kernel_step_parts(*args, k_hits)
-    _, e_step, e_rearm = integrator._eager_step_parts(*args, e_hits)
+    k_hits, e_hits, k_scat, e_scat = (
+        torch.zeros((), dtype=torch.int64, device=dev) for _ in range(4))
+    cam_rays, k_step, k_rearm = integrator._kernel_step_parts(*args, k_hits,
+                                                              k_scat)
+    _, e_step, e_rearm = integrator._eager_step_parts(*args, e_hits, e_scat)
     assert k_step.kind == "kernel" and e_step.kind == "eager"
     assert k_step.rearms and k_rearm is None and not e_step.rearms
     state = integrator._regen_initial_state(cam_rays, samp0, 3 * spp)
@@ -167,6 +169,7 @@ def _check_steps(scene, cam, width, spp, dev, iters=7, seed=11,
         for k, (a, b) in enumerate(zip(_flat(got), _flat(want))):
             assert _same(a, b), f"step {it}: carry tensor {k}: {_diff(a, b)}"
         assert int(k_hits) == int(e_hits)
+        assert int(k_scat) == int(e_scat)
         # In place, into a copy of the carry: the same bits.
         bufs = [t.clone() for t in _flat(state)]
         carry = integrator._unflatten(bufs)
@@ -175,10 +178,12 @@ def _check_steps(scene, cam, width, spp, dev, iters=7, seed=11,
         for k, (a, b) in enumerate(zip(bufs, _flat(want))):
             assert _same(a, b), f"step {it}: in place, tensor {k} differs"
         k_hits.copy_(e_hits)
+        k_scat.copy_(e_scat)
         seen["alive"] += int(state[6].sum())
         seen["regen"] += int(w_regen.sum())
         state = want
     seen["sphere_hits"] = int(e_hits)
+    seen["medium_scatters"] = int(e_scat)
     return seen
 
 
@@ -214,6 +219,77 @@ def test_kernel_step_at_the_benchmark_widths(dev, tmp_path):
         assert intersect.fold_tree(scene, 6144) is None
         _check_steps(scene, cam, 388800, 400, dev, iters=3)
         _check_steps(scene, cam, 6144, 3, dev, iters=3)
+
+
+def test_tree_less_media_step_at_the_cell_s_width(dev, tmp_path):
+    """Scene 7 as ``cornell_smoke.render`` runs it: no tree, so the step is
+    the bounce kernel's tree-less media instance alone (its own rect sweep
+    finds the winner), at the cell's 388,800 lanes and a narrow stage's
+    6,144; the carry bit for bit and the medium scatters equal to the
+    eager step's, which counts them with tensor ops."""
+    scene, cam = _bench_scene("cornell_smoke", tmp_path, dev)
+    assert not scene.has_accel and scene.n_media == 2
+    assert intersect.fold_tree(scene, 388800) is None
+    for width, spp in ((388800, 400), (6144, 3)):
+        before = kernels.launch_counts()
+        seen = _check_steps(scene, cam, width, spp, dev, iters=4,
+                            max_depth=50)
+        after = kernels.launch_counts()
+        assert after["K5"] == before["K5"] and after["K4"] == before["K4"]
+        assert seen["medium_scatters"] > 0 and seen["sphere_hits"] == 0
+        assert seen["regen"] > 0
+
+
+def test_scene_7_render_launches_no_tree_kernel(dev, tmp_path, monkeypatch):
+    """A render of ``cornell_smoke`` at the cell's 720 x 540 (spp 2) through
+    ``ops.render.render``: no K5, K4 or megakernel launch, one bounce launch
+    an iteration, one draws launch (the first camera rays, before the
+    loop), and on the render after the warm one every iteration
+    replays its stage's graph A, which holds the bounce kernel alone; the
+    span's medium scatters equal the eager render's and the image and
+    segments its bits."""
+    import json
+
+    from benchmark import harness, inputs, scenes
+    from another_raytracer_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(integrator, "_stages", collections.OrderedDict())
+    cfg = json.loads((harness.ROOT / "configs"
+                      / "cornell_smoke.json").read_text())
+    scene, cam = scenes.build(cfg, inputs.write_inputs(cfg, str(tmp_path)),
+                              720, 540, dev)
+    config = RenderConfig(width=720, height=540, samples_per_pixel=2,
+                          max_depth=50, seed=3_000_000_001)
+
+    def run():
+        profiling.clear_spans()
+        with profiling.recording():
+            img, stats = render.render(scene, cam, config)
+        spans = profiling.spans()
+        profiling.clear_spans()
+        root = [s for s in spans if s.name == "render"][0]
+        its = [s for s in spans if s.name == "wavefront.iteration"]
+        return img, stats, root.attrs, its
+
+    render.render(scene, cam, config)  # captures
+    kernels.reset_launch_counts()
+    img, stats, attrs, its = run()
+    launched = kernels.launch_counts()
+    assert launched["bounce"] == len(its) > 0
+    assert all(launched[k] == 0 for k in ("K1", "K3", "K5", "K4"))
+    assert launched["draws"] == 1
+    assert {s.attrs["graph"] for s in its} == {"replay"}
+    for st in integrator._stages.values():
+        assert st.rearm is None and st.step.held["bounce"] == 1
+        assert st.step.held["K5"] == st.step.held["draws"] == 0
+    assert 0 < attrs["medium_scatters"] < attrs["segments"]
+    with monkeypatch.context() as m:
+        m.setattr(integrator, "_regen_step_parts",
+                  integrator._eager_step_parts)
+        m.setattr(integrator, "_stages", collections.OrderedDict())
+        want, want_stats, want_attrs, _ = run()
+    assert np.array_equal(img, want) and stats == want_stats
+    assert attrs == want_attrs
 
 
 @pytest.mark.parametrize("name", BENCH)

@@ -336,7 +336,7 @@ def test_graph_path_counts_the_same_sphere_hits(monkeypatch):
 
 def test_scene_without_spheres_counts_nothing(monkeypatch):
     """No sphere: the wavefront gets no counter and the span no
-    ``sphere_hits``."""
+    ``sphere_hits`` (scene 7's media give it ``medium_scatters`` alone)."""
     given = []
     real = integrator._advance
 
@@ -351,7 +351,8 @@ def test_scene_without_spheres_counts_nothing(monkeypatch):
                           height=12, sample_start=0, n_samples=1, spp_cap=1,
                           samples_per_pass=1, max_depth=4, t_min=T_MIN,
                           counts=counts)
-    assert given and all(g is None for g in given) and counts == {}
+    assert given and all(g is None for g in given)
+    assert set(counts) == {"medium_scatters"}
     stats, attrs, _ = _counted_render(scene, cam)
     assert attrs["segments"] == stats["segments"]
     assert "sphere_hits" not in attrs
@@ -359,14 +360,17 @@ def test_scene_without_spheres_counts_nothing(monkeypatch):
 
 def test_trace_scene_prints_the_render_counts(capsys):
     """``trace_scene --entry`` on scene 8 (the ``final`` row) reads the
-    ``render`` span's counts and prints them."""
+    ``render`` span's counts, its media's scatters among them, and prints
+    them."""
     from another_raytracer_tpu_torch import trace_scene
 
     s = trace_scene.trace("final", "cpu", size=(12, 8, 1, 3), entry=True)
     counts = s["counts"]
-    assert set(counts) == {"segments", "sphere_hits"}
+    assert set(counts) == {"segments", "sphere_hits", "medium_scatters"}
     assert 0 < counts["sphere_hits"] < counts["segments"]
+    assert 0 < counts["medium_scatters"] < counts["segments"]
     trace_scene.report(s)
     out = capsys.readouterr().out
     assert (f"segments {counts['segments']:.1f}, sphere_hits "
-            f"{counts['sphere_hits']:.1f}") in out
+            f"{counts['sphere_hits']:.1f}, medium_scatters "
+            f"{counts['medium_scatters']:.1f}") in out
